@@ -31,7 +31,43 @@ each on standard output (the per-shape details go to standard error):
    ResNet-18's end-to-end time per batch at 1 and 16 (host clock around
    ``run`` and a device synchronize, median of 10), with the device's
    busy time (profiler device events) and idle share of those forwards
-   (``forward_profile``).
+   (``forward_profile``);
+8. the batched launches at vit_tiny's dynamic shapes (48 slices of
+   64x64x64): ``crossbar_gemm`` on both branches and ``fb_epilogue``
+   (scores: softmax + post_scale; context: plain dequant) in one launch
+   each, equal to the plain versions on the same inputs and to the
+   per-slice 2-D calls (``torch.equal``; softmax to 1e-6);
+9. ``flash_attention`` against its plain version: float32 at
+   (1,128,1,64) and (2,256,4,64) causal and not, a 128-key window at
+   (1,512,2,64), vit's (16,64,3,64) and the attention path's
+   (1,T,4,16) for T = 16, 64, 256, to 1e-4; bfloat16 at (1,256,2,64) to 2e-2; GQA through
+   ``ops.attention`` at (1,256,8,64) with 2 kv heads;
+10. ``fused_gemm_epilogue`` against its plain version at 128x256x128,
+    256x512x384, 128x1024x256 and 256x512x256, every activation, with
+    and without residual, float32 (1e-4) and bfloat16 (2e-2);
+11. ``packed_gemm`` against its plain version, and ``ops.grouped_gemm``
+    against ``packed_gemm_ref``, for the group sizes of
+    ``tests/test_kernels.py`` (the second is the kernel bench's case),
+    K=128, N=256, to 1e-4;
+12. the sequence path: ``repro_torch.api.compile("vit_tiny")`` at full
+    width (dim 192, 3 heads, depth 2, 64 tokens) serving batches 1, 3
+    and 16 against the CPU plain path (argmax agreement 1.0, logits to
+    a relative 1e-2, probabilities to 1e-3); every
+    dynamic stage makes exactly one ``crossbar_gemm`` and one
+    ``fb_epilogue`` launch; time per batch at 1 and 16 and the device's
+    idle share, as in 7;
+13. the attention path: one ``attention(4)`` layer (dim 64, batch 1,
+    ``HurryConfig(array_rows=511)``) at T = 16, 64, 256 through
+    ``api.compile(...).run``, against ``ops.attention(causal=False)``
+    on the same projected q/k/v followed by the same output projection
+    (relative error < 0.12, correlation > 0.99), with both times;
+14. the ops entry point: ``repro_torch.kernels.ops``' five wrappers at
+    the kernel bench's shapes, each launching its kernel once and
+    agreeing with its plain version;
+15. times of the new kernels and of vit_tiny's dynamic stages, as in 7,
+    with ``F.scaled_dot_product_attention``, ``torch.addmm`` (bias only;
+    the activation is left out) and a per-group ``torch.matmul`` loop
+    as the library yardsticks.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -39,6 +75,7 @@ The line before the last is the JSON record of the kernels; the last is
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
@@ -52,6 +89,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
+ATTN_T = (16, 64, 256)           # the attention bench's sequence lengths
+GROUP_SIZES = ([256, 128, 384], [200, 56, 300, 100], [128], [0, 256, 0, 128])
 TIMED_LAUNCHES = 25
 # (mode name, fb_epilogue kwargs, needs residual, atol, reason).  atol 0
 # means bit for bit: the kernel and the plain version round the same
@@ -180,6 +220,23 @@ def wall_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
+def events_ms(fn, calls: int = TIMED_LAUNCHES) -> float:
+    """Time per call of ``fn`` between two CUDA events around ``calls``
+    calls, after 3 warm-ups: for functions that synchronize with the host
+    and cannot be captured in a graph (launch gaps included)."""
+    import torch
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 def gemm_bound(M: int, N: int, K: int, sliced: bool) -> tuple[float, float]:
     """(bytes-bound ms, operations-bound ms) of one crossbar GEMM.
 
@@ -220,6 +277,348 @@ def stage_shapes(model, batch: int) -> list[dict]:
                         N=st.w8.shape[1], rows=gemm.tile_rows, fb=kw,
                         res=has_res, out_rows=n_out, w8=st.w8))
     return out
+
+
+def attn_bound(B: int, Sq: int, Sk: int, H: int,
+               hd: int) -> tuple[float, float]:
+    """(bytes-bound ms, operations-bound ms) of one non-causal float32
+    attention: q, k, v read once and the output written once;
+    4*Sq*Sk*hd float32 operations per (b, h) for the scores and the
+    weighted sum."""
+    nbytes = 4 * B * H * hd * (2 * Sq + 2 * Sk)
+    ops = 4 * B * H * Sq * Sk * hd
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+def float_gemm_bound(M: int, K: int, N: int, w_elems: int,
+                     extra_out: int = 0) -> tuple[float, float]:
+    """(bytes-bound ms, operations-bound ms) of a float32 GEMM: x, w (and
+    ``extra_out`` more (M, N) operands such as bias broadcast or residual)
+    read once, the output written once; 2*M*K*N float32 operations."""
+    nbytes = 4 * (M * K + w_elems + M * N * (1 + extra_out))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * M * K * N / F32_OPS_PER_S * 1e3)
+
+
+def batched_phase(dev, gen) -> tuple[int, int, float]:
+    """Phase 8: one batched launch at vit_tiny's dynamic shapes (batch 16
+    x 3 heads, 64 tokens, hd 64), held against the plain versions on the
+    same inputs and against the per-slice 2-D calls.  Returns the
+    kernel-against-plain errors: exact GEMM, sliced GEMM, epilogue."""
+    import torch
+    from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_ref,
+                                     fb_epilogue, fb_epilogue_ref)
+    S, T, hd = 16 * 3, 64, 64
+    x = torch.randint(-128, 128, (S, T, hd), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (S, hd, T), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[:, :8] = -1                        # all bits set: counts reach rows
+    w[:, :, :8] = -1
+    gemm_err = {}
+    for adc in (9, 5):                   # 64 rows: exact; then sliced
+        before = crossbar_gemm.launches
+        y = crossbar_gemm(x, w, adc_bits=adc, rows=hd)
+        check(crossbar_gemm.launches - before == 1,
+              "batched crossbar_gemm is not one launch")
+        ref = crossbar_gemm_ref(x, w, adc_bits=adc, rows=hd)
+        gemm_err[adc] = (y.long() - ref.long()).abs().max().item()
+        check(torch.equal(y, ref), f"batched crossbar_gemm (adc {adc}) "
+              f"differs from the plain version by {gemm_err[adc]}")
+        per = torch.stack([crossbar_gemm(x[i], w[i], adc_bits=adc, rows=hd)
+                           for i in range(S)])
+        check(torch.equal(y, per), f"batched crossbar_gemm (adc {adc}) "
+              "differs from the per-slice calls")
+    y32 = torch.randint(-2 ** 16, 2 ** 16, (S, T, T), generator=gen,
+                        device=dev, dtype=torch.int32)
+    scale = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
+    bias = torch.zeros(T, device=dev)
+    fb_err = 0.0
+    # the tolerances of FB_CASES: softmax to the order of the row sum,
+    # the FMA dequant with the same roundings
+    for kw, atol in ((dict(softmax=True, post_scale=0.125), 1e-6),
+                     (dict(), 0.0)):
+        before = fb_epilogue.launches
+        out = fb_epilogue(y32, scale, bias, **kw)
+        check(fb_epilogue.launches - before == 1,
+              "batched fb_epilogue is not one launch")
+        err = (out - fb_epilogue_ref(y32, scale, bias, **kw)).abs().max()
+        fb_err = max(fb_err, err.item())
+        check(err.item() <= atol, f"batched fb_epilogue {kw}: max "
+              f"|kernel - plain| {err.item()} > {atol}")
+        per = torch.stack([fb_epilogue(y32[i], scale[i], bias, **kw)
+                           for i in range(S)])
+        per_err = (out - per).abs().max().item()
+        check(per_err <= atol, f"batched fb_epilogue {kw}: max |batched - "
+              f"per-slice| {per_err} > {atol}")
+    return gemm_err[9], gemm_err[5], fb_err
+
+
+FLASH_CASES = [
+    # (B, S, H, hd), causal, window, dtype name, tolerance
+    ((1, 128, 1, 64), True, 0, "float32", 1e-4),
+    ((1, 128, 1, 64), False, 0, "float32", 1e-4),
+    ((2, 256, 4, 64), True, 0, "float32", 1e-4),
+    ((2, 256, 4, 64), False, 0, "float32", 1e-4),
+    ((1, 512, 2, 64), True, 128, "float32", 1e-4),
+    ((16, 64, 3, 64), False, 0, "float32", 1e-4),          # vit_tiny
+    ((1, 16, 4, 16), False, 0, "float32", 1e-4),           # attention path
+    ((1, 64, 4, 16), False, 0, "float32", 1e-4),
+    ((1, 256, 4, 16), False, 0, "float32", 1e-4),
+    ((1, 256, 2, 64), True, 0, "bfloat16", 2e-2),
+]
+
+
+def flash_phase(dev, gen) -> float:
+    """Phase 9: flash_attention's kernel against its plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention, flash_attention_ref, ops
+    worst = 0.0
+    for shape, causal, window, dt, tol in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        d = (got.float() - ref.float()).abs()
+        err = d.max().item()
+        check(got.dtype == dtype
+              and bool((d <= tol + tol * ref.float().abs()).all()),
+              f"flash_attention {shape} causal={causal} window={window} "
+              f"{dt}: max |kernel - plain| {err} beyond {tol} + {tol}|ref|")
+        if dt == "float32":
+            worst = max(worst, err)
+        detail(f"flash_attention {shape} causal={causal} window={window} "
+               f"{dt}: max |kernel - plain| {err:.2e}")
+    q = torch.randn(1, 256, 8, 64, generator=gen, device=dev)
+    k, v = (torch.randn(1, 256, 2, 64, generator=gen, device=dev)
+            for _ in range(2))
+    got = ops.attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k.repeat_interleave(4, 2),
+                              v.repeat_interleave(4, 2), causal=True)
+    d = (got - ref).abs()
+    check(bool((d <= 1e-4 + 1e-4 * ref.abs()).all()),
+          f"ops.attention GQA: max |kernel - plain| {d.max().item()}")
+    return max(worst, d.max().item())
+
+
+FUSED_SHAPES = [(128, 256, 128), (256, 512, 384), (128, 1024, 256),
+                (256, 512, 256)]
+
+
+def fused_phase(dev, gen) -> float:
+    """Phase 10: fused_gemm_epilogue's kernel against its plain version."""
+    import torch
+    from repro_torch.kernels import (fused_gemm_epilogue,
+                                     fused_gemm_epilogue_ref)
+    worst = 0.0
+    for M, K, N in FUSED_SHAPES:
+        x = torch.randn(M, K, generator=gen, device=dev)
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.05
+        b = torch.randn(N, generator=gen, device=dev)
+        r = torch.randn(M, N, generator=gen, device=dev)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            for act in ("none", "relu", "silu", "gelu"):
+                for res in (None, r):
+                    got = fused_gemm_epilogue(xd, wd, b, res, act=act)
+                    ref = fused_gemm_epilogue_ref(xd, wd, b, act=act,
+                                                  residual=res)
+                    d = (got.float() - ref.float()).abs()
+                    ok = bool((d <= tol + tol * ref.float().abs()).all())
+                    check(got.dtype == dtype and ok,
+                          f"fused_gemm_epilogue {M}x{K}x{N} {act} "
+                          f"res={res is not None} {dtype}: max err "
+                          f"{d.max().item()}")
+                    if dtype == torch.float32:
+                        worst = max(worst, d.max().item())
+    return worst
+
+
+def packed_phase(dev, gen) -> float:
+    """Phase 11: packed_gemm's kernel against its plain version, and the
+    grouped wrapper against the ``ref.py`` oracle."""
+    import torch
+    from repro_torch.kernels import (ops, packed_gemm, packed_gemm_ref,
+                                     packed_gemm_tiles_ref, pad_groups,
+                                     tile_group_map)
+    worst = 0.0
+    for sizes in GROUP_SIZES:
+        w = torch.randn(len(sizes), 128, 256, generator=gen, device=dev) * .1
+        x = torch.randn(sum(sizes), 128, generator=gen, device=dev)
+        xp, padded, _, _ = pad_groups(x, sizes, 128)
+        tiles = tile_group_map(padded, 128, xp.shape[0] // 128)
+        got = packed_gemm(xp, w, tiles)
+        for a, b in ((got, packed_gemm_tiles_ref(xp, w, tiles, 128)),
+                     (ops.grouped_gemm(x, w, sizes),
+                      packed_gemm_ref(x, w, sizes))):
+            d = (a - b).abs()
+            worst = max(worst, d.max().item())
+            check(bool((d <= 1e-4 + 1e-4 * b.abs()).all()),
+                  f"packed_gemm {sizes}: max err {d.max().item()}")
+    return worst
+
+
+# vit_tiny on the card against the CPU plain path.  Not bit-exact: the
+# gelu, layer-norm and softmax epilogues differ from their plain versions
+# by ulps (FB_CASES), and a flipped int8 value in the next quantization
+# carries on.  The limits sit above what that gives (1.31e-3 relative
+# logits at batches 1-16, seed 0) and at or below what the CPU tests hold
+# the port to against JAX (2e-2 relative logits, 1e-3 probabilities).
+VIT_REL = 1e-2
+VIT_PROB_ATOL = 1e-3
+
+
+def vit_phase(vit_dev, vit_cpu, rng) -> dict:
+    """Phase 12: vit_tiny serving batches 1, 3, 16 (probs and logits),
+    the launch counts read just after, against the CPU plain path."""
+    import torch
+    from repro_torch.kernels import crossbar_gemm, fb_epilogue
+    execute = importlib.import_module("repro_torch.program.execute")
+    stages = vit_dev.program.stages()
+    n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+    requests = [rng.standard_normal((b, 32, 32, 3)).astype("float32")
+                for b in (1, 3, 16)]
+    per_dyn = []
+    dyn_stage = execute._dyn_stage
+
+    def counted(*args, **kw):
+        before = crossbar_gemm.launches, fb_epilogue.launches
+        out = dyn_stage(*args, **kw)
+        per_dyn.append((crossbar_gemm.launches - before[0],
+                        fb_epilogue.launches - before[1]))
+        return out
+
+    execute._dyn_stage = counted
+    try:
+        torch.cuda.synchronize()
+        crossbar_gemm.launches = fb_epilogue.launches = 0
+        served = [(vit_dev.run(x), vit_dev.run(x, logits=True))
+                  for x in requests]
+        torch.cuda.synchronize()
+        launches = {"crossbar_gemm": crossbar_gemm.launches,
+                    "fb_epilogue": fb_epilogue.launches}
+    finally:
+        execute._dyn_stage = dyn_stage
+    runs = 2 * len(requests)
+    want = len(stages) * runs
+    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+          f"vit_tiny launch counts {launches}, expected {want} each")
+    check(len(per_dyn) == n_dyn * runs and all(d == (1, 1) for d in per_dyn),
+        f"vit_tiny dynamic stages launched {per_dyn}, expected one "
+        "crossbar_gemm and one fb_epilogue each")
+    agree, worst_rel, worst_prob = [], 0.0, 0.0
+    for x, (probs, logits) in zip(requests, served):
+        ref = vit_cpu.run(x, logits=True)
+        got, probs = logits.cpu(), probs.cpu()
+        check(got.shape == (len(x), 10) and bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(probs).all()), "vit_tiny non-finite")
+        check(bool(torch.allclose(probs.sum(1), torch.ones(len(x)),
+                                  atol=1e-5)), "probabilities do not sum to 1")
+        worst_rel = max(worst_rel, ((got - ref).abs().max()
+                                    / ref.abs().max()).item())
+        worst_prob = max(worst_prob,
+                         (probs - vit_cpu.run(x)).abs().max().item())
+        agree.append((got.argmax(1) == ref.argmax(1)).float().mean().item())
+    check(min(agree) == 1.0, f"vit_tiny GPU vs CPU argmax agreement {agree}")
+    check(worst_rel <= VIT_REL, f"vit_tiny GPU vs CPU relative logit error "
+          f"{worst_rel:.2e} > {VIT_REL}")
+    check(worst_prob <= VIT_PROB_ATOL, f"vit_tiny GPU vs CPU probabilities "
+          f"differ by {worst_prob:.2e} > {VIT_PROB_ATOL}")
+    return dict(launches=launches, n_dyn=n_dyn, n_stages=len(stages),
+                agree=min(agree), rel=worst_rel, prob=worst_prob,
+                dyn_runs=len(per_dyn))
+
+
+def attention_graph(api):
+    """The attention bench's geometry: one attention(4) layer, dim 64."""
+    nb = api.NetworkBuilder("attn_prefill", input_seq_dim=64)
+    nb.attention(4, name="attn")
+    return nb.build()
+
+
+def attention_phase(model, dev, gen) -> tuple[dict, list]:
+    """Phase 13: crossbar attention through ``run`` against
+    ``ops.attention`` on the same projected q/k/v (non-causal), then the
+    same output projection.  Returns the flash launch count of the
+    driven calls and, per T, (x, q, k, v, rel, corr)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.program.sequence import split_qkv_heads
+    p = model.params["attn"]
+    cases = []
+    flash_attention.launches = 0
+    for T in ATTN_T:
+        x = torch.randn(1, T, 64, generator=gen, device=dev)
+        y_cb = model.run(x)
+        qkv = (x.reshape(-1, 64) @ p["wqkv"] + p["bqkv"]).reshape(1, T, -1)
+        q, k, v = (u.reshape(1, 4, T, 16).transpose(1, 2).contiguous()
+                   for u in split_qkv_heads(qkv, 4))
+        ctx = ops.attention(q, k, v, causal=False)
+        y_fl = ctx.reshape(1, T, 64) @ p["wo"] + p["bo"]
+        a, b = y_cb.cpu().numpy().ravel(), y_fl.cpu().numpy().ravel()
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        corr = float(np.corrcoef(a, b)[0, 1])
+        check(rel < 0.12 and corr > 0.99, f"crossbar attention T={T} vs "
+              f"flash_attention: rel {rel}, corr {corr}")
+        cases.append((T, x, q, k, v, rel, corr))
+    check(flash_attention.launches == len(ATTN_T),
+          f"attention path: flash_attention launched "
+          f"{flash_attention.launches} times, expected {len(ATTN_T)}")
+    return {"flash_attention": flash_attention.launches}, cases
+
+
+def ops_phase(dev, gen) -> dict:
+    """Phase 14: ``kernels.ops``' five wrappers at the kernel bench's
+    shapes; each launches its kernel once and agrees with its plain
+    version.  Returns the launch counts read just after."""
+    import torch
+    from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_ref,
+                                     fb_epilogue, fb_epilogue_ref,
+                                     flash_attention, flash_attention_ref,
+                                     fused_gemm_epilogue,
+                                     fused_gemm_epilogue_ref, ops,
+                                     packed_gemm, packed_gemm_ref)
+    x8 = torch.randint(-128, 128, (128, 512), generator=gen, device=dev,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (512, 256), generator=gen, device=dev,
+                       dtype=torch.int8)
+    q, k, v = (torch.randn(1, 512, 4, 64, generator=gen, device=dev)
+               for _ in range(3))
+    xf = torch.randn(256, 512, generator=gen, device=dev)
+    wf = torch.randn(512, 256, generator=gen, device=dev) * 0.05
+    bf = torch.zeros(256, device=dev)
+    sizes = GROUP_SIZES[1]
+    wg = torch.randn(4, 128, 256, generator=gen, device=dev) * 0.1
+    xg = torch.randn(sum(sizes), 128, generator=gen, device=dev)
+    scale = torch.full((1, 1), 2.5e-5, device=dev)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    y = ops.crossbar_matmul_int8(x8, w8, rows=256)
+    post = ops.fb_postops(y, scale, bf, act="relu")
+    att = ops.attention(q, k, v)
+    lin = ops.linear_fused(xf, wf, bf, act="silu")
+    grp = ops.grouped_gemm(xg, wg, sizes)
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    check(all(n == 1 for n in launches.values()),
+          f"ops entry point launches {launches}, expected 1 each")
+    check(torch.equal(y, crossbar_gemm_ref(x8, w8, rows=256)),
+          "ops.crossbar_matmul_int8 differs")
+    check(torch.equal(post, fb_epilogue_ref(y, scale, bf, act="relu")),
+          "ops.fb_postops differs")
+    for name, got, ref in (
+            ("attention", att, flash_attention_ref(q, k, v)),
+            ("linear_fused", lin, fused_gemm_epilogue_ref(xf, wf, bf)),
+            ("grouped_gemm", grp, packed_gemm_ref(xg, wg, sizes))):
+        d = (got - ref).abs()
+        check(bool((d <= 1e-4 + 1e-4 * ref.abs()).all()),
+              f"ops.{name}: max |kernel - plain| {d.max().item()}")
+    return launches
 
 
 def main() -> int:
@@ -488,11 +887,193 @@ def main() -> int:
         f"(bound {s_bound:.4f} by {s_by}, plain {sl['plain']:.3f}); "
         f"resnet18 end to end {e2e[1]:.3f} ms at b=1, {e2e[16]:.3f} ms at "
         f"b=16; device idle {idle[1]} at b=1, {idle[16]} at b=16")
+
+    # -- 8. batched launches at vit_tiny's dynamic shapes ----------------
+    b_exact_err, b_sliced_err, b_fb_err = batched_phase(dev, gen)
+    gemm_err = max(gemm_err, b_exact_err)
+    sliced_err = max(sliced_err, b_sliced_err)
+    fb_err = max(fb_err, b_fb_err)
+    torch.cuda.synchronize()
+    log("[8 batched launches] 48 slices of 64x64x64, one launch each: "
+        "crossbar_gemm exact and sliced equal to the plain version and to "
+        "the per-slice 2-D calls (torch.equal); fb_epilogue dequant equal, "
+        "softmax+post_scale max |kernel - plain| "
+        f"{b_fb_err:.2e} (limit 1e-6)")
+
+    # -- 9-11. the new kernels against their plain versions --------------
+    flash_err = flash_phase(dev, gen)
+    torch.cuda.synchronize()
+    log(f"[9 flash_attention] {len(FLASH_CASES)} shapes and GQA within "
+        f"tolerance; max |kernel - plain| float32 {flash_err:.2e}")
+    fused_err = fused_phase(dev, gen)
+    torch.cuda.synchronize()
+    log(f"[10 fused_gemm_epilogue] {len(FUSED_SHAPES)} shapes x 4 "
+        "activations x residual x float32/bfloat16 within tolerance; max "
+        f"|kernel - plain| float32 {fused_err:.2e}")
+    packed_err = packed_phase(dev, gen)
+    torch.cuda.synchronize()
+    log(f"[11 packed_gemm] {len(GROUP_SIZES)} group-size lists, kernel and "
+        f"grouped_gemm within 1e-4; max err {packed_err:.2e}")
+
+    # -- 12. the sequence path: vit_tiny serving requests ----------------
+    vit_gpu = api.compile("vit_tiny", api.HurryConfig(), seed=0,
+                          device="cuda")
+    vit_cpu = api.compile("vit_tiny", api.HurryConfig(), seed=0,
+                          device="cpu")
+    vit = vit_phase(vit_gpu, vit_cpu, rng)
+    vit_e2e, vit_idle = {}, {}
+    for b in (1, 16):
+        xb = torch.randn(b, 32, 32, 3, generator=gen, device=dev)
+        vit_e2e[b] = wall_ms(lambda: vit_gpu.run(xb))
+        busy, top = forward_profile(lambda: vit_gpu.run(xb))
+        vit_idle[b] = "not measured" if busy is None else \
+            f"{1 - busy / vit_e2e[b]:.1%}"
+        detail(f"vit_tiny b{b} forward: device busy "
+               f"{'not measured' if busy is None else f'{busy:.3f} ms'}"
+               f" of {vit_e2e[b]:.3f} ms, idle {vit_idle[b]}")
+        for ms, n, name in top:
+            detail(f"  {name}: {ms:.4f} ms in {n} launches")
+    log(f"[12 vit_tiny main path] batches 1,3,16 x (probs, logits): launches "
+        f"{vit['launches']} = {vit['n_stages']} stages each run, "
+        f"{vit['n_dyn']} dynamic stages per run with one crossbar_gemm and "
+        f"one fb_epilogue each ({vit['dyn_runs']} dynamic-stage calls); vs "
+        f"CPU plain path argmax agreement {vit['agree']}, max rel logit "
+        f"error {vit['rel']:.2e} (limit {VIT_REL}), max |probs diff| "
+        f"{vit['prob']:.2e} (limit {VIT_PROB_ATOL}); end to end {vit_e2e[1]:.3f} ms at b=1, "
+        f"{vit_e2e[16]:.3f} ms at b=16; device idle {vit_idle[1]} at b=1, "
+        f"{vit_idle[16]} at b=16")
+
+    # -- 13. the attention path ------------------------------------------
+    from repro_torch.kernels import ops
+    attn_model = api.compile(attention_graph(api),
+                             api.HurryConfig(array_rows=511), seed=0,
+                             buckets=(), device="cuda")
+    torch.cuda.synchronize()
+    attn_launches, attn_cases = attention_phase(attn_model, dev, gen)
+    torch.cuda.synchronize()
+    parts = []
+    for T, x, q, k, v, rel, corr in attn_cases:
+        t_cb = wall_ms(lambda: attn_model.run(x))
+        t_fl = wall_ms(lambda: ops.attention(q, k, v, causal=False))
+        parts.append(f"T={T}: rel {rel:.3f} corr {corr:.4f}, crossbar "
+                     f"{t_cb:.3f} ms, flash {t_fl:.3f} ms")
+    log(f"[13 attention path] flash_attention launches {attn_launches}; "
+        + "; ".join(parts) + " (host clock + synchronize, median of 10)")
+
+    # -- 14. the ops entry point -----------------------------------------
+    ops_launches = ops_phase(dev, gen)
+    log(f"[14 kernels.ops] launches {ops_launches}; each within tolerance "
+        "of its plain version")
+
+    # -- 15. times of the new kernels ------------------------------------
+    from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                     fused_gemm_epilogue,
+                                     fused_gemm_epilogue_ref,
+                                     packed_gemm_tiles_ref, pad_groups,
+                                     tile_group_map)
+    # the package's ``packed_gemm`` is the wrapper; its module holds the
+    # launch that the timing calls directly (no host-side map check)
+    packed_module = importlib.import_module("repro_torch.kernels.packed_gemm")
+    # vit_tiny's dynamic stages at batch 16: 48 (batch, head) slices
+    S = 16 * 3
+    xs, ws = rand_i8(S, 64, 64), rand_i8(S, 64, 64)
+    y32 = torch.randint(-2 ** 16, 2 ** 16, (S, 64, 64), generator=gen,
+                        device=dev, dtype=torch.int32)
+    sc = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
+    z64 = torch.zeros(64, device=dev)
+    dg_ms = device_ms(lambda: crossbar_gemm(xs, ws, rows=64))
+    dg_plain = device_ms(lambda: crossbar_gemm_exact_ref(xs, ws))
+    sm = dict(softmax=True, post_scale=0.125)
+    df_ms = (device_ms(lambda: fb_epilogue(y32, sc, z64, **sm))
+             + device_ms(lambda: fb_epilogue(y32, sc, z64)))
+    df_plain = (device_ms(lambda: fb_epilogue_ref(y32, sc, z64, **sm))
+                + device_ms(lambda: fb_epilogue_ref(y32, sc, z64)))
+    b_ms, o_ms = (S * t for t in gemm_bound(64, 64, 64, sliced=False))
+    dg_bound = max(b_ms, o_ms)
+    df_bound = 2 * fb_bound(S * 64, 64, S * 64, False)
+    pairs = vit["n_dyn"] // 2       # (scores, context) stage pairs
+    detail(f"time vit_tiny dynamic stages (b16, {S} slices of 64x64x64, "
+           f"{vit['n_dyn']} per forward): crossbar_gemm {dg_ms:.4f} ms per "
+           f"launch (bound {dg_bound:.5f} by "
+           f"{'bytes' if b_ms >= o_ms else 'operations'}, plain "
+           f"{dg_plain:.4f}); fb_epilogue scores+context {df_ms:.4f} ms "
+           f"(bound {df_bound:.5f} by bytes, plain {df_plain:.4f})")
+    # flash_attention over the attention path's shapes (1, T, 4, 16)
+    fl = dict(ms=0.0, plain=0.0, lib=0.0, by={"bytes": 0.0,
+                                                "operations": 0.0})
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for T, _, q, k, v, _, _ in attn_cases:
+        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
+        f_plain = device_ms(lambda: flash_attention_ref(q, k, v,
+                                                        causal=False))
+        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2)))
+        b_ms, o_ms = attn_bound(1, T, T, 4, 16)
+        fl["by"]["bytes" if b_ms >= o_ms else "operations"] += max(b_ms,
+                                                                   o_ms)
+        fl["ms"] += f_ms
+        fl["plain"] += f_plain
+        fl["lib"] += f_lib
+        detail(f"time flash_attention (1,{T},4,16): {f_ms:.4f} ms (bound "
+               f"{max(b_ms, o_ms):.5f}, plain {f_plain:.4f}, sdpa "
+               f"{f_lib:.4f})")
+    for shape in ((16, 64, 3, 64), (1, 512, 4, 64)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
+        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2)))
+        b_ms, o_ms = attn_bound(shape[0], shape[1], shape[1], shape[2],
+                                shape[3])
+        detail(f"time flash_attention {shape}: {f_ms:.4f} ms (bound "
+               f"{max(b_ms, o_ms):.5f}, sdpa {f_lib:.4f})")
+    # fused_gemm_epilogue at the kernel bench's 256x512x256, silu
+    xf = torch.randn(256, 512, generator=gen, device=dev)
+    wf = torch.randn(512, 256, generator=gen, device=dev) * 0.05
+    bf = torch.randn(256, generator=gen, device=dev)
+    fu_ms = device_ms(lambda: fused_gemm_epilogue(xf, wf, bf, act="silu"))
+    fu_plain = device_ms(lambda: fused_gemm_epilogue_ref(xf, wf, bf))
+    fu_lib = device_ms(lambda: torch.addmm(bf, xf, wf))
+    b_ms, o_ms = float_gemm_bound(256, 512, 256, 512 * 256 + 256)
+    fu_bound, fu_by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else \
+        "operations"
+    # packed_gemm at the kernel bench's 4 groups, K=128, N=256: the
+    # kernel on the padded rows; its plain version (torch.unique and a
+    # host loop) by CUDA events around 25 calls, launch gaps included
+    sizes = GROUP_SIZES[1]
+    wg = torch.randn(4, 128, 256, generator=gen, device=dev) * 0.1
+    xg = torch.randn(sum(sizes), 128, generator=gen, device=dev)
+    xp, padded, _, _ = pad_groups(xg, sizes, 128)
+    tiles = tile_group_map(padded, 128, xp.shape[0] // 128)
+    tiles_dev = tiles.to(dev)
+    pk_ms = device_ms(lambda: packed_module._launch(xp, wg, tiles_dev, 128))
+    bounds = np.concatenate([[0], np.cumsum(padded.numpy())])
+    pk_lib = device_ms(lambda: [xp[bounds[i]:bounds[i + 1]] @ wg[i]
+                                for i in range(4)])
+    pk_plain = events_ms(lambda: packed_gemm_tiles_ref(xp, wg, tiles, 128))
+    b_ms, o_ms = float_gemm_bound(sum(sizes), 128, 256, 4 * 128 * 256)
+    pk_bound, pk_by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else \
+        "operations"
+    fl_bound, fl_by = bound(fl["by"])
+    log(f"[15 times] vit_tiny b16 dynamic stages per forward: crossbar_gemm "
+        f"{pairs * 2 * dg_ms:.4f} ms in {2 * pairs} batched launches (bound "
+        f"{pairs * 2 * dg_bound:.5f}, plain {pairs * 2 * dg_plain:.4f}); "
+        f"fb_epilogue {pairs * df_ms:.4f} ms (bound {pairs * df_bound:.5f}, "
+        f"plain {pairs * df_plain:.4f}); flash_attention over T=16,64,256 "
+        f"(1,T,4,16) {fl['ms']:.4f} ms (bound {fl_bound:.5f} by {fl_by}, "
+        f"plain {fl['plain']:.4f}, sdpa {fl['lib']:.4f}); "
+        f"fused_gemm_epilogue 256x512x256 silu {fu_ms:.4f} ms (bound "
+        f"{fu_bound:.5f} by {fu_by}, plain {fu_plain:.4f}, addmm without "
+        f"the activation {fu_lib:.4f}); packed_gemm 4 groups {pk_ms:.4f} ms "
+        f"(bound {pk_bound:.5f} by {pk_by}, plain by events {pk_plain:.4f}, "
+        f"per-group matmul loop {pk_lib:.4f})")
+
     kernels = [
         dict(name="crossbar_gemm", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
              replaces="src/repro/kernels/crossbar_gemm.py:116",
-             launches=main_launches["crossbar_gemm"], max_abs_err=gemm_err,
+             launches=main_launches["crossbar_gemm"]
+             + vit["launches"]["crossbar_gemm"], max_abs_err=gemm_err,
              ms=g["ms"], plain_ms=g["plain"], bound_ms=g_bound,
              bound_by=g_by, library_ms=g["lib"]),
         dict(name="crossbar_gemm (sliced path)", route="cuda",
@@ -504,9 +1085,28 @@ def main() -> int:
         dict(name="fb_epilogue", route="cuda",
              source="src/repro_torch/kernels/csrc/fb_epilogue.cu",
              replaces="src/repro/kernels/fb_epilogue.py:102",
-             launches=main_launches["fb_epilogue"], max_abs_err=fb_err,
+             launches=main_launches["fb_epilogue"]
+             + vit["launches"]["fb_epilogue"], max_abs_err=fb_err,
              ms=f["ms"], plain_ms=f["plain"], bound_ms=f["bound"],
              bound_by="bytes", library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:28",
+             launches=attn_launches["flash_attention"], max_abs_err=flash_err,
+             ms=fl["ms"], plain_ms=fl["plain"], bound_ms=fl_bound,
+             bound_by=fl_by, library_ms=fl["lib"]),
+        dict(name="fused_gemm_epilogue", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_gemm_epilogue.cu",
+             replaces="src/repro/kernels/fused_gemm_epilogue.py:23",
+             launches=ops_launches["fused_gemm_epilogue"],
+             max_abs_err=fused_err, ms=fu_ms, plain_ms=fu_plain,
+             bound_ms=fu_bound, bound_by=fu_by, library_ms=fu_lib),
+        dict(name="packed_gemm", route="cuda",
+             source="src/repro_torch/kernels/csrc/packed_gemm.cu",
+             replaces="src/repro/kernels/packed_gemm.py:26",
+             launches=ops_launches["packed_gemm"], max_abs_err=packed_err,
+             ms=pk_ms, plain_ms=pk_plain, bound_ms=pk_bound, bound_by=pk_by,
+             library_ms=pk_lib),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

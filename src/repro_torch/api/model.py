@@ -5,11 +5,14 @@ The port of ``repro.api.model``'s compile-and-run path::
     model = api.compile("resnet18", HurryConfig())   # on the GPU
     probs = model.run(x)                              # x: (B, 32, 32, 3)
     logits = model.run(x, logits=True)
+    vit = api.compile("vit_tiny")                     # attention stages too
+    tokens = api.compile(graph_with_input_seq_dim)    # x: (B, T, D)
 
 ``compile`` lowers the graph (Algorithms 1 & 2 -> ``CrossbarProgram``)
 and packs the weights once, on the model's device; ``run`` only
 quantizes activations and launches one ``crossbar_gemm`` and one
-``fb_epilogue`` per stage.  Batches pad up to the bucket ladder by edge
+``fb_epilogue`` per stage, the attention stages' per-(batch, head)
+mounts included.  Batches pad up to the bucket ladder by edge
 replication (slice-exact).  The device is ``"cuda"`` unless the caller
 names another; without a GPU ``compile`` raises rather than carry on on
 the CPU.  ``simulate``/``save``/``load`` are not part of the port yet.
@@ -79,7 +82,8 @@ class CompiledModel:
 
     def warmup(self, batch: int = 1, *, logits: bool = False,
                seq_len: int = 16) -> None:
-        """Run one dummy batch (builds the kernels on a GPU)."""
+        """Run one dummy batch (builds the kernels on a GPU); ``seq_len``
+        sizes the token axis of sequence-input graphs."""
         x = torch.zeros(self.program.input_shape(batch, seq_len=seq_len),
                         device=self.device)
         self.run(x, logits=logits)

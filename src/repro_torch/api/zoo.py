@@ -8,8 +8,7 @@ the paper §IV evaluates.
 patchify conv, ``depth`` post-norm encoder blocks (attention + MLP,
 each ``x = LN(x + f(x))``), and a mean-pooled classifier head — every
 block built from the sequence ops the crossbar program stack lowers
-(attention expands into dynamic-operand GEMM stages, which the port
-runs from its next slice on).  The default is a
+(attention expands into dynamic-operand GEMM stages).  The default is a
 CI-scale reduction (2 blocks of the ViT-Tiny geometry: dim 192, 3
 heads, MLP ratio 4); pass ``depth=12`` for the full-size model.
 """

@@ -8,8 +8,9 @@ root::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and a stale one is never loaded; ``ptxas``' register and
+The library name carries a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one
+is never loaded; ``ptxas``' register and
 shared-memory report lands beside it as ``<lib>.log``.  Nothing here
 runs at import time.
 """
@@ -30,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("crossbar_gemm", "fb_epilogue")
+SOURCES = ("crossbar_gemm", "fb_epilogue", "flash_attention",
+           "fused_gemm_epilogue", "packed_gemm")
 
 
 def _nvcc() -> str:
@@ -43,9 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (hash of its source in the name)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where ``csrc/<name>.cu`` builds to (hash of its source, the shared
+    headers and the flags in the name)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -4,6 +4,10 @@
 // src/repro/kernels/crossbar_gemm.py (`_kernel_exact` and `_kernel_sliced`).
 // Both branches live in this file; the Python wrapper
 // (src/repro_torch/kernels/crossbar_gemm.py) picks one per call.
+// A leading slice axis, x (S, M, K) x w (S, K, N) -> y (S, M, N), runs in
+// one launch with gridDim.z = S: the counterpart of `jax.vmap` over the
+// Pallas call (attention's per-(batch, head) mounts); S = 1 is the 2-D
+// call.
 //
 // Exact branch (`crossbar_gemm_exact`): no ADC clip can fire, so the
 // bit-sliced pipeline is a plain int8 GEMM and the chunk structure drops
@@ -42,10 +46,18 @@ constexpr int EX_BK = 32;          // K (bytes) per shared-memory step
 constexpr int EX_KQ = EX_BK / 4;   // packed int32 words per step
 constexpr int EX_THREADS = 256;    // 16 x 16, 4 x 4 outputs each
 
+// kSlices: the grid's z axis runs over slices.  The 2-D call compiles
+// without the slice offsets (kSlices = false), as it did before the axis.
+template <bool kSlices>
 __global__ void __launch_bounds__(EX_THREADS)
 exact_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
              int32_t* __restrict__ y, int M, int N, int K) {
   __shared__ int32_t As[EX_KQ][EX_BM];   // 4 consecutive k of row m
+  if (kSlices) {                         // this slice's operands
+    x += (size_t)blockIdx.z * M * K;
+    w += (size_t)blockIdx.z * K * N;
+    y += (size_t)blockIdx.z * M * N;
+  }
   __shared__ int32_t Bs[EX_KQ][EX_BN];   // 4 consecutive k of column n
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -110,21 +122,25 @@ exact_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 // ---- sliced branch ----------------------------------------------------------
 
-// Bit-plane masks of one operand.  Element (r, k) sits at
-// src[r * stride_r + k * stride_k]; out[((r * C + c) * 8 + i) * W + q] holds
-// bit i of rows k = c*rows + 32q + b (b = 0..31) of chunk c.  One thread
-// builds the 8 masks of one (r, c, q) word; r varies fastest across
-// threads.
+// Bit-plane masks of one operand with S slices.  Element (s, r, k) sits at
+// src[s * stride_s + r * stride_r + k * stride_k]; with g = s * R + r,
+// out[((g * C + c) * 8 + i) * W + q] holds bit i of rows
+// k = c*rows + 32q + b (b = 0..31) of chunk c.  One thread builds the 8
+// masks of one (g, c, q) word; g varies fastest across threads.
+template <bool kSlices>
 __global__ void pack_planes(const int8_t* __restrict__ src,
-                            uint32_t* __restrict__ out, int R, int K,
-                            long long stride_r, long long stride_k, int rows,
-                            int C, int W) {
+                            uint32_t* __restrict__ out, int S, int R, int K,
+                            long long stride_s, long long stride_r,
+                            long long stride_k, int rows, int C, int W) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)R * C * W) return;
-  const int r = (int)(idx % R);
-  const long long t = idx / R;
+  const long long G = (long long)S * R;
+  if (idx >= G * C * W) return;
+  const long long g = idx % G;
+  const long long t = idx / G;
   const int q = (int)(t % W);
   const int c = (int)(t / W);
+  const long long s = kSlices ? g / R : 0;
+  const int8_t* base = src + s * stride_s + (g - s * R) * stride_r;
   uint32_t mask[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) mask[i] = 0;
@@ -132,12 +148,11 @@ __global__ void pack_planes(const int8_t* __restrict__ src,
     const int kr = 32 * q + b;                 // row inside the chunk
     const int k = c * rows + kr;
     if (kr >= rows || k >= K) break;
-    const uint32_t v =
-        (uint8_t)src[(long long)r * stride_r + (long long)k * stride_k];
+    const uint32_t v = (uint8_t)base[(long long)k * stride_k];
 #pragma unroll
     for (int i = 0; i < 8; ++i) mask[i] |= ((v >> i) & 1u) << b;
   }
-  uint32_t* o = out + ((long long)r * C + c) * 8 * W + q;
+  uint32_t* o = out + (g * C + c) * 8 * W + q;
 #pragma unroll
   for (int i = 0; i < 8; ++i) o[(long long)i * W] = mask[i];
 }
@@ -150,6 +165,7 @@ __device__ __forceinline__ int plane_weight(int i) {
 
 // Shared memory: xs[SL_T][8W] then ws[SL_T][8W + 1] (the +1 keeps the 16
 // columns a warp reads on distinct banks).
+template <bool kSlices>
 __global__ void __launch_bounds__(SL_T * SL_T)
 sliced_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ wp,
               int32_t* __restrict__ y, int M, int N, int C, int W,
@@ -158,6 +174,11 @@ sliced_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ wp,
   const int LX = 8 * W, LW = 8 * W + 1;
   uint32_t* xs = smem;
   uint32_t* ws = smem + SL_T * LX;
+  if (kSlices) {                               // this slice's masks
+    xp += (long long)blockIdx.z * M * C * LX;
+    wp += (long long)blockIdx.z * N * C * LX;
+    y += (long long)blockIdx.z * M * N;
+  }
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SL_T + tx;
   const int m0 = blockIdx.x * SL_T, n0 = blockIdx.y * SL_T;
   const int m = m0 + ty, n = n0 + tx;
@@ -191,10 +212,12 @@ sliced_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ wp,
 
 extern "C" {
 
-int crossbar_gemm_exact(const void* x, const void* w, void* y, int M, int N,
-                        int K, void* stream) {
-  const dim3 grid((M + EX_BM - 1) / EX_BM, (N + EX_BN - 1) / EX_BN);
-  exact_kernel<<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
+// x (S, M, K), w (S, K, N), y (S, M, N); S = 1 is the 2-D GEMM.
+int crossbar_gemm_exact(const void* x, const void* w, void* y, int S, int M,
+                        int N, int K, void* stream) {
+  const dim3 grid((M + EX_BM - 1) / EX_BM, (N + EX_BN - 1) / EX_BN, S);
+  auto kernel = S == 1 ? exact_kernel<false> : exact_kernel<true>;
+  kernel<<<grid, EX_THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (int32_t*)y, M, N, K);
   return (int)cudaGetLastError();
 }
@@ -204,27 +227,32 @@ int crossbar_gemm_sliced_smem(int W) {
   return (int)(sizeof(uint32_t) * (SL_T * 8 * W + SL_T * (8 * W + 1)));
 }
 
-// xp: M*C*8*W and wp: N*C*8*W uint32 scratch, allocated by the caller.
+// xp: S*M*C*8*W and wp: S*N*C*8*W uint32 scratch, allocated by the caller.
 int crossbar_gemm_sliced(const void* x, const void* w, void* y, void* xp,
-                         void* wp, int M, int N, int K, int rows, int adc_max,
-                         void* stream) {
+                         void* wp, int S, int M, int N, int K, int rows,
+                         int adc_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int C = (K + rows - 1) / rows;
   const int W = (rows + 31) / 32;
   const int threads = 256;
-  const long long nx = (long long)M * C * W, nw = (long long)N * C * W;
-  pack_planes<<<(unsigned)((nx + threads - 1) / threads), threads, 0, s>>>(
-      (const int8_t*)x, (uint32_t*)xp, M, K, K, 1, rows, C, W);
-  pack_planes<<<(unsigned)((nw + threads - 1) / threads), threads, 0, s>>>(
-      (const int8_t*)w, (uint32_t*)wp, N, K, 1, N, rows, C, W);
+  const long long nx = (long long)S * M * C * W;
+  const long long nw = (long long)S * N * C * W;
+  auto pack = S == 1 ? pack_planes<false> : pack_planes<true>;
+  pack<<<(unsigned)((nx + threads - 1) / threads), threads, 0, s>>>(
+      (const int8_t*)x, (uint32_t*)xp, S, M, K, (long long)M * K, K, 1, rows,
+      C, W);
+  pack<<<(unsigned)((nw + threads - 1) / threads), threads, 0, s>>>(
+      (const int8_t*)w, (uint32_t*)wp, S, N, K, (long long)K * N, 1, N, rows,
+      C, W);
   const int smem = crossbar_gemm_sliced_smem(W);
+  auto kernel = S == 1 ? sliced_kernel<false> : sliced_kernel<true>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sliced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((M + SL_T - 1) / SL_T, (N + SL_T - 1) / SL_T);
-  sliced_kernel<<<grid, dim3(SL_T, SL_T), smem, s>>>(
+  const dim3 grid((M + SL_T - 1) / SL_T, (N + SL_T - 1) / SL_T, S);
+  kernel<<<grid, dim3(SL_T, SL_T), smem, s>>>(
       (const uint32_t*)xp, (const uint32_t*)wp, (int32_t*)y, M, N, C, W,
       adc_max);
   return (int)cudaGetLastError();

@@ -33,6 +33,11 @@
 // contracts nothing the plain PyTorch version does not: the kernel equals
 // the plain version bit for bit wherever the order of a sum is the same
 // (none, relu, residual, post_scale, gelu, max and avg pool).
+//
+// A leading slice axis (attention's per-(batch, head) scores and
+// context, what `jax.vmap` over the Pallas call computes) runs in the
+// same launch: y is (S * slice_rows, N) and row r dequantizes with its
+// slice's scale, scale[r / slice_rows].  The 2-D call has one slice.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,13 +53,14 @@ enum Pool { POOL_NONE = 0, POOL_MAX = 1, POOL_AVG = 2, POOL_SEQMEAN = 3 };
 
 struct Chain {
   const int32_t* y;
-  const float* scale;   // (1, 1) on the device: no host round trip
+  const float* scale;   // (S, 1, 1) on the device: no host round trip
   const float* bias;
   const float* res;     // null: no residual
   const float* gamma;
   const float* beta;
   float* out;
   int M, N;
+  int slice_rows;       // rows per scale (M for one slice)
   int act;
   float post_scale;     // 0: off
 };
@@ -64,6 +70,12 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
   const float t = tanhf(__fmul_rn(kGeluC, __fadd_rn(x, cube)));
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, t));
+}
+
+// The scale of input row `row`.  With one slice (the 2-D call) every row
+// reads scale[0] and no 64-bit division is spent per element.
+__device__ __forceinline__ float row_scale(const Chain& p, long long row) {
+  return p.slice_rows == p.M ? *p.scale : p.scale[row / p.slice_rows];
 }
 
 __device__ __forceinline__ float chain(const Chain& p, long long idx, int col,
@@ -77,15 +89,16 @@ __device__ __forceinline__ float chain(const Chain& p, long long idx, int col,
 }
 
 __global__ void elementwise_kernel(Chain p) {
-  const float scale = *p.scale;
   const long long total = (long long)p.M * p.N;
+  const bool one_slice = p.slice_rows == p.M;
+  const float scale0 = *p.scale;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x)
-    p.out[i] = chain(p, i, (int)(i % p.N), scale);
+    p.out[i] = chain(p, i, (int)(i % p.N),
+                     one_slice ? scale0 : row_scale(p, i / p.N));
 }
 
 __global__ void pool_kernel(Chain p, int pool, int window, int img_hw) {
-  const float scale = *p.scale;
   const int oh = img_hw / window;
   const long long images = p.M / ((long long)img_hw * img_hw);
   const long long total = images * oh * oh * p.N;
@@ -98,6 +111,7 @@ __global__ void pool_kernel(Chain p, int pool, int window, int img_hw) {
     const long long t = orow / oh;
     const int oy = (int)(t % oh);
     const long long img = t / oh;
+    const float scale = row_scale(p, img * img_hw * img_hw);  // one slice
     float acc = pool == POOL_MAX ? -CUDART_INF_F : 0.0f;
     for (int a = 0; a < window; ++a)
       for (int b = 0; b < window; ++b) {
@@ -146,12 +160,12 @@ __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
   float* row = smem;
   float* acc = smem + p.N;
   const int N = p.N;
-  const float scale = *p.scale;
   const long long o = blockIdx.x;
   if (seqmean)
     for (int c = threadIdx.x; c < N; c += blockDim.x) acc[c] = 0.0f;
   for (int t = 0; t < group; ++t) {
     const long long r = o * group + t;
+    const float scale = row_scale(p, r);
     for (int c = threadIdx.x; c < N; c += blockDim.x)
       row[c] = chain(p, r * N + c, c, scale);
     if (norm) {
@@ -213,15 +227,18 @@ int fb_epilogue_rows_smem(int N, int seqmean) {
 }
 
 // pool: 0 none, 1 max, 2 avg, 3 seqmean.  res / gamma / beta may be null.
+// M counts the rows of all slices; each slice of slice_rows rows has its
+// own scale, and no pool window or sequence crosses a slice.
 int fb_epilogue(const void* y, const void* scale, const void* bias,
                 const void* res, const void* gamma, const void* beta,
-                void* out, int M, int N, int act, float post_scale, int norm,
-                int pool, int window, int img_hw, int softmax, void* stream) {
+                void* out, int M, int N, int slice_rows, int act,
+                float post_scale, int norm, int pool, int window, int img_hw,
+                int softmax, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Chain p{(const int32_t*)y, (const float*)scale, (const float*)bias,
           (const float*)res,  (const float*)gamma, (const float*)beta,
           (float*)out,        M,                   N,
-          act,                post_scale};
+          slice_rows,         act,                 post_scale};
   const int threads = 256;
   if (pool == POOL_MAX || pool == POOL_AVG) {
     const int oh = img_hw / window;

@@ -7,6 +7,11 @@ canonical FB order::
     fma(y, scale, bias) -> + residual -> [* post_scale] -> ReLU | GELU
         -> layer norm -> max/avg pool window | seq-mean  OR  softmax
 
+A leading slice axis runs in the same launch: y (S, M, N) with a
+(S, 1, 1) scale applies the chain to each slice with its own scale, what
+``jax.vmap`` over the Pallas kernel computes for attention's
+per-(batch, head) scores and context.
+
 For a CUDA tensor ``fb_epilogue`` launches the hand-written kernel in
 ``csrc/fb_epilogue.cu`` (its header says what bounds it on the H100) and
 adds one to ``fb_epilogue.launches``; for a CPU tensor it computes the
@@ -108,12 +113,16 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """The plain PyTorch composition the kernel must equal.
 
     Average pooling sums each window in row-major order and multiplies
-    by ``f32(1 / window^2)``, the order the kernel uses.
+    by ``f32(1 / window^2)``, the order the kernel uses.  A 3-D ``y``
+    (S, M, N) takes a (S, 1, 1) ``scale``; no pool window or sequence
+    crosses a slice, so the rest of the chain runs on the (S*M, N) rows.
     """
-    M, N = y.shape
-    out = dequant(y, scale.reshape(1, 1), bias)
+    N = y.shape[-1]
+    out = dequant(y, scale.reshape(-1, 1, 1) if y.dim() == 3
+                  else scale.reshape(1, 1), bias).reshape(-1, N)
+    M = out.shape[0]
     if residual is not None:
-        out = out + residual
+        out = out + residual.reshape(-1, N)
     if post_scale:
         out = out * post_scale
     if act == "relu":
@@ -138,7 +147,7 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         out = out.reshape(-1, N)
     if softmax:
         out = softmax_rows(out)
-    return out
+    return out.reshape(*y.shape[:-2], -1, N)
 
 
 # ---------------------------------------------------------------------------
@@ -149,8 +158,8 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fb_epilogue")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, i, i, i,
-                                i, p]
+    lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, i, i,
+                                i, i, p]
     lib.fb_epilogue.restype = i
     lib.fb_epilogue_rows_smem.argtypes = [i, i]
     lib.fb_epilogue_rows_smem.restype = i
@@ -171,17 +180,21 @@ def _operand(t: torch.Tensor | None, name: str, dtype: torch.dtype,
 
 def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
             norm, gamma, beta, post_scale) -> torch.Tensor:
-    M, N = y.shape
+    M, N = y.shape[-2:]
+    S = y.shape[0] if y.dim() == 3 else 1
+    lead = y.shape[:-2]
     dev = y.device
     has_norm = norm == "layer"
     if has_norm and pool in ("max", "avg"):
         raise ValueError("fb_epilogue: the kernel does not chain a layer "
                          "norm into a spatial pool (no compiled program "
                          "has one)")
-    ptrs = [_operand(y, "y", torch.int32, (M, N), dev),
-            _operand(scale, "scale", torch.float32, (1, 1), dev),
+    ptrs = [_operand(y, "y", torch.int32, (*lead, M, N), dev),
+            _operand(scale, "scale", torch.float32,
+                     (S, 1, 1) if lead else (1, 1), dev),
             _operand(bias, "bias", torch.float32, (N,), dev),
-            _operand(residual, "residual", torch.float32, (M, N), dev),
+            _operand(residual, "residual", torch.float32, (*lead, M, N),
+                     dev),
             _operand(gamma if has_norm else None, "gamma", torch.float32,
                      (N,), dev),
             _operand(beta if has_norm else None, "beta", torch.float32,
@@ -192,14 +205,14 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
         out_rows = (M // (img_hw * img_hw)) * (img_hw // window) ** 2
     else:
         out_rows = M
-    out = torch.empty(out_rows, N, dtype=torch.float32, device=dev)
+    out = torch.empty(*lead, out_rows, N, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = _lib()
     if lib.fb_epilogue_rows_smem(N, int(pool == "seqmean")) > _MAX_SMEM:
         raise ValueError(f"fb_epilogue: a {N}-column row does not fit a "
                          "block's shared memory")
-    err = lib.fb_epilogue(*ptrs, out.data_ptr(), M, N, _ACTS[act],
+    err = lib.fb_epilogue(*ptrs, out.data_ptr(), S * M, N, M, _ACTS[act],
                           float(post_scale), int(has_norm), _POOLS[pool],
                           int(window), int(img_hw), int(softmax),
                           _build.stream_handle())
@@ -217,7 +230,9 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 post_scale: float = 0.0) -> torch.Tensor:
     """y (M, N) int32 crossbar output -> fused FB chain -> f32.
 
-    ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,).  ``pool``
+    ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,); a 3-D
+    ``y`` (S, M, N) takes a (S, 1, 1) ``scale``, one per slice, and
+    returns (S, out_rows, N) with every mode applied per slice.  ``pool``
     max/avg reduce ``window x window`` blocks of each image's
     ``img_hw x img_hw`` rows (M = B * img_hw^2, output
     (B * (img_hw // window)^2, N)); ``seqmean`` averages each sequence's
@@ -226,7 +241,10 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     normalizes each row.  CUDA tensors run the kernel, CPU tensors the
     plain version.
     """
-    M, N = y.shape
+    if y.dim() not in (2, 3):
+        raise ValueError(f"fb_epilogue: y must be (M, N) or (S, M, N), got "
+                         f"{tuple(y.shape)}")
+    M, N = y.shape[-2:]
     _check_modes(M, N, act=act, pool=pool, window=window, img_hw=img_hw,
                  softmax=softmax, norm=norm, gamma=gamma, beta=beta)
     kw = dict(act=act, pool=pool, window=window, img_hw=img_hw,

@@ -13,10 +13,17 @@ stage (``_static_stage``):
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
   residual, ReLU, pooling, softmax) over the int32 GEMM output.
 
+Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
+activations instead of weights: per (batch, head) slice, the Q·Kᵀ or
+P·V right-hand operand is quantized and mounted with ``plane_pack``,
+the left-hand one quantized with its own scale, and all slices run in
+one batched ``crossbar_gemm`` launch and one batched ``fb_epilogue``
+launch (the counterpart of the JAX executor's ``jax.vmap``), with the
+contraction sized to the runtime head dim or sequence length.
+
 Buffers are dropped as soon as no later stage reads them.  On a CUDA
 device both calls launch the hand-written kernels; on the CPU they take
-their plain PyTorch versions.  Dynamic-operand (attention) stages are
-the next slice of the port and raise ``NotImplementedError`` here.
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ from repro_torch.kernels.crossbar_gemm import crossbar_gemm
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 
 from .compile import ProgramOp
-from .pack import PackedProgram, PackedStage
-from .sequence import tokens
+from .pack import PackedProgram, PackedStage, plane_pack
+from .sequence import merge_heads, split_qkv_heads, tokens
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -60,6 +67,54 @@ def _last_reads(stages) -> dict[str, int]:
             if op.kind == "residual":
                 last[op.res_src] = si
     return last
+
+
+def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """A dynamic stage's operands, mounted slice by slice.
+
+    Returns ``(a8 (S, M, K_pad) int8, w8 (S, K_pad, N) int8, scale
+    (S, 1, 1) f32, rows)``: per (batch, head) slice the left operand is
+    quantized with its own scale and the right one mounted with
+    ``plane_pack``, as ``jax.vmap`` over the JAX executor's per-slice
+    function computes.
+    """
+    if gemm.dyn == "qk":
+        q, k, _ = split_qkv_heads(tokens(bufs[gemm.src]), gemm.heads)
+        a, w = q, k.transpose(1, 2)              # (BH, T, hd), (BH, hd, T)
+    elif gemm.dyn == "pv":
+        a = bufs[gemm.src]                       # (BH, T, T) probabilities
+        _, _, w = split_qkv_heads(tokens(bufs[gemm.dyn_src]), gemm.heads)
+    else:  # pragma: no cover - compile_network emits only qk/pv
+        raise ValueError(gemm.dyn)
+    rows = min(gemm.tile_rows, a.shape[-1])      # dynamic mount height
+    a_amax = a.abs().amax(dim=(1, 2))
+    a_scale = quantize_scale(a_amax, cfg.input_bits)
+    a8 = quantize_with_scale(a, a_scale[:, None, None],
+                             cfg.input_bits).to(torch.int8)
+    w8, w_amax = plane_pack(w, tile_rows=rows, weight_bits=cfg.weight_bits)
+    kp = w8.shape[1] - a8.shape[2]
+    if kp:   # mirror the mount padding on the streaming side
+        a8 = F.pad(a8, (0, kp))
+    # under jax.vmap XLA keeps ``ascale * ws`` a plain product of the two
+    # quantize scales, not ``dequant_scale``'s reassociated form
+    scale = a_scale * quantize_scale(w_amax, cfg.weight_bits)
+    return a8.contiguous(), w8.contiguous(), scale.reshape(-1, 1, 1), rows
+
+
+def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
+               cfg) -> torch.Tensor:
+    """One dynamic-operand GEMM stage (attention Q·Kᵀ or P·V): the
+    slices' mounts (``dyn_mounts``), then one crossbar GEMM launch and
+    one epilogue launch for all of them."""
+    a8, w8, scale, rows = dyn_mounts(gemm, bufs, cfg)
+    y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows)
+    out = fb_epilogue(y, scale, torch.zeros(w8.shape[2], device=y.device),
+                      None, softmax=any(p.kind == "softmax" for p in posts),
+                      post_scale=gemm.post_scale)
+    if gemm.dyn == "pv":                         # heads rejoin the model dim
+        out = merge_heads(out, gemm.heads)
+    return out
 
 
 def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
@@ -129,7 +184,8 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
 def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
                    return_logits: bool = False) -> torch.Tensor:
     """Run a packed program on a batch ``x`` (B, H, W, C) float32 — or
-    (B, F) features for fc-first programs — on ``x``'s device.
+    (B, F) features for fc-first programs, (B, T, D) tokens for
+    sequence-input programs — on ``x``'s device.
 
     Returns the program's output buffer (softmax probabilities), or the
     pre-softmax logits with ``return_logits=True`` (the final stage is
@@ -143,15 +199,13 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
     ret = program.logits if return_logits else program.output
     for si, ((gemm, posts), st) in enumerate(zip(stages, packed.stages)):
         if gemm.kind == "dyn_gemm":
-            raise NotImplementedError(
-                f"{program.net}: stage {gemm.name} is a dynamic-operand "
-                "(attention) GEMM; the port runs weight-mounted CNN "
-                "programs, and attention stages (_dyn_stage) are its next "
-                "slice")
-        dst, out = _static_stage(
-            gemm, posts, st, bufs, cfg,
-            drop_softmax=return_logits and si == len(stages) - 1)
-        bufs[dst] = out
+            dst = posts[-1].dst if posts else gemm.dst
+            bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg)
+        else:
+            dst, out = _static_stage(
+                gemm, posts, st, bufs, cfg,
+                drop_softmax=return_logits and si == len(stages) - 1)
+            bufs[dst] = out
         # drop buffers no later stage reads
         for name in [n for n, li in last.items() if li <= si]:
             if name != ret:

@@ -11,7 +11,8 @@ planes and ``amax`` equal the JAX package's bit for bit.
 
 Packing runs on the device the parameters live on; the hot loop then
 only quantizes activations.  Dynamic-operand (attention) stages own no
-weights and pack as empty placeholders.
+weights and pack as empty placeholders; the executor mounts their
+runtime operands with the same ``plane_pack``, over a slice axis.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.crossbar import quantize_symmetric
+from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
 
 from .compile import CrossbarProgram
 
@@ -74,10 +75,15 @@ def plane_pack(w: torch.Tensor, *, tile_rows: int,
     Symmetric per-tensor int8 quantization at ``weight_bits``, K
     zero-padded up to the next ``tile_rows`` multiple so every mount is
     a full ADC row chunk (zero rows add nothing to any bitline count).
+    A (S, K, N) stack of runtime operands mounts slice by slice, in one
+    pass: one int8 plane matrix and one ``amax`` per slice, -> ((S,
+    K_pad, N), (S,)), what ``plane_pack`` under ``jax.vmap`` computes.
     """
-    wq, _ = quantize_symmetric(w, weight_bits)
-    wq = F.pad(wq, (0, 0, 0, -w.shape[0] % tile_rows))
-    return wq.to(torch.int8), w.abs().amax().float()
+    amax = w.abs().amax(dim=(-2, -1))
+    scale = quantize_scale(amax, weight_bits)[..., None, None]
+    wq = quantize_with_scale(w, scale, weight_bits)
+    wq = F.pad(wq, (0, 0, 0, -w.shape[-2] % tile_rows))
+    return wq.to(torch.int8), amax.float()
 
 
 def pack_weight(w: torch.Tensor, *, is_conv: bool, tile_rows: int,

@@ -2,7 +2,7 @@
 
 The port of ``repro.program.sequence``.  ``attn_scale`` is what the
 compiler folds into the scores stage; the layout helpers are what the
-executor's dynamic-operand stages (the next slice) split and merge heads
+executor's dynamic-operand (attention) stages split and merge heads
 with.  Reshape/transpose only, plus one Python float constant.
 """
 

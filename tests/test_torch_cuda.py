@@ -16,7 +16,12 @@ import torch
 from repro_torch import api
 from repro_torch.kernels import (clip_possible, crossbar_gemm,
                                  crossbar_gemm_exact_ref, crossbar_gemm_ref,
-                                 fb_epilogue, fb_epilogue_ref)
+                                 fb_epilogue, fb_epilogue_ref,
+                                 flash_attention, flash_attention_ref,
+                                 fused_gemm_epilogue, fused_gemm_epilogue_ref,
+                                 ops, packed_gemm, packed_gemm_ref,
+                                 packed_gemm_tiles_ref, pad_groups,
+                                 tile_group_map)
 
 
 @pytest.fixture
@@ -104,3 +109,143 @@ def test_small_net_on_the_gpu_equals_the_cpu_plain_path(cuda):
     x = np.random.default_rng(0).standard_normal((5, 8, 8, 3)).astype(
         np.float32)
     assert torch.equal(gpu.run(x, logits=True).cpu(), cpu.run(x, logits=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc_bits,rows", [(9, 64), (8, 300)])
+def test_batched_crossbar_gemm_is_one_launch_equal_to_per_slice(cuda,
+                                                                adc_bits,
+                                                                rows):
+    rng = np.random.default_rng(rows)
+    x, w = _int8((6, 64, 350), rng).to(cuda), _int8((6, 350, 40), rng).to(cuda)
+    x[:, :8] = -1
+    w[:, :, :5] = -1
+    before = crossbar_gemm.launches
+    got = crossbar_gemm(x, w, adc_bits=adc_bits, rows=rows)
+    assert crossbar_gemm.launches == before + 1
+    for s in range(6):
+        assert torch.equal(got[s], crossbar_gemm(x[s], w[s],
+                                                 adc_bits=adc_bits,
+                                                 rows=rows))
+    ref = crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,atol", [(dict(softmax=True, post_scale=0.125),
+                                      1e-6), (dict(post_scale=0.125), 0.0)])
+def test_batched_fb_epilogue_is_one_launch_equal_to_per_slice(cuda, kw, atol):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.randint(-2 ** 16, 2 ** 16, (48, 64, 64), generator=g,
+                      device=cuda, dtype=torch.int32)
+    scale = torch.rand(48, 1, 1, generator=g, device=cuda) * 1e-4
+    bias = torch.zeros(64, device=cuda)
+    before = fb_epilogue.launches
+    got = fb_epilogue(y, scale, bias, **kw)
+    assert fb_epilogue.launches == before + 1
+    for s in range(48):
+        assert torch.equal(got[s], fb_epilogue(y[s], scale[s], bias, **kw))
+    torch.testing.assert_close(got, fb_epilogue_ref(y, scale, bias, **kw),
+                               rtol=0, atol=atol)
+
+
+def _randn(shape, g, device, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,dtype,tol,negative", [
+    ((1, 128, 1, 64), True, 0, torch.float32, 1e-4, False),
+    ((2, 256, 4, 64), False, 0, torch.float32, 1e-4, False),
+    ((1, 512, 2, 64), True, 128, torch.float32, 1e-4, False),
+    ((1, 256, 2, 64), True, 0, torch.bfloat16, 2e-2, False),
+    ((16, 64, 3, 64), False, 0, torch.float32, 1e-4, False),
+    ((1, 64, 4, 16), False, 0, torch.float32, 1e-4, False),
+    ((1, 48, 2, 128), True, 0, torch.float32, 1e-4, False),
+    # a ragged last key tile (48 = 32 + 16) with every score near -800:
+    # the keys past Sk must not lift the running max to 0
+    ((1, 48, 2, 64), False, 0, torch.float32, 1e-4, True),
+])
+def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
+                                              dtype, tol, negative):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (_randn(shape, g, cuda, dtype) for _ in range(3))
+    if negative:
+        q, k = q.abs() + 10, -k.abs() - 10
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          block_q=min(128, shape[1]),
+                          block_k=min(128, shape[1]))
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_gqa_on_the_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn((1, 256, 8, 64), g, cuda)
+    k, v = _randn((1, 256, 2, 64), g, cuda), _randn((1, 256, 2, 64), g, cuda)
+    got = ops.attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k.repeat_interleave(4, 2),
+                              v.repeat_interleave(4, 2), causal=True)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_fused_gemm_epilogue_kernel_matches_plain(cuda, act, dtype, tol,
+                                                  with_res):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn((256, 512), g, cuda, dtype)
+    w = _randn((512, 384), g, cuda, dtype, 0.05)
+    b = _randn((384,), g, cuda)
+    res = _randn((256, 384), g, cuda) if with_res else None
+    before = fused_gemm_epilogue.launches
+    got = fused_gemm_epilogue(x, w, b, res, act=act)
+    assert fused_gemm_epilogue.launches == before + 1 and got.dtype == dtype
+    ref = fused_gemm_epilogue_ref(x, w, b, act=act, residual=res)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[256, 128, 384], [200, 56, 300, 100],
+                                   [128], [0, 256, 0, 128]], ids=str)
+def test_grouped_gemm_kernel_matches_plain(cuda, sizes):
+    g = torch.Generator(device=cuda).manual_seed(sum(sizes))
+    w = _randn((len(sizes), 128, 256), g, cuda, scale=0.1)
+    x = _randn((sum(sizes), 128), g, cuda)
+    xp, padded, _, _ = pad_groups(x, sizes, 128)
+    tiles = tile_group_map(padded, 128, xp.shape[0] // 128)
+    before = packed_gemm.launches
+    got = packed_gemm(xp, w, tiles)
+    assert packed_gemm.launches == before + 1
+    torch.testing.assert_close(got, packed_gemm_tiles_ref(xp, w, tiles, 128),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ops.grouped_gemm(x, w, sizes),
+                               packed_gemm_ref(x, w, sizes), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vit_on_the_gpu_matches_the_cpu_plain_path(cuda):
+    graph = api.vit_tiny_graph(depth=1, dim=48, heads=3)
+    gpu = api.compile(graph, seed=2, device="cuda")
+    cpu = api.compile(graph, seed=2, device="cpu")
+    x = np.random.default_rng(0).standard_normal(graph.input_shape(3)).astype(
+        np.float32)
+    n_dyn = sum(g.kind == "dyn_gemm" for g, _ in gpu.program.stages())
+    before = crossbar_gemm.launches
+    got = gpu.run(x, logits=True).cpu()
+    assert crossbar_gemm.launches == before + len(gpu.program.stages())
+    assert n_dyn == 2
+    ref = cpu.run(x, logits=True)
+    assert (got.argmax(1) == ref.argmax(1)).all()
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=2e-2 * float(ref.abs().max()))

@@ -220,10 +220,14 @@ def test_cpu_run_launches_no_kernel_and_buffers_are_dropped():
     assert (crossbar_gemm.launches, fb_epilogue.launches) == before
 
 
-def test_attention_stages_raise_naming_the_next_slice():
+def test_vit_tiny_runs_on_the_cpu_path():
+    """The attention (dynamic-operand) stages run: full-width vit_tiny
+    gives finite probabilities that sum to 1."""
     model = tapi.compile("vit_tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model.run(np.zeros(model.program.input_shape(1), np.float32))
+    assert model.program.has_dynamic_stages
+    probs = model.run(_x(model.graph, 2))
+    assert probs.shape == (2, 10) and bool(torch.isfinite(probs).all())
+    torch.testing.assert_close(probs.sum(1), torch.ones(2))
 
 
 def test_summary_and_warmup():
