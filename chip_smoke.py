@@ -10,12 +10,18 @@ and exits nonzero (printing no result) without them.  Phases, one line
 each on standard output (the per-shape details go to standard error):
 
 1. device: name and power limit (``nvidia-smi``), torch/CUDA versions,
-   and the seconds to build both kernels (one ``nvcc`` each, in
-   parallel);
-2. ``crossbar_gemm`` exact branch at ResNet-18's stage shapes (batch 16)
-   plus ragged shapes, equal to the plain version (``torch.equal``);
-3. ``crossbar_gemm`` sliced branch (8-bit ADC / 494 rows, 9-bit / 512)
-   on inputs where clips fire, equal to the plain version;
+   and the seconds to build the kernels (one ``nvcc`` each, in
+   parallel); ``crossbar_gemm``'s SASS must hold int8 tensor-core
+   (``IGMMA``) instructions and no ``IDP.4A`` or ``POPC``;
+2. ``crossbar_gemm`` exact branch, equal to the plain version
+   (``torch.equal``): ResNet-18's stage shapes (batch 16) in the main
+   path's form (x in the kernel layout, the packed ``wt``), ragged
+   shapes, M in 1/4/16 x K in 27/101/988/1458/4860 x N in 10/19/77,
+   all -128 operands, and the K split on and off for one shape;
+3. ``crossbar_gemm`` sliced branch (8-bit ADC / 494 rows, 9-bit / 512,
+   every chunk height 247/486/494/511/512 at M = 1, 4, 16) on inputs
+   where clips fire, all -1 operands, and the chunk split on and off,
+   equal to the plain version;
 4. ``fb_epilogue`` in every mode against the plain version, to the
    tolerances in ``FB_CASES``;
 5. the main path: ``repro_torch.api.compile("resnet18", HurryConfig())``
@@ -24,10 +30,12 @@ each on standard output (the per-shape details go to standard error):
    counters must grow by one per stage and request;
 6. the sliced branch end to end: AlexNet under ``HurryConfig(adc_bits=8)``
    at batch 4 against the CPU's plain path;
-7. times: each kernel summed over one batch-16 forward's shapes (device
-   time per call from 25 calls captured in a CUDA graph, median of 5
-   replays, ``device_ms``) beside its
-   bound, its plain version and, for the GEMM, ``torch._int_mm``; and
+7. times: each kernel summed over one batch-16 forward's shapes, and
+   the GEMM over a batch-1 forward's as well (device time per call from
+   25 calls captured in a CUDA graph, median of 5 replays,
+   ``device_ms``), beside its bound, its plain version and, for the GEMM,
+   ``torch._int_mm`` with the weight row-major and K-major; the five
+   stages furthest from their bound at each batch; and
    ResNet-18's end-to-end time per batch at 1 and 16 (host clock around
    ``run`` and a device synchronize, median of 10), with the device's
    busy time (profiler device events) and idle share of those forwards
@@ -36,7 +44,8 @@ each on standard output (the per-shape details go to standard error):
    64x64x64): ``crossbar_gemm`` on both branches and ``fb_epilogue``
    (scores: softmax + post_scale; context: plain dequant) in one launch
    each, equal to the plain versions on the same inputs and to the
-   per-slice 2-D calls (``torch.equal``; softmax to 1e-6);
+   per-slice 2-D calls (``torch.equal``; softmax to 1e-6), and 5 ragged
+   slices of 16x1001x19 through a mounted weight;
 9. ``flash_attention`` against its plain version: float32 at
    (1,128,1,64) and (2,256,4,64) causal and not, a 128-key window at
    (1,512,2,64), vit's (16,64,3,64) and the attention path's
@@ -78,6 +87,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -237,6 +247,20 @@ def events_ms(fn, calls: int = TIMED_LAUNCHES) -> float:
     return a.elapsed_time(b) / calls
 
 
+def sass_opcodes(build, name: str) -> dict | None:
+    """Counts of the int8 tensor-core (IGMMA), dot-product (IDP.4A) and
+    popcount (POPC) instructions in a kernel library's SASS, from
+    ``cuobjdump -sass`` beside ``nvcc``; None where there is none."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=120).stdout
+    return {op: len(re.findall(pattern, out)) for op, pattern in (
+        ("IGMMA", r"\bIGMMA\."), ("IDP4A", r"\bIDP\.4A"),
+        ("POPC", r"\bPOPC\b"))}
+
+
 def gemm_bound(M: int, N: int, K: int, sliced: bool) -> tuple[float, float]:
     """(bytes-bound ms, operations-bound ms) of one crossbar GEMM.
 
@@ -247,6 +271,21 @@ def gemm_bound(M: int, N: int, K: int, sliced: bool) -> tuple[float, float]:
     nbytes = M * K + K * N + 4 * M * N
     ops = 2 * M * N * K * (64 if sliced else 1)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def int_mm_ms(x, w) -> tuple[float, float]:
+    """``torch._int_mm``'s device time on (M, K) x (K, N) int8, padded to
+    its shape rules (M > 16, K and N multiples of 8): with the weight
+    row-major (K, N), then K-major (the transpose of an (N, K) contiguous
+    tensor: the layout cuBLASLt's int8 kernels take)."""
+    import torch
+    F = torch.nn.functional
+    (M, K), N = x.shape, w.shape[1]
+    xl = F.pad(x, (0, -K % 8, 0, max(0, 17 - M))).contiguous()
+    wl = F.pad(w, (0, -N % 8, 0, -K % 8)).contiguous()
+    wk = wl.t().contiguous()
+    return (device_ms(lambda: torch._int_mm(xl, wl)),
+            device_ms(lambda: torch._int_mm(xl, wk.t())))
 
 
 def fb_bound(M: int, N: int, out_rows: int, has_res: bool) -> float:
@@ -275,7 +314,7 @@ def stage_shapes(model, batch: int) -> list[dict]:
                 kw["softmax"] = True
         out.append(dict(name=gemm.name, M=M, K=st.w8.shape[0],
                         N=st.w8.shape[1], rows=gemm.tile_rows, fb=kw,
-                        res=has_res, out_rows=n_out, w8=st.w8))
+                        res=has_res, out_rows=n_out, w8=st.w8, wt=st.wt))
     return out
 
 
@@ -300,6 +339,128 @@ def float_gemm_bound(M: int, K: int, N: int, w_elems: int,
             2 * M * K * N / F32_OPS_PER_S * 1e3)
 
 
+EDGE_M = (1, 4, 16)
+EDGE_K = (27, 101, 988, 1458, 4860)
+EDGE_N = (10, 19, 77)
+EDGE_ROWS = (247, 486, 494, 511, 512)
+
+
+def _gemm_err(y, ref) -> int:
+    return (y.long() - ref.long()).abs().max().item() if y.numel() else 0
+
+
+def _split_on_and_off(dev, gen, exact: bool, M: int, K: int, N: int,
+                      rows: int, adc: int) -> int:
+    """One shape through the kernel with the K split it picks (> 1) and
+    with none, both equal to the plain version; returns the split."""
+    import torch
+    from repro_torch.kernels import (crossbar_gemm_exact_ref,
+                                     crossbar_gemm_ref, kernel_layout,
+                                     mount_weight)
+    module = importlib.import_module("repro_torch.kernels.crossbar_gemm")
+    x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[: max(1, M // 4)] = -1
+    w[:, : max(1, N // 4)] = -1
+    kw = dict(rows=rows, adc_bits=adc, exact=exact)
+    wt, xk = mount_weight(w, **kw), kernel_layout(x, K, **kw).contiguous()
+    r = min(rows, K)
+    split = module.splits(1, M, N, wt.shape[-1], exact=exact,
+                          rows32=-(-r // 32) * 32)
+    check(split > 1, f"no K split at M={M} K={K} N={N} exact={exact}")
+    ref = crossbar_gemm_exact_ref(x, w) if exact else \
+        crossbar_gemm_ref(x, w, adc_bits=adc, rows=rows)
+    for forced in (0, 1):
+        y = module._launch(xk, wt, N, exact=exact, rows=r, adc_bits=adc,
+                           split=forced)
+        check(torch.equal(y, ref), f"crossbar_gemm exact={exact} M={M} "
+              f"K={K} N={N} split={'auto' if forced == 0 else 1} differs")
+    return split
+
+
+def gemm_exact_phase(dev, gen, shapes) -> tuple[int, int, int]:
+    """Phase 2: the exact branch against its plain version: ResNet-18's
+    stages in the main path's form (x laid out by ``kernel_layout``, the
+    packed ``wt``), ragged shapes through a plain (K, N) weight, the edge
+    shapes, all -128 (the largest |y|), and the K split on and off.
+    Returns (max error, cases, the split of the split-on case)."""
+    import torch
+    from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_exact_ref,
+                                     kernel_layout)
+
+    def rand_i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    worst, n = 0, 0
+    for st in shapes:
+        x = rand_i8(st["M"], st["K"])
+        xk = kernel_layout(x, st["K"], rows=st["rows"])
+        y = crossbar_gemm(xk, st["w8"], rows=st["rows"], wt=st["wt"])
+        err = _gemm_err(y, crossbar_gemm_exact_ref(x, st["w8"]))
+        worst, n = max(worst, err), n + 1
+        check(err == 0, f"crossbar_gemm exact differs at stage {st['name']}")
+    cases = [(1, 27, 10, 27), (37, 101, 19, 27), (1000, 494, 77, 494),
+             (129, 1000, 65, 494), (3, 5, 3, 494)]
+    cases += [(M, K, N, 511) for M in EDGE_M for K in EDGE_K for N in EDGE_N]
+    for M, K, N, rows in cases:
+        x, w = rand_i8(M, K), rand_i8(K, N)
+        err = _gemm_err(crossbar_gemm(x, w, rows=rows),
+                        crossbar_gemm_exact_ref(x, w))
+        worst, n = max(worst, err), n + 1
+        check(err == 0, f"crossbar_gemm exact differs at M={M} K={K} N={N}")
+    x = torch.full((16, 4860), -128, dtype=torch.int8, device=dev)
+    w = torch.full((4860, 77), -128, dtype=torch.int8, device=dev)
+    y = crossbar_gemm(x, w, rows=511)
+    check(bool((y == 4860 * 2 ** 14).all()), "crossbar_gemm exact on all "
+          "-128 operands is not K * 2^14")
+    split = _split_on_and_off(dev, gen, True, 256, 4860, 512, 486, 9)
+    return worst, n + 2, split
+
+
+def gemm_sliced_phase(dev, gen) -> tuple[int, int, int, int]:
+    """Phase 3: the sliced branch against its plain version on inputs where
+    clips fire (a quarter of the rows and columns all ones), every chunk
+    height of the program and the smoke run at M = 1, 4, 16, all -1 (every
+    count equals the chunk height), and the chunk split on and off.
+    Returns (max error, cases, cases where a clip fired, the split)."""
+    import torch
+    from repro_torch.kernels import (clip_possible, crossbar_gemm,
+                                     crossbar_gemm_exact_ref,
+                                     crossbar_gemm_ref)
+    cases = [(8, 494, 2048, 988, 64), (8, 494, 1024, 1976, 384),
+             (9, 512, 512, 1536, 96), (9, 512, 33, 700, 17),
+             (8, 486, 64, 4446, 1024)]
+    cases += [(8, rows, M, 1458, 77) for rows in EDGE_ROWS for M in EDGE_M]
+    worst = clipped = 0
+    for adc, rows, M, K, N in cases:
+        x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        x[: max(1, M // 4)] = -1             # all bits set: counts = rows
+        w[:, : max(1, N // 4)] = -1
+        y = crossbar_gemm(x, w, adc_bits=adc, rows=rows, exact=False)
+        ref = crossbar_gemm_ref(x, w, adc_bits=adc, rows=rows)
+        err = _gemm_err(y, ref)
+        worst = max(worst, err)
+        check(err == 0, f"crossbar_gemm sliced differs at "
+              f"adc={adc} rows={rows} M={M} K={K} N={N}")
+        fired = not torch.equal(ref, crossbar_gemm_exact_ref(x, w))
+        check(fired == clip_possible(rows, adc), f"ADC clips at adc={adc} "
+              f"rows={rows} M={M}: fired {fired}")
+        clipped += int(fired)
+    x = torch.full((16, 4860), -1, dtype=torch.int8, device=dev)
+    w = torch.full((4860, 77), -1, dtype=torch.int8, device=dev)
+    y = crossbar_gemm(x, w, adc_bits=8, rows=494, exact=False)
+    check(torch.equal(y, crossbar_gemm_ref(x, w, adc_bits=8, rows=494)),
+          "crossbar_gemm sliced differs on all -1 operands")
+    split = _split_on_and_off(dev, gen, False, 4, 4374, 1024, 486, 8)
+    return worst, len(cases) + 2, clipped + 1, split
+
+
 def batched_phase(dev, gen) -> tuple[int, int, float]:
     """Phase 8: one batched launch at vit_tiny's dynamic shapes (batch 16
     x 3 heads, 64 tokens, hd 64), held against the plain versions on the
@@ -307,7 +468,8 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
     kernel-against-plain errors: exact GEMM, sliced GEMM, epilogue."""
     import torch
     from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_ref,
-                                     fb_epilogue, fb_epilogue_ref)
+                                     fb_epilogue, fb_epilogue_ref,
+                                     mount_weight)
     S, T, hd = 16 * 3, 64, 64
     x = torch.randint(-128, 128, (S, T, hd), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -329,6 +491,21 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
                            for i in range(S)])
         check(torch.equal(y, per), f"batched crossbar_gemm (adc {adc}) "
               "differs from the per-slice calls")
+    # the slice axis at ragged M, K and N, through a mounted weight
+    xr = torch.randint(-128, 128, (5, 16, 1001), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wr = torch.randint(-128, 128, (5, 1001, 19), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xr[:, :3] = -1
+    wr[:, :, :4] = -1
+    for adc, rows in ((9, 511), (8, 247), (8, 494)):
+        wt = mount_weight(wr, rows=rows, adc_bits=adc, exact=False)
+        y = crossbar_gemm(xr, wr, adc_bits=adc, rows=rows, exact=False,
+                          wt=wt)
+        check(torch.equal(y, crossbar_gemm_ref(xr, wr, adc_bits=adc,
+                                               rows=rows)),
+              f"batched ragged crossbar_gemm (adc {adc}, rows {rows}) "
+              "differs from the plain version")
     y32 = torch.randint(-2 ** 16, 2 ** 16, (S, T, T), generator=gen,
                         device=dev, dtype=torch.int32)
     scale = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
@@ -632,7 +809,8 @@ def main() -> int:
     from repro_torch.kernels.crossbar_gemm import (clip_possible,
                                                    crossbar_gemm,
                                                    crossbar_gemm_exact_ref,
-                                                   crossbar_gemm_ref)
+                                                   crossbar_gemm_ref,
+                                                   kernel_layout)
     from repro_torch.kernels.fb_epilogue import fb_epilogue, fb_epilogue_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -655,6 +833,12 @@ def main() -> int:
             for ln in f:
                 if "registers" in ln or "spill" in ln:
                     detail(f"ptxas {name}: {ln.strip()}")
+    sass = sass_opcodes(_build, "crossbar_gemm")
+    check(sass is None or (sass["IGMMA"] > 0 and sass["IDP4A"] == 0
+                           and sass["POPC"] == 0),
+          f"crossbar_gemm's SASS is not on the int8 tensor cores: {sass}")
+    log(f"[1 sass] crossbar_gemm opcodes "
+        f"{sass if sass else 'not read (no cuobjdump)'}")
 
     def rand_i8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
@@ -666,41 +850,20 @@ def main() -> int:
     shapes = stage_shapes(resnet_gpu, 16)
 
     # -- 2. crossbar_gemm, exact branch ----------------------------------
-    gemm_err = 0
-    cases = sorted({(s["M"], s["K"], s["N"], s["rows"]) for s in shapes})
-    cases += [(1, 27, 10, 27), (37, 101, 19, 27), (1000, 494, 77, 494),
-              (129, 1000, 65, 494), (3, 5, 3, 494)]
-    for M, K, N, rows in cases:
-        x, w = rand_i8(M, K), rand_i8(K, N)
-        err = (crossbar_gemm(x, w, rows=rows).long()
-               - crossbar_gemm_exact_ref(x, w).long()).abs().max().item()
-        gemm_err = max(gemm_err, err)
-        check(err == 0, f"crossbar_gemm exact differs at M={M} K={K} N={N}")
+    gemm_err, n_exact, ex_splits = gemm_exact_phase(dev, gen, shapes)
     torch.cuda.synchronize()
-    log(f"[2 crossbar_gemm exact] {len(cases)} shapes equal to the plain "
-        "version (torch.equal)")
+    log(f"[2 crossbar_gemm exact] {n_exact} cases equal to the plain version "
+        f"(torch.equal): ResNet-18 b16 stages through the mounted wt, ragged "
+        f"and edge shapes (M 1/4/16 x K {'/'.join(map(str, EDGE_K))} x N "
+        f"{'/'.join(map(str, EDGE_N))}), all -128, K split {ex_splits} and 1")
 
     # -- 3. crossbar_gemm, sliced branch ---------------------------------
-    sl_cases = [(8, 494, 2048, 988, 64), (8, 494, 1024, 1976, 384),
-                (9, 512, 512, 1536, 96), (9, 512, 33, 700, 17),
-                (8, 486, 64, 4446, 1024)]
-    clipped = sliced_err = 0
-    for adc, rows, M, K, N in sl_cases:
-        x, w = rand_i8(M, K), rand_i8(K, N)
-        x[: M // 4] = -1                     # all bits set: counts = rows
-        w[:, : N // 4] = -1
-        y = crossbar_gemm(x, w, adc_bits=adc, rows=rows, exact=False)
-        ref = crossbar_gemm_ref(x, w, adc_bits=adc, rows=rows)
-        err = (y.long() - ref.long()).abs().max().item()
-        sliced_err = max(sliced_err, err)
-        check(err == 0, f"crossbar_gemm sliced differs at "
-              f"adc={adc} rows={rows} M={M} K={K} N={N}")
-        check(clip_possible(rows, adc), "sliced case cannot clip")
-        clipped += int(not torch.equal(ref, crossbar_gemm_exact_ref(x, w)))
-    check(clipped == len(sl_cases), "ADC clips did not fire in every case")
+    sliced_err, n_sliced, clipped, sl_splits = gemm_sliced_phase(dev, gen)
     torch.cuda.synchronize()
-    log(f"[3 crossbar_gemm sliced] {len(sl_cases)} shapes equal to the plain "
-        f"version, ADC clips fired in {clipped}")
+    log(f"[3 crossbar_gemm sliced] {n_sliced} cases equal to the plain "
+        f"version, ADC clips fired in {clipped} (every case where rows > "
+        f"2^adc_bits - 1); rows {'/'.join(map(str, EDGE_ROWS))} x M 1/4/16, "
+        f"all -1, chunk split {sl_splits} and 1")
 
     # -- 4. fb_epilogue, every mode --------------------------------------
     fb_err = 0.0
@@ -804,48 +967,65 @@ def main() -> int:
 
     # -- 7. times ---------------------------------------------------------
     # bounds sum per-shape max(bytes, operations); `by` keeps each
-    # shape's binding term so the sum can say which one dominates
-    g = dict(ms=0.0, plain=0.0, lib=0.0, by={"bytes": 0.0, "operations": 0.0})
+    # shape's binding term so the sum can say which one dominates.  The
+    # GEMM runs in the main path's form: x laid out by kernel_layout (as
+    # the executor quantizes into it) and the stage's mounted wt.
+    g = {}
     f = dict(ms=0.0, plain=0.0, bound=0.0)
-    for s in shapes:
-        M, K, N = s["M"], s["K"], s["N"]
-        x, w = rand_i8(M, K), s["w8"]
-        g_ms = device_ms(lambda: crossbar_gemm(x, w, rows=s["rows"]))
-        g_plain = device_ms(lambda: crossbar_gemm_exact_ref(x, w))
-        # torch._int_mm's shape rules: M > 16, K and N multiples of 8
-        xl = torch.nn.functional.pad(x, (0, -K % 8, 0, max(0, 17 - M)))
-        wl = torch.nn.functional.pad(w, (0, -N % 8, 0, -K % 8))
-        g_lib = device_ms(lambda: torch._int_mm(xl, wl))
-        b_ms, o_ms = gemm_bound(M, N, K, sliced=False)
-        g["by"]["bytes" if b_ms >= o_ms else "operations"] += max(b_ms, o_ms)
-        y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
-                          device=dev, dtype=torch.int32)
-        scale = torch.full((1, 1), 3.1e-6, device=dev)
-        bias = torch.randn(N, generator=gen, device=dev)
-        res = torch.randn(M, N, generator=gen, device=dev) if s["res"] \
-            else None
-        f_ms = device_ms(lambda: fb_epilogue(y, scale, bias, res, **s["fb"]))
-        f_plain = device_ms(lambda: fb_epilogue_ref(y, scale, bias, res,
-                                                  **s["fb"]))
-        f_bound = fb_bound(M, N, s["out_rows"], s["res"])
-        g["ms"] += g_ms
-        g["plain"] += g_plain
-        g["lib"] += g_lib
-        f["ms"] += f_ms
-        f["plain"] += f_plain
-        f["bound"] += f_bound
-        detail(
-            f"time {s['name']}: M={M} K={K} N={N} gemm {g_ms:.4f} ms "
-            f"(bound {max(b_ms, o_ms):.5f}, plain {g_plain:.4f}, _int_mm "
-            f"{g_lib:.4f}) | epilogue {s['fb']} res={s['res']} {f_ms:.4f} ms "
-            f"(bound {f_bound:.5f}, plain {f_plain:.4f})")
+    for b in (16, 1):
+        gb = dict(ms=0.0, plain=0.0, row=0.0, kmaj=0.0, stages=[],
+                  by={"bytes": 0.0, "operations": 0.0})
+        for s in shapes if b == 16 else stage_shapes(resnet_gpu, 1):
+            M, K, N, rows = s["M"], s["K"], s["N"], s["rows"]
+            x, w, wt = rand_i8(M, K), s["w8"], s["wt"]
+            xk = kernel_layout(x, K, rows=rows).contiguous()
+            g_ms = device_ms(lambda: crossbar_gemm(xk, w, rows=rows, wt=wt))
+            g_plain = device_ms(lambda: crossbar_gemm_exact_ref(x, w))
+            lib_row, lib_k = int_mm_ms(x, w)
+            b_ms, o_ms = gemm_bound(M, N, K, sliced=False)
+            gb["by"]["bytes" if b_ms >= o_ms else "operations"] += max(b_ms,
+                                                                      o_ms)
+            gb["ms"] += g_ms
+            gb["plain"] += g_plain
+            gb["row"] += lib_row
+            gb["kmaj"] += lib_k
+            gb["stages"].append((g_ms - max(b_ms, o_ms), s["name"], g_ms,
+                                 max(b_ms, o_ms)))
+            line = (f"time b{b} {s['name']}: M={M} K={K} N={N} gemm "
+                    f"{g_ms:.4f} ms (bound {max(b_ms, o_ms):.5f}, plain "
+                    f"{g_plain:.4f}, _int_mm row-major {lib_row:.4f}, "
+                    f"K-major {lib_k:.4f})")
+            if b == 16:
+                y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                scale = torch.full((1, 1), 3.1e-6, device=dev)
+                bias = torch.randn(N, generator=gen, device=dev)
+                res = torch.randn(M, N, generator=gen, device=dev) \
+                    if s["res"] else None
+                f_ms = device_ms(lambda: fb_epilogue(y, scale, bias, res,
+                                                     **s["fb"]))
+                f_plain = device_ms(lambda: fb_epilogue_ref(
+                    y, scale, bias, res, **s["fb"]))
+                f_bound = fb_bound(M, N, s["out_rows"], s["res"])
+                f["ms"] += f_ms
+                f["plain"] += f_plain
+                f["bound"] += f_bound
+                line += (f" | epilogue {s['fb']} res={s['res']} {f_ms:.4f} ms"
+                         f" (bound {f_bound:.5f}, plain {f_plain:.4f})")
+            detail(line)
+        for gap, name, ms, bnd in sorted(gb["stages"], reverse=True)[:5]:
+            detail(f"top offender b{b} {name}: {ms:.4f} ms, bound {bnd:.5f}"
+                   f", gap {gap:.4f} ms")
+        g[b] = gb
     # the AlexNet adc_bits=8 path's GEMMs (batch 4): all but conv1 sliced
     sl = dict(ms=0.0, plain=0.0, by={"bytes": 0.0, "operations": 0.0})
     for s in stage_shapes(alex_gpu, 4):
         M, K, N, rows = s["M"], s["K"], s["N"], s["rows"]
-        x, w = rand_i8(M, K), s["w8"]
+        x, w, wt = rand_i8(M, K), s["w8"], s["wt"]
+        xk = kernel_layout(x, K, rows=rows, adc_bits=8).contiguous()
         is_sliced = clip_possible(min(rows, K), 8)
-        s_ms = device_ms(lambda: crossbar_gemm(x, w, adc_bits=8, rows=rows))
+        s_ms = device_ms(lambda: crossbar_gemm(xk, w, adc_bits=8, rows=rows,
+                                               wt=wt))
         s_plain = device_ms(
             lambda: crossbar_gemm_ref(x, w, adc_bits=8, rows=rows)
             if is_sliced else crossbar_gemm_exact_ref(x, w), calls=5)
@@ -877,11 +1057,20 @@ def main() -> int:
     def bound(by: dict) -> tuple[float, str]:
         return sum(by.values()), max(by, key=by.get)
 
-    g_bound, g_by = bound(g["by"])
+    g_bound, g_by = bound(g[16]["by"])
+    g1_bound, g1_by = bound(g[1]["by"])
     s_bound, s_by = bound(sl["by"])
+    # the library yardstick: _int_mm on the faster of the two layouts
+    lib_layout = "row-major" if g[16]["row"] <= g[16]["kmaj"] else "K-major"
+    g_lib = min(g[16]["row"], g[16]["kmaj"])
     log(f"[7 times] per ResNet-18 batch-16 forward: crossbar_gemm "
-        f"{g['ms']:.3f} ms (bound {g_bound:.4f} by {g_by}, plain "
-        f"{g['plain']:.3f}, torch._int_mm {g['lib']:.3f}); fb_epilogue "
+        f"{g[16]['ms']:.3f} ms (bound {g_bound:.4f} by {g_by}, plain "
+        f"{g[16]['plain']:.3f}, torch._int_mm row-major {g[16]['row']:.3f} / "
+        f"K-major {g[16]['kmaj']:.3f}, library_ms {lib_layout}); per "
+        f"batch-1 forward: crossbar_gemm "
+        f"{g[1]['ms']:.3f} ms (bound {g1_bound:.4f} by {g1_by}, plain "
+        f"{g[1]['plain']:.3f}, torch._int_mm row-major {g[1]['row']:.3f} / "
+        f"K-major {g[1]['kmaj']:.3f}); fb_epilogue b16 "
         f"{f['ms']:.3f} ms (bound {f['bound']:.4f} by bytes, plain "
         f"{f['plain']:.3f}); AlexNet adc8 b4 crossbar_gemm {sl['ms']:.3f} ms "
         f"(bound {s_bound:.4f} by {s_by}, plain {sl['plain']:.3f}); "
@@ -896,7 +1085,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log("[8 batched launches] 48 slices of 64x64x64, one launch each: "
         "crossbar_gemm exact and sliced equal to the plain version and to "
-        "the per-slice 2-D calls (torch.equal); fb_epilogue dequant equal, "
+        "the per-slice 2-D calls (torch.equal), 5 ragged slices of "
+        "16x1001x19 equal at rows 511/247/494; fb_epilogue dequant equal, "
         "softmax+post_scale max |kernel - plain| "
         f"{b_fb_err:.2e} (limit 1e-6)")
 
@@ -1074,8 +1264,8 @@ def main() -> int:
              replaces="src/repro/kernels/crossbar_gemm.py:116",
              launches=main_launches["crossbar_gemm"]
              + vit["launches"]["crossbar_gemm"], max_abs_err=gemm_err,
-             ms=g["ms"], plain_ms=g["plain"], bound_ms=g_bound,
-             bound_by=g_by, library_ms=g["lib"]),
+             ms=g[16]["ms"], plain_ms=g[16]["plain"], bound_ms=g_bound,
+             bound_by=g_by, library_ms=g_lib),
         dict(name="crossbar_gemm (sliced path)", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
              replaces="src/repro/kernels/crossbar_gemm.py:77",

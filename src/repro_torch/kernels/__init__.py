@@ -11,7 +11,8 @@ CPU tensor it computes the plain PyTorch version.
 """
 
 from .crossbar_gemm import (clip_possible, crossbar_gemm, crossbar_gemm_ref,
-                            crossbar_gemm_exact_ref)
+                            crossbar_gemm_exact_ref, kernel_layout,
+                            mount_weight)
 from .fb_epilogue import (LN_EPS, fb_epilogue, fb_epilogue_ref, gelu,
                           layer_norm_rows, softmax_rows)
 from .flash_attention import flash_attention, flash_attention_ref
@@ -21,7 +22,8 @@ from .packed_gemm import (packed_gemm, packed_gemm_ref, packed_gemm_tiles_ref,
 
 __all__ = [
     "clip_possible", "crossbar_gemm", "crossbar_gemm_ref",
-    "crossbar_gemm_exact_ref", "LN_EPS", "fb_epilogue", "fb_epilogue_ref",
+    "crossbar_gemm_exact_ref", "kernel_layout", "mount_weight",
+    "LN_EPS", "fb_epilogue", "fb_epilogue_ref",
     "gelu", "layer_norm_rows", "softmax_rows", "flash_attention",
     "flash_attention_ref", "fused_gemm_epilogue", "fused_gemm_epilogue_ref",
     "packed_gemm", "packed_gemm_ref", "packed_gemm_tiles_ref", "pad_groups",

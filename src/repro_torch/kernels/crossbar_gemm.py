@@ -21,6 +21,21 @@ and adds one to ``crossbar_gemm.launches``; for a CPU tensor it computes
 the plain PyTorch version (``crossbar_gemm_exact_ref`` /
 ``crossbar_gemm_ref``).  Nothing falls back from the card to the plain
 version.
+
+The kernel layout.  The kernels (``wgmma`` on s8) take both operands
+K-major with 16-byte-aligned rows: x as (..., M, Kk) and the weight
+transposed, wt (..., N, Kk), K zero-padded to Kk: a multiple of 32 on
+the exact branch, chunk by chunk on the sliced branch (each
+``rows``-row chunk to a multiple of 32 rows, so that no k-step straddles
+an ADC chunk).  Zero rows add nothing to a product or to a bitline
+count, so the padding is exact.  ``mount_weight`` builds that
+kernel-layout weight, and ``kernel_layout`` pads a K-major operand into
+it; the packer mounts each static stage's weight once
+(``PackedStage.wt``) and the executor quantizes activations straight
+into the layout.  Passed a plain (K, N) weight without ``wt``, the
+wrapper lays it out itself in one extra launch (and pads x likewise where
+x is not already in the layout): those helper launches do not count as
+``crossbar_gemm`` launches.
 """
 
 from __future__ import annotations
@@ -29,10 +44,9 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-
-_MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
 
 
 def clip_possible(rows: int, adc_bits: int) -> bool:
@@ -102,28 +116,103 @@ def _sliced_ref(x: torch.Tensor, w: torch.Tensor, adc_bits: int,
 
 
 # ---------------------------------------------------------------------------
+# the kernel layout
+# ---------------------------------------------------------------------------
+
+def _branch(K: int, rows: int, adc_bits: int,
+            exact: bool | None) -> tuple[int, bool]:
+    """(rows = min(rows, K), exact?) as the wrapper dispatches a call of
+    contraction length K (module docstring); raises for ``exact=True``
+    where a clip could fire."""
+    rows = max(1, min(rows, K))
+    if exact is None:
+        return rows, not clip_possible(rows, adc_bits)
+    if exact and clip_possible(rows, adc_bits):
+        raise ValueError(
+            f"exact=True but ADC clipping can fire: rows={rows} > "
+            f"2^{adc_bits} - 1 = {(1 << adc_bits) - 1}; use the sliced path")
+    return rows, exact
+
+
+def _up32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _kernel_k(K: int, rows: int, exact: bool) -> int:
+    return _up32(K) if exact else -(-K // rows) * _up32(rows)
+
+
+def _layout(t: torch.Tensor, K: int, rows: int,
+            exact: bool) -> torch.Tensor:
+    """(..., R, k) K-major, k <= K, -> (..., R, _kernel_k(K, rows, exact)),
+    zero-padded; ``t`` itself where nothing needs padding."""
+    k = t.shape[-1]
+    if exact:
+        pad = _up32(K) - k
+        return F.pad(t, (0, pad)) if pad else t
+    chunks, r32 = -(-K // rows), _up32(rows)
+    if r32 == rows and k == chunks * rows:
+        return t
+    t = F.pad(t, (0, chunks * rows - k)).unflatten(-1, (chunks, rows))
+    return F.pad(t, (0, r32 - rows)).flatten(-2)
+
+
+def kernel_layout(t: torch.Tensor, K: int, *, rows: int = 512,
+                  adc_bits: int = 9,
+                  exact: bool | None = None) -> torch.Tensor:
+    """A K-major int8 operand (..., R, k), k <= K (the call's contraction
+    length), zero-padded into the kernel layout (..., R, Kk): Kk a
+    multiple of 32 on the exact branch, chunks * roundup(rows, 32) on the
+    sliced branch.
+
+    x of a call goes in as it is; a (K, N) weight goes in transposed
+    (``mount_weight``).  Returns ``t`` itself where no padding is needed.
+    """
+    rows, exact = _branch(K, rows, adc_bits, exact)
+    return _layout(t, K, rows, exact)
+
+
+def mount_weight(w: torch.Tensor, *, rows: int = 512, adc_bits: int = 9,
+                 exact: bool | None = None) -> torch.Tensor:
+    """A (..., K, N) int8 weight in the kernel layout: wt (..., N, Kk)
+    (``kernel_layout``), contiguous, what ``crossbar_gemm(..., wt=)``
+    takes."""
+    return kernel_layout(w.mT, w.shape[-2], rows=rows, adc_bits=adc_bits,
+                         exact=exact).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("crossbar_gemm")
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and result types on a loaded
+    ``crossbar_gemm`` library (also a variant build of it)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crossbar_gemm_exact.argtypes = [p, p, p, i, i, i, i, p]
+    lib.crossbar_gemm_exact.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.crossbar_gemm_exact.restype = i
-    lib.crossbar_gemm_sliced.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.crossbar_gemm_sliced.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.crossbar_gemm_sliced.restype = i
-    lib.crossbar_gemm_sliced_smem.argtypes = [i]
-    lib.crossbar_gemm_sliced_smem.restype = i
+    for name in ("crossbar_gemm_exact_splits", "crossbar_gemm_sliced_splits"):
+        getattr(lib, name).argtypes = [i, i, i, i]
+        getattr(lib, name).restype = i
     return lib
 
 
-def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return declare(_build.load("crossbar_gemm"))
+
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor,
+                    wt: torch.Tensor | None) -> None:
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"crossbar_gemm takes int8 operands, got "
                         f"{x.dtype} and {w.dtype}")
-    if not (x.dim() == w.dim() and x.dim() in (2, 3)
-            and x.shape[-1] == w.shape[-2] and x.shape[:-2] == w.shape[:-2]):
+    k_ok = x.shape[-1] == w.shape[-2] or (
+        wt is not None and x.shape[-1] == wt.shape[-1])
+    if not (x.dim() == w.dim() and x.dim() in (2, 3) and k_ok
+            and x.shape[:-2] == w.shape[:-2]):
         raise ValueError(f"crossbar_gemm: shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)} do not multiply")
     if x.device != w.device:
@@ -131,16 +220,38 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{w.device}")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, *, exact: bool, rows: int,
-            adc_bits: int) -> torch.Tensor:
-    if not (x.is_contiguous() and w.is_contiguous()):
+def _check_wt(wt: torch.Tensor, w: torch.Tensor, kk: int) -> None:
+    want = (*w.shape[:-2], w.shape[-1], kk)
+    if wt.dtype != torch.int8 or tuple(wt.shape) != want:
+        raise ValueError(f"crossbar_gemm: wt {wt.dtype} {tuple(wt.shape)} "
+                         f"is not the kernel layout int8 {want}")
+    if wt.device != w.device:
+        raise ValueError(f"crossbar_gemm: wt on {wt.device}, w on "
+                         f"{w.device}")
+
+
+def splits(S: int, M: int, N: int, kk: int, *, exact: bool,
+           rows32: int = 32) -> int:
+    """The K split (blocks sharing one output tile) that the kernel takes
+    for a call of this shape in the kernel layout: slabs of K on the exact
+    branch, ADC chunks of ``rows32`` on the sliced branch."""
+    lib = _lib()
+    if exact:
+        return lib.crossbar_gemm_exact_splits(S, M, N, kk)
+    return lib.crossbar_gemm_sliced_splits(S, M, N, kk // rows32)
+
+
+def _launch(x: torch.Tensor, wt: torch.Tensor, N: int, *, exact: bool,
+            rows: int, adc_bits: int, split: int = 0) -> torch.Tensor:
+    """One kernel launch on operands already in the kernel layout;
+    ``split`` > 0 forces the K split (0: the kernel's own choice)."""
+    if not (x.is_contiguous() and wt.is_contiguous()):
         raise ValueError("crossbar_gemm: the CUDA kernel takes contiguous "
                          "operands")
-    M, K = x.shape[-2:]
-    N = w.shape[-1]
+    M, kk = x.shape[-2:]
     S = x.shape[0] if x.dim() == 3 else 1
     y = torch.empty(*x.shape[:-1], N, dtype=torch.int32, device=x.device)
-    if y.numel() == 0 or K == 0:
+    if y.numel() == 0 or kk == 0:
         return y.zero_()
     if S > 65535:
         raise ValueError(f"crossbar_gemm: {S} slices exceed the grid's z "
@@ -148,45 +259,46 @@ def _launch(x: torch.Tensor, w: torch.Tensor, *, exact: bool, rows: int,
     lib = _lib()
     stream = _build.stream_handle()
     if exact:
-        err = lib.crossbar_gemm_exact(x.data_ptr(), w.data_ptr(),
-                                      y.data_ptr(), S, M, N, K, stream)
+        err = lib.crossbar_gemm_exact(x.data_ptr(), wt.data_ptr(),
+                                      y.data_ptr(), S, M, N, kk, split,
+                                      stream)
     else:
-        chunks, words = -(-K // rows), -(-rows // 32)
-        if lib.crossbar_gemm_sliced_smem(words) > _MAX_SMEM:
-            raise ValueError(f"crossbar_gemm: rows={rows} needs more "
-                             "shared memory than a block has")
-        xp = torch.empty(S * M * chunks * 8 * words, dtype=torch.int32,
-                         device=x.device)
-        wp = torch.empty(S * N * chunks * 8 * words, dtype=torch.int32,
-                         device=x.device)
         err = lib.crossbar_gemm_sliced(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), xp.data_ptr(),
-            wp.data_ptr(), S, M, N, K, rows, (1 << adc_bits) - 1, stream)
+            x.data_ptr(), wt.data_ptr(), y.data_ptr(), S, M, N, kk,
+            _up32(rows), (1 << adc_bits) - 1, split, stream)
     _build.check(lib, "crossbar_gemm", err)
     crossbar_gemm.launches += 1
     return y
 
 
 def crossbar_gemm(x: torch.Tensor, w: torch.Tensor, *, adc_bits: int = 9,
-                  rows: int = 512, exact: bool | None = None) -> torch.Tensor:
+                  rows: int = 512, exact: bool | None = None,
+                  wt: torch.Tensor | None = None) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32 with HURRY semantics;
     (S, M, K) x (S, K, N) -> (S, M, N) runs S independent GEMMs.
 
     ``exact=None`` auto-dispatches (module docstring); ``exact=True``
-    raises ``ValueError`` when ADC saturation could fire.  CUDA operands
-    run the kernel (one launch for all slices), CPU operands the plain
-    version.
+    raises ``ValueError`` when ADC saturation could fire.  ``wt`` is the
+    weight already in the kernel layout (``mount_weight(w, ...)`` with the
+    same rows, adc_bits and exact); with it, x may come in the kernel
+    layout as well, (..., M, Kk).  CUDA operands run the kernel
+    (one launch for all slices), CPU operands the plain version.
     """
-    _check_operands(x, w)
-    rows = max(1, min(rows, x.shape[-1]))
-    if exact is None:
-        exact = not clip_possible(rows, adc_bits)
-    elif exact and clip_possible(rows, adc_bits):
-        raise ValueError(
-            f"exact=True but ADC clipping can fire: rows={rows} > "
-            f"2^{adc_bits} - 1 = {(1 << adc_bits) - 1}; use the sliced path")
+    _check_operands(x, w, wt)
+    K = w.shape[-2]
+    rows, exact = _branch(K, rows, adc_bits, exact)
+    kk = _kernel_k(K, rows, exact)
+    if wt is not None:
+        _check_wt(wt, w, kk)
     if x.is_cuda:
-        return _launch(x, w, exact=exact, rows=rows, adc_bits=adc_bits)
+        if wt is None:        # lay the weight out here: one helper launch
+            wt = _layout(w.mT, K, rows, exact).contiguous()
+        if x.shape[-1] != kk:
+            x = _layout(x, K, rows, exact)
+        return _launch(x.contiguous(), wt, w.shape[-1], exact=exact,
+                       rows=rows, adc_bits=adc_bits)
+    if x.shape[-1] != K:      # x in the kernel layout: chunks of r32 rows
+        w, rows = wt.mT, _up32(rows)
     if exact:
         return crossbar_gemm_exact_ref(x, w)
     return crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)

@@ -7,7 +7,9 @@ stage (``_static_stage``):
   an NHWC flatten for a spatial buffer entering an fc);
 * it is quantized to symmetric int8 (the only quantization in the hot
   loop: weights were mounted by ``pack.pack_program``) and zero-padded
-  to the mounts' K;
+  into the kernel layout of the mounts' K (``kernels.crossbar_gemm.
+  kernel_layout``: to a multiple of 32 bytes, or chunk by chunk where
+  the ADC can clip), which the stage's mounted ``wt`` shares;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read);
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.crossbar import (dequant_scale, quantize_scale,
                                        quantize_with_scale)
-from repro_torch.kernels.crossbar_gemm import crossbar_gemm
+from repro_torch.kernels.crossbar_gemm import crossbar_gemm, kernel_layout
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 
 from .compile import ProgramOp
@@ -77,14 +79,17 @@ def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
     (S, 1, 1) f32, rows)``: per (batch, head) slice the left operand is
     quantized with its own scale and the right one mounted with
     ``plane_pack``, as ``jax.vmap`` over the JAX executor's per-slice
-    function computes.
+    function computes.  The right operand is mounted K-major, the form
+    the kernel takes: ``w8`` is the transposed view of a contiguous (S, N,
+    K_pad) tensor (for Q·Kᵀ the key block itself, for P·V it is Vᵀ).
     """
     if gemm.dyn == "qk":
         q, k, _ = split_qkv_heads(tokens(bufs[gemm.src]), gemm.heads)
-        a, w = q, k.transpose(1, 2)              # (BH, T, hd), (BH, hd, T)
+        a, wk = q, k                             # (BH, T, hd), Kᵀ K-major
     elif gemm.dyn == "pv":
         a = bufs[gemm.src]                       # (BH, T, T) probabilities
-        _, _, w = split_qkv_heads(tokens(bufs[gemm.dyn_src]), gemm.heads)
+        _, _, v = split_qkv_heads(tokens(bufs[gemm.dyn_src]), gemm.heads)
+        wk = v.transpose(1, 2)                   # (BH, hd, T): V K-major
     else:  # pragma: no cover - compile_network emits only qk/pv
         raise ValueError(gemm.dyn)
     rows = min(gemm.tile_rows, a.shape[-1])      # dynamic mount height
@@ -92,14 +97,15 @@ def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
     a_scale = quantize_scale(a_amax, cfg.input_bits)
     a8 = quantize_with_scale(a, a_scale[:, None, None],
                              cfg.input_bits).to(torch.int8)
-    w8, w_amax = plane_pack(w, tile_rows=rows, weight_bits=cfg.weight_bits)
-    kp = w8.shape[1] - a8.shape[2]
+    w8t, w_amax = plane_pack(wk, tile_rows=rows,
+                             weight_bits=cfg.weight_bits, k_major=True)
+    kp = w8t.shape[2] - a8.shape[2]
     if kp:   # mirror the mount padding on the streaming side
         a8 = F.pad(a8, (0, kp))
     # under jax.vmap XLA keeps ``ascale * ws`` a plain product of the two
     # quantize scales, not ``dequant_scale``'s reassociated form
     scale = a_scale * quantize_scale(w_amax, cfg.weight_bits)
-    return a8.contiguous(), w8.contiguous(), scale.reshape(-1, 1, 1), rows
+    return a8.contiguous(), w8t.mT, scale.reshape(-1, 1, 1), rows
 
 
 def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
@@ -108,7 +114,8 @@ def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
     slices' mounts (``dyn_mounts``), then one crossbar GEMM launch and
     one epilogue launch for all of them."""
     a8, w8, scale, rows = dyn_mounts(gemm, bufs, cfg)
-    y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows)
+    wt = kernel_layout(w8.mT, w8.shape[1], rows=rows, adc_bits=cfg.adc_bits)
+    y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows, wt=wt)
     out = fb_epilogue(y, scale, torch.zeros(w8.shape[2], device=y.device),
                       None, softmax=any(p.kind == "softmax" for p in posts),
                       post_scale=gemm.post_scale)
@@ -137,11 +144,12 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     x_amax = xin.abs().amax()
     xq = quantize_with_scale(xin, quantize_scale(x_amax, cfg.input_bits),
                              cfg.input_bits).to(torch.int8)
-    kp = st.w8.shape[0] - xq.shape[1]
-    if kp:   # K was padded to full mounts at pack time; mirror it
-        xq = F.pad(xq, (0, kp))
+    # K was padded to full mounts at pack time and laid out for the
+    # kernel (``st.wt``); pad the activations straight into that layout
+    xq = kernel_layout(xq, st.w8.shape[0], rows=gemm.tile_rows,
+                       adc_bits=cfg.adc_bits)
     y_int = crossbar_gemm(xq.contiguous(), st.w8, adc_bits=cfg.adc_bits,
-                          rows=gemm.tile_rows)
+                          rows=gemm.tile_rows, wt=st.wt)
     scale = dequant_scale(x_amax, st.w_amax, cfg.input_bits,
                           cfg.weight_bits).reshape(1, 1)
 

@@ -7,7 +7,10 @@ applies the conv im2col layout (``w.permute(2, 0, 1, 3)``, patch order
 (C, kh, kw)), zero-pads K up to ``n_mounts * tile_rows`` so the kernel's
 chunks are exactly the stage's mount rounds, and keeps the f32 weight
 ``amax`` from which the executor derives the requant factor.  The int8
-planes and ``amax`` equal the JAX package's bit for bit.
+planes and ``amax`` equal the JAX package's bit for bit.  Beside them it
+lays the planes out once for the CUDA kernel (``PackedStage.wt``: the
+planes transposed, K-major, K zero-padded per ``kernels.crossbar_gemm.
+mount_weight``), a derived copy that nothing compares or saves.
 
 Packing runs on the device the parameters live on; the hot loop then
 only quantizes activations.  Dynamic-operand (attention) stages own no
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
+from repro_torch.kernels.crossbar_gemm import mount_weight
 
 from .compile import CrossbarProgram
 
@@ -34,7 +38,11 @@ class PackedStage:
     ``w8`` is the int8 mount-plane matrix ``(K_padded, N)``; ``w_amax``
     the 0-d f32 ``max(|w|)``; ``bias`` the f32 per-column bias;
     ``ln_g``/``ln_b`` the fused layer-norm FB's gamma/beta (``None``
-    without one).  Dynamic-operand stages hold 0-sized placeholders.
+    without one).  ``wt`` is the kernel-layout weight derived from ``w8``
+    (``mount_weight``: (N, Kk) int8, K-major, zero-padded to a
+    multiple of 32 on the exact branch and chunk by chunk on the sliced
+    one); it is not compared and not saved.  Dynamic-operand stages hold
+    0-sized placeholders and no ``wt``.
     """
 
     w8: torch.Tensor
@@ -42,6 +50,8 @@ class PackedStage:
     bias: torch.Tensor
     ln_g: torch.Tensor | None = None
     ln_b: torch.Tensor | None = None
+    wt: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                repr=False)
 
 
 def dyn_placeholder(device) -> PackedStage:
@@ -68,8 +78,8 @@ class PackedProgram:
         return self.program.cfg
 
 
-def plane_pack(w: torch.Tensor, *, tile_rows: int,
-               weight_bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+def plane_pack(w: torch.Tensor, *, tile_rows: int, weight_bits: int = 8,
+               k_major: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Mount a (K, N) float matrix: -> (int8 planes (K_pad, N), f32 amax).
 
     Symmetric per-tensor int8 quantization at ``weight_bits``, K
@@ -78,10 +88,15 @@ def plane_pack(w: torch.Tensor, *, tile_rows: int,
     A (S, K, N) stack of runtime operands mounts slice by slice, in one
     pass: one int8 plane matrix and one ``amax`` per slice, -> ((S,
     K_pad, N), (S,)), what ``plane_pack`` under ``jax.vmap`` computes.
+    ``k_major=True`` takes the matrix transposed, (..., N, K), and returns
+    its planes so, (..., N, K_pad) contiguous: the kernel's operand form.
     """
     amax = w.abs().amax(dim=(-2, -1))
     scale = quantize_scale(amax, weight_bits)[..., None, None]
     wq = quantize_with_scale(w, scale, weight_bits)
+    if k_major:
+        wq = F.pad(wq, (0, -w.shape[-1] % tile_rows))
+        return wq.to(torch.int8).contiguous(), amax.float()
     wq = F.pad(wq, (0, 0, 0, -w.shape[-2] % tile_rows))
     return wq.to(torch.int8), amax.float()
 
@@ -116,6 +131,7 @@ def pack_program(program: CrossbarProgram, params: dict) -> PackedProgram:
         lp = params[ln.param] if ln is not None else None
         stages.append(PackedStage(
             w8=w8, w_amax=amax,
+            wt=mount_weight(w8, rows=gemm.tile_rows, adc_bits=cfg.adc_bits),
             bias=p[gemm.b_key].float().contiguous(),
             ln_g=None if lp is None else lp["g"].float().contiguous(),
             ln_b=None if lp is None else lp["b"].float().contiguous()))

@@ -9,6 +9,8 @@ JAX) run them with::
 This file imports torch, numpy and repro_torch only.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from repro_torch.kernels import (clip_possible, crossbar_gemm,
                                  fb_epilogue, fb_epilogue_ref,
                                  flash_attention, flash_attention_ref,
                                  fused_gemm_epilogue, fused_gemm_epilogue_ref,
-                                 ops, packed_gemm, packed_gemm_ref,
+                                 kernel_layout, mount_weight, ops,
+                                 packed_gemm, packed_gemm_ref,
                                  packed_gemm_tiles_ref, pad_groups,
                                  tile_group_map)
 
@@ -249,3 +252,118 @@ def test_vit_on_the_gpu_matches_the_cpu_plain_path(cuda):
     assert (got.argmax(1) == ref.argmax(1)).all()
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=2e-2 * float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# crossbar_gemm on wgmma: edge shapes, extreme operands, the K split
+# ---------------------------------------------------------------------------
+
+_gemm_module = importlib.import_module("repro_torch.kernels.crossbar_gemm")
+
+
+def _saturated(M, K, N, rng, cuda):
+    """Random int8 operands with a quarter of x's rows and w's columns all
+    ones (-1), so that bitline counts reach ``rows`` and clip."""
+    x, w = _int8((M, K), rng).to(cuda), _int8((K, N), rng).to(cuda)
+    x[: max(1, M // 4)] = -1
+    w[:, : max(1, N // 4)] = -1
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [10, 19, 77])
+@pytest.mark.parametrize("K", [27, 101, 988, 1458, 4860])
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_crossbar_gemm_exact_edge_shapes(cuda, M, K, N):
+    rng = np.random.default_rng(M * 10007 + K * 31 + N)
+    x, w = _int8((M, K), rng).to(cuda), _int8((K, N), rng).to(cuda)
+    got = crossbar_gemm(x, w, rows=511)
+    torch.cuda.synchronize()
+    assert torch.equal(got, crossbar_gemm_exact_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("rows", [247, 486, 494, 511, 512])
+def test_crossbar_gemm_sliced_edge_rows(cuda, rows, M):
+    """Chunks of every height the program and the smoke run use, each
+    padded to a multiple of 32 rows inside the kernel layout; clips fire
+    wherever they can (rows > 255 under an 8-bit ADC)."""
+    rng = np.random.default_rng(rows + M)
+    x, w = _saturated(M, 1458, 77, rng, cuda)
+    got = crossbar_gemm(x, w, adc_bits=8, rows=rows, exact=False)
+    ref = crossbar_gemm_ref(x, w, adc_bits=8, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    clipped = not torch.equal(ref, crossbar_gemm_exact_ref(x, w))
+    assert clipped == clip_possible(rows, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [-128, -1])
+@pytest.mark.parametrize("exact", [True, False])
+def test_crossbar_gemm_extreme_operands(cuda, fill, exact):
+    """All -128 gives the largest |y| (K * 2^14); all -1 sets every bit, so
+    every count equals the chunk height and the clip fires in every
+    chunk on the sliced branch."""
+    M, K, N = 16, 4860, 77
+    x = torch.full((M, K), fill, dtype=torch.int8, device=cuda)
+    w = torch.full((K, N), fill, dtype=torch.int8, device=cuda)
+    kw = dict(rows=511, adc_bits=9) if exact else dict(rows=494, adc_bits=8)
+    got = crossbar_gemm(x, w, exact=exact, **kw)
+    ref = (crossbar_gemm_exact_ref(x, w) if exact
+           else crossbar_gemm_ref(x, w, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if exact and fill == -128:
+        assert int(got[0, 0]) == K * 2 ** 14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact,M,K,N,rows,adc_bits", [
+    (True, 256, 4860, 512, 486, 9),      # ResNet-18 stage 4 at b16
+    (True, 1, 4860, 10, 486, 9),
+    (False, 4, 4374, 1024, 486, 8),      # AlexNet fc6 at b4
+    (False, 16, 2470, 77, 494, 8)])
+def test_crossbar_gemm_split_k_on_and_off(cuda, exact, M, K, N, rows,
+                                          adc_bits):
+    """The same shape with the K split the kernel picks (> 1 here) and
+    with none: both equal to the plain version, bit for bit."""
+    rng = np.random.default_rng(M + K + N)
+    x, w = _saturated(M, K, N, rng, cuda)
+    wt = mount_weight(w, rows=rows, adc_bits=adc_bits, exact=exact)
+    xk = kernel_layout(x, K, rows=rows, adc_bits=adc_bits, exact=exact)
+    r32 = -(-min(rows, K) // 32) * 32
+    assert _gemm_module.splits(1, M, N, wt.shape[-1], exact=exact,
+                               rows32=r32) > 1
+    ref = (crossbar_gemm_exact_ref(x, w) if exact
+           else crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows))
+    for split in (0, 1):
+        got = _gemm_module._launch(xk.contiguous(), wt, N, exact=exact,
+                                   rows=min(rows, K), adc_bits=adc_bits,
+                                   split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"split={split}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc_bits,rows", [(9, 64), (5, 64), (8, 247),
+                                           (9, 511)])
+def test_batched_crossbar_gemm_edge_shapes(cuda, adc_bits, rows):
+    """The slice axis at ragged M, N and K, through a mounted weight."""
+    rng = np.random.default_rng(rows * adc_bits)
+    S, M, K, N = 5, 16, 1001, 19
+    x, w = _int8((S, M, K), rng).to(cuda), _int8((S, K, N), rng).to(cuda)
+    x[:, :3] = -1
+    w[:, :, :4] = -1
+    wt = mount_weight(w, rows=rows, adc_bits=adc_bits)
+    before = crossbar_gemm.launches
+    got = crossbar_gemm(x, w, adc_bits=adc_bits, rows=rows, wt=wt)
+    assert crossbar_gemm.launches == before + 1
+    ref = crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    for s in range(S):
+        assert torch.equal(got[s], crossbar_gemm(x[s], w[s],
+                                                 adc_bits=adc_bits,
+                                                 rows=rows))

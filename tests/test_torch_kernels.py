@@ -16,7 +16,8 @@ import torch
 from repro.kernels.crossbar_gemm import crossbar_gemm as jax_crossbar_gemm
 from repro.kernels.fb_epilogue import fb_epilogue as jax_fb_epilogue
 from repro_torch.kernels import (clip_possible, crossbar_gemm,
-                                 crossbar_gemm_exact_ref, fb_epilogue)
+                                 crossbar_gemm_exact_ref, crossbar_gemm_ref,
+                                 fb_epilogue, kernel_layout, mount_weight)
 
 
 def _int8_operands(M, K, N, seed=0, saturate=True):
@@ -75,6 +76,86 @@ def test_crossbar_gemm_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="do not multiply"):
         crossbar_gemm(torch.zeros(2, 3, dtype=torch.int8),
                       torch.zeros(4, 2, dtype=torch.int8))
+
+
+def _np_kernel_layout(a, K, rows, exact):
+    """numpy reference of the kernel layout: (R, k<=K) K-major -> (R, Kk),
+    zero-padded to a multiple of 32 (exact) or chunk by chunk (sliced)."""
+    up32 = lambda n: -(-n // 32) * 32                       # noqa: E731
+    a = np.pad(a, ((0, 0), (0, K - a.shape[1])))
+    if exact:
+        return np.pad(a, ((0, 0), (0, up32(K) - K)))
+    chunks = -(-K // rows)
+    a = np.pad(a, ((0, 0), (0, chunks * rows - K)))
+    a = a.reshape(a.shape[0], chunks, rows)
+    return np.pad(a, ((0, 0), (0, 0), (0, up32(rows) - rows))).reshape(
+        a.shape[0], -1)
+
+
+@pytest.mark.parametrize("K", [27, 101, 988, 1458, 4860])
+def test_kernel_layout_exact_operands_give_the_same_gemm(K):
+    """x padded to K32 and the mounted wt (w transposed, K zero-padded to
+    a multiple of 32): the plain GEMM on them equals the plain GEMM on
+    the original operands, and the wrapper takes them on the CPU."""
+    x, w = _int8_operands(16, K, 19, seed=K, saturate=False)
+    xt, wt_ = torch.from_numpy(x), torch.from_numpy(w)
+    wt = mount_weight(wt_, rows=511, adc_bits=9)
+    xk = kernel_layout(xt, K, rows=511, adc_bits=9)
+    assert wt.is_contiguous() and wt.shape == (19, -(-K // 32) * 32)
+    assert xk.shape == (16, wt.shape[1])
+    np.testing.assert_array_equal(wt.numpy(),
+                                  _np_kernel_layout(w.T, K, 511, True))
+    np.testing.assert_array_equal(xk.numpy(),
+                                  _np_kernel_layout(x, K, 511, True))
+    ref = crossbar_gemm_exact_ref(xt, wt_)
+    assert torch.equal(crossbar_gemm_exact_ref(xk, wt.mT), ref)
+    assert torch.equal(crossbar_gemm(xk, wt_, rows=511, wt=wt), ref)
+
+
+@pytest.mark.parametrize("rows", [247, 486, 494, 511, 512])
+def test_kernel_layout_chunk_padding_keeps_the_adc_semantics(rows):
+    """The sliced branch's layout pads each rows-row chunk to a multiple of
+    32 rows: the plain sliced GEMM on the padded operands with rows
+    rounded up to 32 equals it on the original ones (the added rows are
+    zeros, so every bitline count is the same), and both equal the
+    Pallas kernel."""
+    K = 1458
+    x, w = _int8_operands(16, K, 19, seed=rows)
+    xt, wt_ = torch.from_numpy(x), torch.from_numpy(w)
+    kw = dict(rows=rows, adc_bits=8, exact=False)
+    wt, xk = mount_weight(wt_, **kw), kernel_layout(xt, K, **kw)
+    r32 = -(-rows // 32) * 32
+    assert xk.shape[1] == -(-K // rows) * r32 == wt.shape[1]
+    np.testing.assert_array_equal(xk.numpy(),
+                                  _np_kernel_layout(x, K, rows, False))
+    np.testing.assert_array_equal(wt.numpy(),
+                                  _np_kernel_layout(w.T, K, rows, False))
+    ref = crossbar_gemm_ref(xt, wt_, adc_bits=8, rows=rows)
+    assert torch.equal(crossbar_gemm_ref(xk, wt.mT, adc_bits=8, rows=r32),
+                       ref)
+    assert torch.equal(crossbar_gemm(xk, wt_, wt=wt, **kw), ref)
+    pallas = jax_crossbar_gemm(jnp.asarray(x), jnp.asarray(w), adc_bits=8,
+                               rows=rows, block_m=16, block_n=16,
+                               interpret=True, exact=False)
+    np.testing.assert_array_equal(ref.numpy(), np.asarray(pallas))
+
+
+def test_kernel_layout_leaves_laid_out_operands_alone():
+    """Nothing to pad (K a multiple of 32, rows a multiple of 32): the
+    operand itself comes back, so a K-major mount costs no copy."""
+    t = torch.zeros(3, 4, 512, dtype=torch.int8)
+    assert kernel_layout(t, 512, rows=256, adc_bits=9) is t
+    assert kernel_layout(t, 512, rows=256, adc_bits=8) is t
+
+
+def test_crossbar_gemm_rejects_a_wt_of_another_layout():
+    x, w = _int8_operands(4, 100, 3, saturate=False)
+    xt, wt_ = torch.from_numpy(x), torch.from_numpy(w)
+    sliced = mount_weight(wt_, rows=40, adc_bits=5)         # 3 x 64 rows
+    with pytest.raises(ValueError, match="kernel layout"):
+        crossbar_gemm(xt, wt_, rows=40, adc_bits=9, wt=sliced)
+    with pytest.raises(ValueError, match="do not multiply"):
+        crossbar_gemm(xt[:, :90], wt_, rows=40, adc_bits=5, wt=sliced)
 
 
 # (kwargs, residual?, atol, reason) — atol 0 is bit for bit

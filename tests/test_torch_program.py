@@ -108,6 +108,40 @@ def test_pack_program_planes_equal_jax(net):
         np.testing.assert_array_equal(b.bias.numpy(), np.asarray(a.bias))
 
 
+@pytest.mark.parametrize("net,cfg_kw", [("custom8", dict()),
+                                        ("alexnet", dict(adc_bits=8))])
+def test_packed_stage_wt_is_w8_transposed_and_padded(net, cfg_kw):
+    """Each static stage's kernel-layout weight is its mount planes
+    transposed, K zero-padded to a multiple of 32 where the stage takes
+    the exact branch and chunk by chunk (each tile_rows-row chunk to a
+    multiple of 32 rows) where the ADC can clip; derived, so it is left
+    out of the dataclass comparison."""
+    _, tgraph = _graphs(net)
+    cfg = tapi.HurryConfig(**cfg_kw)
+    model = tapi.compile(tgraph, cfg, seed=3, device="cpu")
+    up32 = lambda n: -(-n // 32) * 32                     # noqa: E731
+    kinds = set()
+    for (gemm, _), st in zip(model.program.stages(), model.packed.stages):
+        w8 = st.w8.numpy()
+        K, N = w8.shape
+        rows = min(gemm.tile_rows, K)
+        exact = rows <= (1 << cfg.adc_bits) - 1
+        if exact:
+            want = np.pad(w8.T, ((0, 0), (0, up32(K) - K)))
+        else:
+            chunks = -(-K // rows)
+            want = np.pad(w8.T.reshape(N, chunks, rows),
+                          ((0, 0), (0, 0), (0, up32(rows) - rows)))
+            want = want.reshape(N, chunks * up32(rows))
+        kinds.add("exact" if exact else "sliced")
+        assert st.wt.dtype == torch.int8 and st.wt.is_contiguous()
+        np.testing.assert_array_equal(st.wt.numpy(), want)
+    assert kinds == ({"exact", "sliced"} if cfg_kw else {"exact"})
+    field = next(f for f in dataclasses.fields(model.packed.stages[0])
+                 if f.name == "wt")
+    assert field.compare is False
+
+
 # ---------------------------------------------------------------------------
 # stage by stage, each fed the reference's own input buffer
 # ---------------------------------------------------------------------------

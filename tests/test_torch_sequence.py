@@ -121,6 +121,7 @@ def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
             a8, w8, _, rows = dyn_mounts(gemm, tbufs, tm.program.cfg)
             np.testing.assert_array_equal(a8.numpy(), ja8)
             np.testing.assert_array_equal(w8.numpy(), jw8)
+            assert w8.mT.is_contiguous()         # mounted K-major
             y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows)
             np.testing.assert_array_equal(y.numpy(), jy)
             got = _dyn_stage(gemm, posts, tbufs, tm.program.cfg).numpy()
