@@ -23,7 +23,10 @@ each on standard output (the per-shape details go to standard error):
    where clips fire, all -1 operands, and the chunk split on and off,
    equal to the plain version;
 4. ``fb_epilogue`` in every mode against the plain version, to the
-   tolerances in ``FB_CASES``;
+   tolerances in ``FB_CASES`` (``torch.equal`` where the tolerance is 0),
+   at each mode's own width and at N = 64/192/768 (16-byte path) and
+   10/19/77 (scalar path), the row modes also at N = 1024 (a warp per
+   row) and 1025 (a block per row);
 5. the main path: ``repro_torch.api.compile("resnet18", HurryConfig())``
    at full width, serving request batches of 1, 3 and 16, checked
    against the same weights run on the CPU's plain path; both launch
@@ -35,7 +38,8 @@ each on standard output (the per-shape details go to standard error):
    25 calls captured in a CUDA graph, median of 5 replays,
    ``device_ms``), beside its bound, its plain version and, for the GEMM,
    ``torch._int_mm`` with the weight row-major and K-major; the five
-   stages furthest from their bound at each batch; and
+   stages furthest from their bound at each batch, for the GEMM and for
+   ``fb_epilogue``; and
    ResNet-18's end-to-end time per batch at 1 and 16 (host clock around
    ``run`` and a device synchronize, median of 10), with the device's
    busy time (profiler device events) and idle share of those forwards
@@ -48,9 +52,15 @@ each on standard output (the per-shape details go to standard error):
    slices of 16x1001x19 through a mounted weight;
 9. ``flash_attention`` against its plain version: float32 at
    (1,128,1,64) and (2,256,4,64) causal and not, a 128-key window at
-   (1,512,2,64), vit's (16,64,3,64) and the attention path's
-   (1,T,4,16) for T = 16, 64, 256, to 1e-4; bfloat16 at (1,256,2,64) to 2e-2; GQA through
-   ``ops.attention`` at (1,256,8,64) with 2 kv heads;
+   (1,512,2,64), vit's (16,64,3,64), the attention path's (1,T,4,16) for
+   T = 16, 64, 256, head dims 16/32/128, a ragged last key tile, head
+   dims below their instantiation and rows that are not 16-byte aligned,
+   and shapes on both sides of the key-split threshold, to 1e-4; bfloat16
+   at every head dim and (1,512,4,64) to 2e-2; the key split forced off
+   and on at (1,512,4,64), two runs of the split ``torch.equal``, and the
+   merged output against the split's plain version
+   (``flash_attention_split_ref``); GQA through ``ops.attention`` at
+   (1,256,8,64) with 2 kv heads;
 10. ``fused_gemm_epilogue`` against its plain version at 128x256x128,
     256x512x384, 128x1024x256 and 256x512x256, every activation, with
     and without residual, float32 (1e-4) and bfloat16 (2e-2);
@@ -76,10 +86,17 @@ each on standard output (the per-shape details go to standard error):
 15. times of the new kernels and of vit_tiny's dynamic stages, as in 7,
     with ``F.scaled_dot_product_attention``, ``torch.addmm`` (bias only;
     the activation is left out) and a per-group ``torch.matmul`` loop
-    as the library yardsticks.
+    as the library yardsticks; ``flash_attention`` also at
+    ``FLASH_TIMED`` (float32 (1,512,4,64) causal and not, (16,64,3,64),
+    bfloat16 (1,512,4,64) causal and not), each beside SDPA.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
+
+``python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]`` only
+times ``fb_epilogue`` and ``flash_attention`` (``kernel_times``) for the
+``repro_torch`` under ``DIR``: run on a ``git archive`` of a parent
+commit and on this tree in one call, it compares the two on one card.
 """
 
 from __future__ import annotations
@@ -100,6 +117,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
 ATTN_T = (16, 64, 256)           # the attention bench's sequence lengths
 GROUP_SIZES = ([256, 128, 384], [200, 56, 300, 100], [128], [0, 256, 0, 128])
 TIMED_LAUNCHES = 25
@@ -121,6 +139,13 @@ FB_CASES = [
      True, 1e-5, "order of the row and token sums"),
     ("softmax", dict(softmax=True), False, 1e-6, "order of the row sum"),
 ]
+
+
+# phase 4's widths beside each mode's own: the 16-byte path (N % 4 == 0,
+# the program's widths) and the scalar one; the row modes also at the
+# longest row a warp holds and one past it (the block-per-row path)
+FB_WIDTHS = (64, 192, 768, 10, 19, 77)
+FB_ROW_WIDTHS = (1024, 1025)
 
 
 class SmokeFailure(RuntimeError):
@@ -318,15 +343,125 @@ def stage_shapes(model, batch: int) -> list[dict]:
     return out
 
 
-def attn_bound(B: int, Sq: int, Sk: int, H: int,
-               hd: int) -> tuple[float, float]:
-    """(bytes-bound ms, operations-bound ms) of one non-causal float32
-    attention: q, k, v read once and the output written once;
-    4*Sq*Sk*hd float32 operations per (b, h) for the scores and the
-    weighted sum."""
-    nbytes = 4 * B * H * hd * (2 * Sq + 2 * Sk)
-    ops = 4 * B * H * Sq * Sk * hd
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def attn_bound(B: int, Sq: int, Sk: int, H: int, hd: int,
+               causal: bool = False,
+               dtype: str = "float32") -> tuple[float, float]:
+    """(bytes-bound ms, operations-bound ms) of one attention: q, k, v
+    read once and the output written once; 4*hd operations per (query,
+    key) pair it sees (Sq*Sk, or the lower triangle when causal) per
+    (b, h), at the float32 peak outside the tensor cores or the bf16
+    tensor-core peak."""
+    size, peak = (4, F32_OPS_PER_S) if dtype == "float32" else \
+        (2, BF16_OPS_PER_S)
+    nbytes = size * B * H * hd * (2 * Sq + 2 * Sk)
+    pairs = sum(min(Sk, i + 1) for i in range(Sq)) if causal else Sq * Sk
+    ops = 4 * B * H * pairs * hd
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+# flash_attention's timed shapes beside SDPA (phase 15 and
+# --kernel-times): (B, S, H, hd), causal, dtype
+FLASH_TIMED = [((1, 512, 4, 64), False, "float32"),
+               ((1, 512, 4, 64), True, "float32"),
+               ((16, 64, 3, 64), False, "float32"),
+               ((1, 512, 4, 64), False, "bfloat16"),
+               ((1, 512, 4, 64), True, "bfloat16")]
+
+
+def flash_times(dev, gen, attn_shapes=ATTN_T) -> dict:
+    """Device times of ``flash_attention`` beside SDPA: the attention
+    path's (1, T, 4, 16) summed over ``attn_shapes`` (non-causal,
+    float32, with the plain version), and each ``FLASH_TIMED`` shape."""
+    import torch
+    from repro_torch.kernels import flash_attention, flash_attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    path = dict(ms=0.0, plain=0.0, lib=0.0, by={"bytes": 0.0,
+                                                  "operations": 0.0})
+    for T in attn_shapes:
+        q, k, v = (torch.randn(1, T, 4, 16, generator=gen, device=dev)
+                   for _ in range(3))
+        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
+        f_plain = device_ms(lambda: flash_attention_ref(q, k, v,
+                                                        causal=False))
+        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2)))
+        b_ms, o_ms = attn_bound(1, T, T, 4, 16)
+        path["by"]["bytes" if b_ms >= o_ms else "operations"] += max(b_ms,
+                                                                     o_ms)
+        path["ms"] += f_ms
+        path["plain"] += f_plain
+        path["lib"] += f_lib
+        detail(f"time flash_attention (1,{T},4,16): {f_ms:.4f} ms (bound "
+               f"{max(b_ms, o_ms):.5f}, plain {f_plain:.4f}, sdpa "
+               f"{f_lib:.4f})")
+    shapes = []
+    for shape, causal, dt in FLASH_TIMED:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=causal))
+        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), is_causal=causal))
+        b_ms, o_ms = attn_bound(shape[0], shape[1], shape[1], shape[2],
+                                shape[3], causal, dt)
+        shapes.append(dict(shape=list(shape), causal=causal, dtype=dt,
+                           ms=f_ms, sdpa_ms=f_lib, bound_ms=max(b_ms, o_ms)))
+        detail(f"time flash_attention {shape} causal={causal} {dt}: "
+               f"{f_ms:.4f} ms (bound {max(b_ms, o_ms):.5f}, sdpa "
+               f"{f_lib:.4f})")
+    return dict(path=path, shapes=shapes)
+
+
+def fb_stage_times(shapes, dev, gen) -> dict:
+    """``fb_epilogue``'s device time at each stage of a forward (the
+    shapes of ``stage_shapes``), beside its byte bound and its plain
+    version, summed; the five stages furthest from their bound go to
+    standard error."""
+    import torch
+    from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
+    f = dict(ms=0.0, plain=0.0, bound=0.0, stages=[])
+    for s in shapes:
+        M, N = s["M"], s["N"]
+        y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
+                          device=dev, dtype=torch.int32)
+        scale = torch.full((1, 1), 3.1e-6, device=dev)
+        bias = torch.randn(N, generator=gen, device=dev)
+        res = torch.randn(M, N, generator=gen, device=dev) if s["res"] \
+            else None
+        f_ms = device_ms(lambda: fb_epilogue(y, scale, bias, res, **s["fb"]))
+        f_plain = device_ms(lambda: fb_epilogue_ref(y, scale, bias, res,
+                                                    **s["fb"]))
+        f_bound = fb_bound(M, N, s["out_rows"], s["res"])
+        f["ms"] += f_ms
+        f["plain"] += f_plain
+        f["bound"] += f_bound
+        f["stages"].append((f_ms - f_bound, s["name"], f_ms, f_bound))
+        detail(f"time fb_epilogue {s['name']}: M={M} N={N} {s['fb']} "
+               f"res={s['res']} {f_ms:.4f} ms (bound {f_bound:.5f}, plain "
+               f"{f_plain:.4f})")
+    for gap, name, ms, bnd in sorted(f["stages"], reverse=True)[:5]:
+        detail(f"top offender fb_epilogue {name}: {ms:.4f} ms, bound "
+               f"{bnd:.5f}, gap {gap:.4f} ms")
+    return f
+
+
+def dyn_fb_times(dev, gen, S: int = 48, T: int = 64) -> dict:
+    """``fb_epilogue``'s batched launches at vit_tiny's dynamic stages
+    (b16: 48 slices of 64x64): the scores' softmax + post_scale and the
+    context's dequant, summed as one (scores, context) pair."""
+    import torch
+    from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
+    y32 = torch.randint(-2 ** 16, 2 ** 16, (S, T, T), generator=gen,
+                        device=dev, dtype=torch.int32)
+    sc = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
+    z = torch.zeros(T, device=dev)
+    sm = dict(softmax=True, post_scale=0.125)
+    return dict(
+        ms=device_ms(lambda: fb_epilogue(y32, sc, z, **sm))
+        + device_ms(lambda: fb_epilogue(y32, sc, z)),
+        plain=device_ms(lambda: fb_epilogue_ref(y32, sc, z, **sm))
+        + device_ms(lambda: fb_epilogue_ref(y32, sc, z)),
+        bound=2 * fb_bound(S * T, T, S * T, False))
 
 
 def float_gemm_bound(M: int, K: int, N: int, w_elems: int,
@@ -531,6 +666,57 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
     return gemm_err[9], gemm_err[5], fb_err
 
 
+def fb_case_shape(kw: dict) -> tuple[int, int]:
+    """(M, N) of a mode's own phase-4 case."""
+    if kw.get("pool") in ("max", "avg"):
+        return 16 * kw["img_hw"] ** 2, 512 if kw["pool"] == "avg" else 64
+    if kw.get("softmax"):
+        return 16, 10
+    return 16 * 256, 192 if kw.get("norm") else 64
+
+
+def fb_phase(dev, gen) -> tuple[float, list, int]:
+    """Phase 4: fb_epilogue in every mode against its plain version, to
+    the tolerances of ``FB_CASES``, at each mode's own (M, N) and at the
+    widths of ``FB_WIDTHS`` (and ``FB_ROW_WIDTHS`` for the row modes).
+    Returns (max error, per-mode report, cases)."""
+    import torch
+    from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
+    worst, parts, n = 0.0, [], 0
+    for mode, kw, with_res, atol, why in FB_CASES:
+        M, N0 = fb_case_shape(kw)
+        rows_mode = bool(kw.get("norm") or kw.get("softmax")
+                         or kw.get("pool") == "seqmean")
+        widths = [N0] + [N for N in FB_WIDTHS + (FB_ROW_WIDTHS if rows_mode
+                                                  else ()) if N != N0]
+        mode_err = 0.0
+        for N in widths:
+            y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
+                              device=dev, dtype=torch.int32)
+            scale = torch.full((1, 1), 3.1e-6, device=dev)
+            bias = torch.randn(N, generator=gen, device=dev)
+            res = torch.randn(M, N, generator=gen, device=dev) if with_res \
+                else None
+            kwn = dict(kw)
+            if kw.get("norm"):
+                kwn.update(gamma=torch.randn(N, generator=gen, device=dev),
+                           beta=torch.randn(N, generator=gen, device=dev))
+            out = fb_epilogue(y, scale, bias, res, **kwn)
+            ref = fb_epilogue_ref(y, scale, bias, res, **kwn)
+            err = (out - ref).abs().max().item()
+            check(out.shape == ref.shape and err <= atol,
+                  f"fb_epilogue {mode} M={M} N={N}: max |kernel - plain| "
+                  f"{err} > {atol} ({why})")
+            if atol == 0.0:
+                check(torch.equal(out, ref), f"fb_epilogue {mode} M={M} "
+                      f"N={N} is not equal to the plain version")
+            mode_err = max(mode_err, err)
+            n += 1
+        worst = max(worst, mode_err)
+        parts.append(f"{mode} {mode_err:.2e}")
+    return worst, parts, n
+
+
 FLASH_CASES = [
     # (B, S, H, hd), causal, window, dtype name, tolerance
     ((1, 128, 1, 64), True, 0, "float32", 1e-4),
@@ -543,40 +729,98 @@ FLASH_CASES = [
     ((1, 64, 4, 16), False, 0, "float32", 1e-4),
     ((1, 256, 4, 16), False, 0, "float32", 1e-4),
     ((1, 256, 2, 64), True, 0, "bfloat16", 2e-2),
+    # every head-dim instantiation (16, 32, 64, 128)
+    ((1, 128, 2, 16), True, 0, "float32", 1e-4),
+    ((2, 128, 2, 32), False, 0, "float32", 1e-4),
+    ((1, 256, 2, 128), True, 0, "float32", 1e-4),
+    ((1, 256, 2, 128), False, 0, "float32", 1e-4),
+    ((1, 256, 2, 16), False, 0, "bfloat16", 2e-2),
+    ((1, 128, 2, 32), True, 0, "bfloat16", 2e-2),
+    ((1, 256, 2, 128), False, 0, "bfloat16", 2e-2),
+    # ragged: a last key tile of 32 (split 2), head dims below the
+    # instantiation, rows that are not 16-byte aligned (synchronous loads)
+    ((1, 96, 2, 64), False, 0, "float32", 1e-4),
+    ((1, 64, 2, 20), False, 0, "float32", 1e-4),
+    ((1, 64, 2, 18), True, 0, "float32", 1e-4),
+    ((1, 128, 1, 20), True, 0, "bfloat16", 2e-2),
+    # both sides of the key-split threshold: 32 blocks (split 8), 512
+    # blocks (no split); bf16 at the kernel bench's shape
+    ((1, 512, 4, 64), False, 0, "float32", 1e-4),
+    ((1, 512, 4, 64), True, 0, "float32", 1e-4),
+    ((8, 512, 8, 64), False, 0, "float32", 1e-4),
+    ((1, 512, 4, 64), False, 0, "bfloat16", 2e-2),
+    ((1, 512, 4, 64), True, 0, "bfloat16", 2e-2),
 ]
 
 
-def flash_phase(dev, gen) -> float:
-    """Phase 9: flash_attention's kernel against its plain version."""
+def flash_phase(dev, gen) -> tuple[float, str]:
+    """Phase 9: flash_attention's kernel against its plain version, the
+    key split forced on and off, run to run, and against the split's
+    plain version.  Returns (max float32 error, report)."""
     import torch
     from repro_torch.kernels import flash_attention, flash_attention_ref, ops
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     worst = 0.0
+    splits = {}
+
+    def close(got, ref, tol, what):
+        d = (got.float() - ref.float()).abs()
+        check(bool((d <= tol + tol * ref.float().abs()).all()),
+              f"{what}: max |kernel - plain| {d.max().item()} beyond {tol} "
+              f"+ {tol}|ref|")
+        return d.max().item()
+
     for shape, causal, window, dt, tol in FLASH_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         got = flash_attention(q, k, v, causal=causal, window=window)
+        check(got.dtype == dtype, f"flash_attention {shape} returns "
+              f"{got.dtype}")
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
-        d = (got.float() - ref.float()).abs()
-        err = d.max().item()
-        check(got.dtype == dtype
-              and bool((d <= tol + tol * ref.float().abs()).all()),
-              f"flash_attention {shape} causal={causal} window={window} "
-              f"{dt}: max |kernel - plain| {err} beyond {tol} + {tol}|ref|")
+        what = f"flash_attention {shape} causal={causal} window={window} {dt}"
+        err = close(got, ref, tol, what)
         if dt == "float32":
             worst = max(worst, err)
-        detail(f"flash_attention {shape} causal={causal} window={window} "
-               f"{dt}: max |kernel - plain| {err:.2e}")
+        sp = fa.key_splits(shape[0], shape[2], shape[1], shape[1], shape[3])
+        splits[shape] = sp
+        detail(f"{what}: split {sp}, max |kernel - plain| {err:.2e}")
+    # one shape below the threshold: the split forced off and on, two runs
+    # of the split identical, and the merged output against the split's
+    # plain version
+    shape = (1, 512, 4, 64)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    auto = fa.key_splits(1, 4, 512, 512, 64)
+    check(auto > 1, f"no key split at {shape}")
+    for causal in (False, True):
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        runs = {sp: fa._launch(q, k, v, causal=causal, window=0, splits=sp)
+                for sp in (1, 2, auto)}
+        again = fa._launch(q, k, v, causal=causal, window=0, splits=auto)
+        check(torch.equal(runs[auto], again), f"flash_attention {shape} "
+              f"causal={causal} split {auto}: two runs differ")
+        for sp, got in runs.items():
+            worst = max(worst, close(got, ref, 1e-4, f"flash_attention "
+                                     f"{shape} causal={causal} split {sp}"))
+            split_ref = fa.flash_attention_split_ref(q, k, v, causal=causal,
+                                                     splits=sp)
+            close(got, split_ref, 1e-4, f"flash_attention {shape} causal="
+                  f"{causal} split {sp} against the split's plain version")
     q = torch.randn(1, 256, 8, 64, generator=gen, device=dev)
     k, v = (torch.randn(1, 256, 2, 64, generator=gen, device=dev)
             for _ in range(2))
     got = ops.attention(q, k, v, causal=True)
     ref = flash_attention_ref(q, k.repeat_interleave(4, 2),
                               v.repeat_interleave(4, 2), causal=True)
-    d = (got - ref).abs()
-    check(bool((d <= 1e-4 + 1e-4 * ref.abs()).all()),
-          f"ops.attention GQA: max |kernel - plain| {d.max().item()}")
-    return max(worst, d.max().item())
+    worst = max(worst, close(got, ref, 1e-4, "ops.attention GQA"))
+    n_split = sum(sp > 1 for sp in splits.values())
+    report = (f"{len(FLASH_CASES)} shapes (head dims 16/32/64/128, ragged, "
+              f"unaligned; {n_split} with a key split) and GQA within "
+              f"tolerance; {shape} split 1/2/{auto}, causal and not, within "
+              f"1e-4 of the plain version and of the split's, split "
+              f"{auto} identical over two runs")
+    return worst, report
 
 
 FUSED_SHAPES = [(128, 256, 128), (256, 512, 384), (128, 1024, 256),
@@ -798,11 +1042,63 @@ def ops_phase(dev, gen) -> dict:
     return launches
 
 
-def main() -> int:
+def kernel_times(label: str) -> int:
+    """``--kernel-times``: the times of phases 7 and 15 that compare
+    ``fb_epilogue`` and ``flash_attention`` with another tree, for the
+    ``repro_torch`` on ``sys.path``:
+    ``fb_epilogue`` per ResNet-18 b16 forward and at vit_tiny's dynamic
+    pairs, ``flash_attention`` on the attention path and at
+    ``FLASH_TIMED`` beside SDPA.  The last line is a JSON record."""
+    import torch
+    import repro_torch
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log(nvidia_smi())
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, ("fb_epilogue", "flash_attention")))
+    log(f"[times {label}] repro_torch from "
+        f"{os.path.dirname(os.path.dirname(repro_torch.__file__))}")
+    resnet = api.compile("resnet18", api.HurryConfig(), seed=0,
+                         device="cuda")
+    f = fb_stage_times(stage_shapes(resnet, 16), dev, gen)
+    dyn = dyn_fb_times(dev, gen)
+    flt = flash_times(dev, gen)
+    rec = dict(label=label, fb_resnet18_b16=dict(
+        ms=f["ms"], bound_ms=f["bound"], plain_ms=f["plain"],
+        launches=len(f["stages"])),
+        fb_vit_dyn_pair=dict(ms=dyn["ms"], bound_ms=dyn["bound"],
+                             plain_ms=dyn["plain"]),
+        flash_attention_path=dict(ms=flt["path"]["ms"],
+                                  sdpa_ms=flt["path"]["lib"],
+                                  plain_ms=flt["path"]["plain"]),
+        flash_attention=flt["shapes"])
+    log(f"[times {label}] fb_epilogue ResNet-18 b16 {f['ms']:.4f} ms (bound "
+        f"{f['bound']:.4f}); vit_tiny dynamic pair {dyn['ms']:.4f} ms; "
+        f"flash_attention path {flt['path']['ms']:.4f} ms")
+    print(json.dumps(rec))
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="only time fb_epilogue and flash_attention "
+                        "(see kernel_times)")
+    parser.add_argument("--src", help="import repro_torch from this "
+                        "directory instead of src/ beside the script")
+    parser.add_argument("--label", default="tree")
+    args = parser.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.kernel_times:
+        return kernel_times(args.label)
     import numpy as np
     from repro_torch import api
     from repro_torch.kernels import _build
@@ -811,7 +1107,7 @@ def main() -> int:
                                                    crossbar_gemm_exact_ref,
                                                    crossbar_gemm_ref,
                                                    kernel_layout)
-    from repro_torch.kernels.fb_epilogue import fb_epilogue, fb_epilogue_ref
+    from repro_torch.kernels.fb_epilogue import fb_epilogue
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,34 +1162,12 @@ def main() -> int:
         f"all -1, chunk split {sl_splits} and 1")
 
     # -- 4. fb_epilogue, every mode --------------------------------------
-    fb_err = 0.0
-    parts = []
-    for mode, kw, with_res, atol, why in FB_CASES:
-        if kw.get("pool") in ("max", "avg"):
-            M, N = 16 * kw["img_hw"] ** 2, 512 if kw["pool"] == "avg" else 64
-        elif kw.get("softmax"):
-            M, N = 16, 10
-        else:
-            M, N = 16 * 256, 192 if kw.get("norm") else 64
-        y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
-                          device=dev, dtype=torch.int32)
-        scale = torch.full((1, 1), 3.1e-6, device=dev)
-        bias = torch.randn(N, generator=gen, device=dev)
-        res = torch.randn(M, N, generator=gen, device=dev) if with_res \
-            else None
-        if kw.get("norm"):
-            kw = dict(kw, gamma=torch.randn(N, generator=gen, device=dev),
-                      beta=torch.randn(N, generator=gen, device=dev))
-        out = fb_epilogue(y, scale, bias, res, **kw)
-        ref = fb_epilogue_ref(y, scale, bias, res, **kw)
-        err = (out - ref).abs().max().item()
-        check(out.shape == ref.shape and err <= atol,
-              f"fb_epilogue {mode}: max |kernel - plain| {err} > {atol} "
-              f"({why})")
-        fb_err = max(fb_err, err)
-        parts.append(f"{mode} {err:.2e}")
+    fb_err, parts, n_fb = fb_phase(dev, gen)
     torch.cuda.synchronize()
-    log("[4 fb_epilogue] max |kernel - plain| per mode: " + ", ".join(parts))
+    log(f"[4 fb_epilogue] {n_fb} cases (every mode at N "
+        f"{'/'.join(map(str, FB_WIDTHS))} and its own width, the row modes "
+        f"also at {'/'.join(map(str, FB_ROW_WIDTHS))}); max |kernel - plain| "
+        "per mode: " + ", ".join(parts))
 
     # -- 5. the main path: ResNet-18 serving requests --------------------
     resnet_cpu = api.compile("resnet18", api.HurryConfig(), seed=0,
@@ -971,7 +1245,6 @@ def main() -> int:
     # GEMM runs in the main path's form: x laid out by kernel_layout (as
     # the executor quantizes into it) and the stage's mounted wt.
     g = {}
-    f = dict(ms=0.0, plain=0.0, bound=0.0)
     for b in (16, 1):
         gb = dict(ms=0.0, plain=0.0, row=0.0, kmaj=0.0, stages=[],
                   by={"bytes": 0.0, "operations": 0.0})
@@ -995,28 +1268,12 @@ def main() -> int:
                     f"{g_ms:.4f} ms (bound {max(b_ms, o_ms):.5f}, plain "
                     f"{g_plain:.4f}, _int_mm row-major {lib_row:.4f}, "
                     f"K-major {lib_k:.4f})")
-            if b == 16:
-                y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=gen,
-                                  device=dev, dtype=torch.int32)
-                scale = torch.full((1, 1), 3.1e-6, device=dev)
-                bias = torch.randn(N, generator=gen, device=dev)
-                res = torch.randn(M, N, generator=gen, device=dev) \
-                    if s["res"] else None
-                f_ms = device_ms(lambda: fb_epilogue(y, scale, bias, res,
-                                                     **s["fb"]))
-                f_plain = device_ms(lambda: fb_epilogue_ref(
-                    y, scale, bias, res, **s["fb"]))
-                f_bound = fb_bound(M, N, s["out_rows"], s["res"])
-                f["ms"] += f_ms
-                f["plain"] += f_plain
-                f["bound"] += f_bound
-                line += (f" | epilogue {s['fb']} res={s['res']} {f_ms:.4f} ms"
-                         f" (bound {f_bound:.5f}, plain {f_plain:.4f})")
             detail(line)
         for gap, name, ms, bnd in sorted(gb["stages"], reverse=True)[:5]:
             detail(f"top offender b{b} {name}: {ms:.4f} ms, bound {bnd:.5f}"
                    f", gap {gap:.4f} ms")
         g[b] = gb
+    f = fb_stage_times(shapes, dev, gen)
     # the AlexNet adc_bits=8 path's GEMMs (batch 4): all but conv1 sliced
     sl = dict(ms=0.0, plain=0.0, by={"bytes": 0.0, "operations": 0.0})
     for s in stage_shapes(alex_gpu, 4):
@@ -1091,10 +1348,10 @@ def main() -> int:
         f"{b_fb_err:.2e} (limit 1e-6)")
 
     # -- 9-11. the new kernels against their plain versions --------------
-    flash_err = flash_phase(dev, gen)
+    flash_err, flash_report = flash_phase(dev, gen)
     torch.cuda.synchronize()
-    log(f"[9 flash_attention] {len(FLASH_CASES)} shapes and GQA within "
-        f"tolerance; max |kernel - plain| float32 {flash_err:.2e}")
+    log(f"[9 flash_attention] {flash_report}; max |kernel - plain| float32 "
+        f"{flash_err:.2e}")
     fused_err = fused_phase(dev, gen)
     torch.cuda.synchronize()
     log(f"[10 fused_gemm_epilogue] {len(FUSED_SHAPES)} shapes x 4 "
@@ -1156,8 +1413,7 @@ def main() -> int:
         "of its plain version")
 
     # -- 15. times of the new kernels ------------------------------------
-    from repro_torch.kernels import (flash_attention, flash_attention_ref,
-                                     fused_gemm_epilogue,
+    from repro_torch.kernels import (fused_gemm_epilogue,
                                      fused_gemm_epilogue_ref,
                                      packed_gemm_tiles_ref, pad_groups,
                                      tile_group_map)
@@ -1167,20 +1423,12 @@ def main() -> int:
     # vit_tiny's dynamic stages at batch 16: 48 (batch, head) slices
     S = 16 * 3
     xs, ws = rand_i8(S, 64, 64), rand_i8(S, 64, 64)
-    y32 = torch.randint(-2 ** 16, 2 ** 16, (S, 64, 64), generator=gen,
-                        device=dev, dtype=torch.int32)
-    sc = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
-    z64 = torch.zeros(64, device=dev)
     dg_ms = device_ms(lambda: crossbar_gemm(xs, ws, rows=64))
     dg_plain = device_ms(lambda: crossbar_gemm_exact_ref(xs, ws))
-    sm = dict(softmax=True, post_scale=0.125)
-    df_ms = (device_ms(lambda: fb_epilogue(y32, sc, z64, **sm))
-             + device_ms(lambda: fb_epilogue(y32, sc, z64)))
-    df_plain = (device_ms(lambda: fb_epilogue_ref(y32, sc, z64, **sm))
-                + device_ms(lambda: fb_epilogue_ref(y32, sc, z64)))
+    dfb = dyn_fb_times(dev, gen, S)
+    df_ms, df_plain, df_bound = dfb["ms"], dfb["plain"], dfb["bound"]
     b_ms, o_ms = (S * t for t in gemm_bound(64, 64, 64, sliced=False))
     dg_bound = max(b_ms, o_ms)
-    df_bound = 2 * fb_bound(S * 64, 64, S * 64, False)
     pairs = vit["n_dyn"] // 2       # (scores, context) stage pairs
     detail(f"time vit_tiny dynamic stages (b16, {S} slices of 64x64x64, "
            f"{vit['n_dyn']} per forward): crossbar_gemm {dg_ms:.4f} ms per "
@@ -1188,35 +1436,14 @@ def main() -> int:
            f"{'bytes' if b_ms >= o_ms else 'operations'}, plain "
            f"{dg_plain:.4f}); fb_epilogue scores+context {df_ms:.4f} ms "
            f"(bound {df_bound:.5f} by bytes, plain {df_plain:.4f})")
-    # flash_attention over the attention path's shapes (1, T, 4, 16)
-    fl = dict(ms=0.0, plain=0.0, lib=0.0, by={"bytes": 0.0,
-                                                "operations": 0.0})
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for T, _, q, k, v, _, _ in attn_cases:
-        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
-        f_plain = device_ms(lambda: flash_attention_ref(q, k, v,
-                                                        causal=False))
-        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2)))
-        b_ms, o_ms = attn_bound(1, T, T, 4, 16)
-        fl["by"]["bytes" if b_ms >= o_ms else "operations"] += max(b_ms,
-                                                                   o_ms)
-        fl["ms"] += f_ms
-        fl["plain"] += f_plain
-        fl["lib"] += f_lib
-        detail(f"time flash_attention (1,{T},4,16): {f_ms:.4f} ms (bound "
-               f"{max(b_ms, o_ms):.5f}, plain {f_plain:.4f}, sdpa "
-               f"{f_lib:.4f})")
-    for shape in ((16, 64, 3, 64), (1, 512, 4, 64)):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                   for _ in range(3))
-        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
-        f_lib = device_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2)))
-        b_ms, o_ms = attn_bound(shape[0], shape[1], shape[1], shape[2],
-                                shape[3])
-        detail(f"time flash_attention {shape}: {f_ms:.4f} ms (bound "
-               f"{max(b_ms, o_ms):.5f}, sdpa {f_lib:.4f})")
+    # flash_attention over the attention path's shapes (1, T, 4, 16), and
+    # at the timed shapes beside SDPA
+    flt = flash_times(dev, gen)
+    fl = flt["path"]
+    flash_vs = "; ".join(
+        f"{tuple(t['shape'])}{' causal' if t['causal'] else ''} {t['dtype']} "
+        f"{t['ms']:.4f} ms (sdpa {t['sdpa_ms']:.4f}, bound "
+        f"{t['bound_ms']:.5f})" for t in flt["shapes"])
     # fused_gemm_epilogue at the kernel bench's 256x512x256, silu
     xf = torch.randn(256, 512, generator=gen, device=dev)
     wf = torch.randn(512, 256, generator=gen, device=dev) * 0.05
@@ -1251,7 +1478,7 @@ def main() -> int:
         f"fb_epilogue {pairs * df_ms:.4f} ms (bound {pairs * df_bound:.5f}, "
         f"plain {pairs * df_plain:.4f}); flash_attention over T=16,64,256 "
         f"(1,T,4,16) {fl['ms']:.4f} ms (bound {fl_bound:.5f} by {fl_by}, "
-        f"plain {fl['plain']:.4f}, sdpa {fl['lib']:.4f}); "
+        f"plain {fl['plain']:.4f}, sdpa {fl['lib']:.4f}); {flash_vs}; "
         f"fused_gemm_epilogue 256x512x256 silu {fu_ms:.4f} ms (bound "
         f"{fu_bound:.5f} by {fu_by}, plain {fu_plain:.4f}, addmm without "
         f"the activation {fu_lib:.4f}); packed_gemm 4 groups {pk_ms:.4f} ms "

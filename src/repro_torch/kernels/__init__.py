@@ -15,7 +15,8 @@ from .crossbar_gemm import (clip_possible, crossbar_gemm, crossbar_gemm_ref,
                             mount_weight)
 from .fb_epilogue import (LN_EPS, fb_epilogue, fb_epilogue_ref, gelu,
                           layer_norm_rows, softmax_rows)
-from .flash_attention import flash_attention, flash_attention_ref
+from .flash_attention import (flash_attention, flash_attention_ref,
+                              flash_attention_split_ref)
 from .fused_gemm_epilogue import fused_gemm_epilogue, fused_gemm_epilogue_ref
 from .packed_gemm import (packed_gemm, packed_gemm_ref, packed_gemm_tiles_ref,
                           pad_groups, tile_group_map)
@@ -25,7 +26,8 @@ __all__ = [
     "crossbar_gemm_exact_ref", "kernel_layout", "mount_weight",
     "LN_EPS", "fb_epilogue", "fb_epilogue_ref",
     "gelu", "layer_norm_rows", "softmax_rows", "flash_attention",
-    "flash_attention_ref", "fused_gemm_epilogue", "fused_gemm_epilogue_ref",
+    "flash_attention_ref", "flash_attention_split_ref",
+    "fused_gemm_epilogue", "fused_gemm_epilogue_ref",
     "packed_gemm", "packed_gemm_ref", "packed_gemm_tiles_ref", "pad_groups",
     "tile_group_map",
 ]

@@ -73,26 +73,53 @@ FB_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", list(FB_CASES))
-def test_fb_epilogue_kernel_matches_plain(cuda, mode):
+def _fb_against_plain(device, mode, M, N, seed, **over):
     kw, with_res, atol = FB_CASES[mode]
-    g = torch.Generator(device=cuda).manual_seed(0)
-    M, N = 2 * 64, 48
-    y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=g, device=cuda,
+    kw = dict(kw, **over)
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=g, device=device,
                       dtype=torch.int32)
-    scale = torch.full((1, 1), 3.1e-6, device=cuda)
-    bias = torch.randn(N, generator=g, device=cuda)
-    res = torch.randn(M, N, generator=g, device=cuda) if with_res else None
+    scale = torch.full((1, 1), 3.1e-6, device=device)
+    bias = torch.randn(N, generator=g, device=device)
+    res = torch.randn(M, N, generator=g, device=device) if with_res else None
     if "norm" in kw:
-        kw = dict(kw, gamma=torch.randn(N, generator=g, device=cuda),
-                  beta=torch.randn(N, generator=g, device=cuda))
+        kw = dict(kw, gamma=torch.randn(N, generator=g, device=device),
+                  beta=torch.randn(N, generator=g, device=device))
     before = fb_epilogue.launches
     got = fb_epilogue(y, scale, bias, res, **kw)
     assert fb_epilogue.launches == before + 1
     ref = fb_epilogue_ref(y, scale, bias, res, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=0, atol=atol)
+
+
+# N: the first width, the program's widths (16-byte accesses) and widths
+# that are not multiples of 4 (the scalar path)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [48, 64, 192, 768, 10, 19, 77])
+@pytest.mark.parametrize("mode", list(FB_CASES))
+def test_fb_epilogue_kernel_matches_plain(cuda, mode, N):
+    _fb_against_plain(cuda, mode, 2 * 64, N, seed=0 if N == 48 else N)
+
+
+# the longest row a warp holds, one past it, and a sequence whose token
+# rows do not fit a block's shared memory (64 x 1024): the block-per-row
+# path
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,N,over", [
+    ("layer", 1024, {}), ("layer", 1025, {}), ("softmax", 1024, {}),
+    ("softmax", 1025, {}), ("seqmean", 1024, {}), ("seqmean", 1025, {}),
+    ("seqmean", 1024, {"window": 64})])
+def test_fb_epilogue_long_rows(cuda, mode, N, over):
+    _fb_against_plain(cuda, mode, 128, N, seed=N, **over)
+
+
+# a pool window other than the programs' 2 and 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["maxpool", "avgpool"])
+@pytest.mark.parametrize("N", [64, 19])
+def test_fb_epilogue_pool_window_8(cuda, mode, N):
+    _fb_against_plain(cuda, mode, 2 * 256, N, seed=8, window=8, img_hw=16)
 
 
 @pytest.mark.cuda
@@ -169,6 +196,23 @@ def _randn(shape, g, device, dtype=torch.float32, scale=1.0):
     # a ragged last key tile (48 = 32 + 16) with every score near -800:
     # the keys past Sk must not lift the running max to 0
     ((1, 48, 2, 64), False, 0, torch.float32, 1e-4, True),
+    # every head-dim instantiation, ragged key tiles, head dims below the
+    # instantiation, rows that are not 16-byte aligned, both sides of the
+    # key-split threshold
+    ((1, 128, 2, 16), True, 0, torch.float32, 1e-4, False),
+    ((2, 128, 2, 32), False, 0, torch.float32, 1e-4, False),
+    ((1, 256, 2, 128), False, 0, torch.float32, 1e-4, False),
+    ((1, 256, 2, 16), False, 0, torch.bfloat16, 2e-2, False),
+    ((1, 128, 2, 32), True, 0, torch.bfloat16, 2e-2, False),
+    ((1, 256, 2, 128), True, 0, torch.bfloat16, 2e-2, False),
+    ((2, 96, 2, 64), False, 0, torch.float32, 1e-4, False),
+    ((1, 80, 2, 128), True, 0, torch.float32, 1e-4, False),
+    ((1, 64, 2, 20), False, 0, torch.float32, 1e-4, False),
+    ((1, 64, 2, 18), True, 0, torch.float32, 1e-4, False),
+    ((1, 128, 1, 20), True, 0, torch.bfloat16, 2e-2, False),
+    ((1, 512, 4, 64), False, 0, torch.float32, 1e-4, False),
+    ((8, 512, 8, 64), False, 0, torch.float32, 1e-4, False),
+    ((1, 512, 4, 64), True, 0, torch.bfloat16, 2e-2, False),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
                                               dtype, tol, negative):
@@ -184,6 +228,32 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (True, 128)])
+def test_flash_attention_key_split_on_and_off(cuda, causal, window):
+    """The key split forced off and on: each within 1e-4 of the plain
+    version and of the split's plain version, and a split shape gives
+    the same output twice."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn((1, 512, 4, 64), g, cuda) for _ in range(3))
+    auto = fa.key_splits(1, 4, 512, 512, 64)
+    assert auto > 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    for sp in (1, 2, auto):
+        got = fa._launch(q, k, v, causal=causal, window=window, splits=sp)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(
+            got, fa.flash_attention_split_ref(q, k, v, causal=causal,
+                                              window=window, splits=sp),
+            rtol=1e-4, atol=1e-4)
+    first = fa._launch(q, k, v, causal=causal, window=window, splits=auto)
+    again = fa._launch(q, k, v, causal=causal, window=window, splits=auto)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,8 @@ in different orders.  The host helpers of ``packed_gemm`` and the
 batched crossbar launches must match exactly.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +19,12 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import (crossbar_gemm, fb_epilogue, flash_attention,
-                                 flash_attention_ref, fused_gemm_epilogue,
-                                 ops, packed_gemm, pad_groups, tile_group_map)
+                                 flash_attention_ref,
+                                 flash_attention_split_ref,
+                                 fused_gemm_epilogue, ops, packed_gemm,
+                                 pad_groups, tile_group_map)
+
+fa_module = importlib.import_module("repro_torch.kernels.flash_attention")
 
 
 def _normal(rng, shape, scale=1.0):
@@ -111,6 +117,66 @@ def test_flash_attention_ref_masked_rows_are_zero():
     out = flash_attention_ref(q, k, v, causal=False, window=1)
     assert torch.isfinite(out).all()
     assert torch.equal(out[0, 2:], torch.zeros(2, 1, 8))
+
+
+# The key split (the CUDA kernel's shares of each query tile's keys and
+# their merge) in its plain version, against the Pallas kernel.  The
+# merge re-orders the sums over keys: measured at most 1.1e-6 absolute
+# here, held to 2e-6 absolute + 1e-5 relative.
+SPLIT_CASES = [
+    ((1, 512, 2, 64), True, 0),          # causal: shares of the lower rows
+    ((1, 512, 2, 64), False, 128),       # a 128-key window
+    ((2, 96, 2, 64), False, 0),          # 64-key tiles: a ragged last one
+    ((1, 80, 2, 128), True, 0),          # 32-key tiles (hd 128): ragged
+]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("shape,causal,window", SPLIT_CASES)
+def test_flash_attention_split_plain_matches_pallas(shape, causal, window,
+                                                   splits):
+    rng = np.random.default_rng(sum(shape) + splits)
+    q, k, v = (_normal(rng, shape) for _ in range(3))
+    ref = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window,
+                               interpret=True)
+    got = flash_attention_split_ref(_t(q), _t(k), _t(v), causal=causal,
+                                    window=window, splits=splits)
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (True, 128), (False, 100)])
+def test_flash_attention_key_split_rule(causal, window):
+    """The split count is a function of the shape; every share is a
+    non-empty, contiguous run of key tiles inside the keys its queries
+    can see, and the shares of a query tile cover those keys in order."""
+    for b, s, h, hd in [(1, 512, 4, 64), (16, 64, 3, 64), (1, 256, 4, 16),
+                        (8, 512, 8, 64), (1, 80, 2, 128), (2, 96, 2, 64)]:
+        sp = fa_module.key_splits(b, h, s, s, hd)
+        assert sp == fa_module.key_splits(b, h, s, s, hd)
+        assert 1 <= sp <= fa_module.MAX_SPLITS
+        bq, bk = fa_module.query_tile(s), fa_module.key_tile(hd)
+        if b * h * -(-s // bq) >= fa_module.SPLIT_BLOCKS:
+            assert sp == 1
+        for forced in (1, 2, 4, sp):
+            shares = fa_module.key_ranges(s, s, hd, causal=causal,
+                                          window=window, splits=forced)
+            assert shares == fa_module.key_ranges(
+                s, s, hd, causal=causal, window=window, splits=forced)
+            assert len(shares) == -(-s // bq)
+            for qi, tile in enumerate(shares):
+                q0, q_last = qi * bq, min((qi + 1) * bq, s) - 1
+                hi = q_last + 1 if causal else s
+                lo = max(0, q0 - window + 1) if window else 0
+                assert 1 <= len(tile) <= forced
+                assert tile[0][0] == lo // bk * bk and tile[-1][1] == hi
+                for (a, b_), (c, _) in zip(tile, tile[1:]):
+                    assert b_ == c
+                for a, b_ in tile:
+                    assert a < b_ and a % bk == 0
 
 
 # ---------------------------------------------------------------------------
