@@ -10,10 +10,16 @@ float32 accumulation, in x's type.  The helpers return what the JAX ones
 return, as int32 tensors.
 
 For a CUDA tensor ``packed_gemm`` launches the hand-written kernel in
-``csrc/packed_gemm.cu`` (its header says what bounds it on the H100) and
-adds one to ``packed_gemm.launches``; for a CPU tensor it computes the
-plain PyTorch version ``packed_gemm_tiles_ref``.  Nothing falls back
-from the card to the plain version.
+``csrc/packed_gemm.cu`` and adds one to ``packed_gemm.launches``; for a
+CPU tensor it computes the plain PyTorch version
+``packed_gemm_tiles_ref``.  Nothing falls back from the card to the
+plain version.
+
+On the H100 the kernel is bound by latency and by how many of the 132
+SMs it keeps busy, not by its products (its header says why).  It runs
+the products on the tensor cores (3xTF32 for float32, bf16 ``mma``),
+with K whole, and ``packed_tile`` cuts the output into blocks that never
+span two ``block_m`` tiles, narrow enough to give the SMs work.
 """
 
 from __future__ import annotations
@@ -27,6 +33,21 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SM_COUNT = 132           # H100 SXM
+
+
+def packed_tile(block_m: int, Mp: int, N: int) -> tuple[int, int]:
+    """The kernel's (rows, columns) block tile for ``Mp`` rows in
+    ``block_m``-row tiles: rows the largest of 64 / 32 / 16 that divides
+    ``block_m``, so a block never spans two tiles (where none divides,
+    the smallest of them that covers ``block_m``, up to 64, and the
+    kernel masks each tile's last block at the boundary); columns 32
+    where 64-column blocks would number under twice the SMs, else 64.
+    A function of the shape alone."""
+    bm = next((t for t in (64, 32, 16) if block_m % t == 0),
+              next((t for t in (16, 32) if block_m <= t), 64))
+    blocks_64 = -(-Mp // block_m) * -(-block_m // bm) * -(-N // 64)
+    return bm, 32 if blocks_64 < 2 * SM_COUNT else 64
 
 
 def tile_group_map(group_sizes, block_m: int, n_tiles: int) -> torch.Tensor:
@@ -132,13 +153,18 @@ def _check(x, w, tile_groups, block_m: int, block_n: int) -> int:
     return bm
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("packed_gemm")
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry's argument and result types on a loaded
+    ``packed_gemm`` library (also a variant build of it)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.packed_gemm.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.packed_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.packed_gemm.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return declare(_build.load("packed_gemm"))
 
 
 def _launch(x, w, tile_groups, block_m: int) -> torch.Tensor:
@@ -151,10 +177,11 @@ def _launch(x, w, tile_groups, block_m: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     tg = tile_groups.to(device=x.device, dtype=torch.int32).contiguous()
+    tm, tn = packed_tile(block_m, M, N)
     lib = _lib()
     err = lib.packed_gemm(x.data_ptr(), w.data_ptr(), tg.data_ptr(),
-                          out.data_ptr(), M, N, K, block_m, _DTYPES[x.dtype],
-                          _build.stream_handle())
+                          out.data_ptr(), M, N, K, block_m, tm, tn,
+                          _DTYPES[x.dtype], _build.stream_handle())
     _build.check(lib, "packed_gemm", err)
     packed_gemm.launches += 1
     return out

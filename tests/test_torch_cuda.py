@@ -306,6 +306,120 @@ def test_grouped_gemm_kernel_matches_plain(cuda, sizes):
                                atol=1e-4)
 
 
+_fused_module = importlib.import_module(
+    "repro_torch.kernels.fused_gemm_epilogue")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 7, 3), (77, 1001, 19), (130, 514, 258),
+                                   (64, 33, 66), (3, 64, 1), (4, 0, 9)],
+                         ids=str)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_gemm_epilogue_ragged_and_unaligned(cuda, shape, dtype, tol):
+    """Shapes no tile divides, rows that are not 16-byte aligned (K or N
+    not a multiple of 4 floats / 8 bf16: synchronous loads), odd N
+    (scalar stores), both sides of the K split, and K = 0 (the epilogue
+    on a zero product)."""
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = _randn((M, K), g, cuda, dtype)
+    w = _randn((K, N), g, cuda, dtype, 0.05)
+    b, res = _randn((N,), g, cuda), _randn((M, N), g, cuda)
+    for act in ("silu", "gelu"):
+        got = fused_gemm_epilogue(x, w, b, res, act=act)
+        ref = fused_gemm_epilogue_ref(x, w, b, act=act, residual=res)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, N)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_gemm_epilogue_split_k_on_and_off(cuda, dtype, tol):
+    """256x512x256 (the kernel bench's shape) splits K; forced off, on
+    and to an uneven 3 it stays within tolerance, and a split shape
+    gives the same output twice (the partials meet in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn((256, 512), g, cuda, dtype)
+    w = _randn((512, 256), g, cuda, dtype, 0.05)
+    b, res = _randn((256,), g, cuda), _randn((256, 256), g, cuda)
+    auto, _ = _fused_module.k_splits(256, 256, 512, x.element_size())
+    assert auto > 1
+    ref = fused_gemm_epilogue_ref(x, w, b, act="relu", residual=res)
+    for sp in (1, 3, auto):
+        got = _fused_module._launch(x, w, b, res, "relu", splits=sp)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    first = _fused_module._launch(x, w, b, res, "relu")
+    again = _fused_module._launch(x, w, b, res, "relu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 256), (100, 200, 72)], ids=str)
+def test_fused_gemm_epilogue_reads_bf16_bias_and_residual(cuda, shape):
+    """A bf16 bias and residual go to the kernel in their own type: the
+    output equals the one from their float32 copies (bf16 -> float32 is
+    exact) and the plain version's."""
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = _randn((M, K), g, cuda, torch.bfloat16)
+    w = _randn((K, N), g, cuda, torch.bfloat16, 0.05)
+    b = _randn((N,), g, cuda, torch.bfloat16)
+    res = _randn((M, N), g, cuda, torch.bfloat16)
+    got = fused_gemm_epilogue(x, w, b, res, act="gelu")
+    same = fused_gemm_epilogue(x, w, b.float(), res.float(), act="gelu")
+    ref = fused_gemm_epilogue_ref(x, w, b, act="gelu", residual=res)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, same)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[200, 56, 300, 100], [0, 256, 0, 128]],
+                         ids=str)
+def test_grouped_gemm_kernel_bf16(cuda, sizes):
+    g = torch.Generator(device=cuda).manual_seed(sum(sizes) + 1)
+    w = _randn((len(sizes), 128, 256), g, cuda, torch.bfloat16, 0.1)
+    x = _randn((sum(sizes), 128), g, cuda, torch.bfloat16)
+    xp, padded, _, _ = pad_groups(x, sizes, 128)
+    tiles = tile_group_map(padded, 128, xp.shape[0] // 128)
+    got = packed_gemm(xp, w, tiles)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), packed_gemm_tiles_ref(xp, w, tiles, 128).float(),
+        rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(ops.grouped_gemm(x, w, sizes).float(),
+                               packed_gemm_ref(x, w, sizes).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_m", [32, 96, 100, 24])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_packed_gemm_block_m_and_unsorted_map(cuda, block_m, dtype, tol):
+    """Row tiles of 32 / 96 rows (a 32-row block tile) and of 100 / 24
+    rows (no block tile divides them: the kernel masks at each tile's
+    end), a tile map that is not sorted, K and N not 16-byte multiples."""
+    g = torch.Generator(device=cuda).manual_seed(block_m)
+    tiles = torch.tensor([2, 0, 2, 1], dtype=torch.int32)
+    x = _randn((4 * block_m, 72), g, cuda, dtype)
+    for K, N in ((72, 40), (37, 19)):
+        xk = x[:, :K].contiguous()
+        w = _randn((3, K, N), g, cuda, dtype, 0.1)
+        got = packed_gemm(xk, w, tiles, block_m=block_m, block_n=N)
+        ref = packed_gemm_tiles_ref(xk, w, tiles, block_m)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
 @pytest.mark.cuda
 def test_vit_on_the_gpu_matches_the_cpu_plain_path(cuda):
     graph = api.vit_tiny_graph(depth=1, dim=48, heads=3)

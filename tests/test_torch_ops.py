@@ -25,6 +25,9 @@ from repro_torch.kernels import (crossbar_gemm, fb_epilogue, flash_attention,
                                  pad_groups, tile_group_map)
 
 fa_module = importlib.import_module("repro_torch.kernels.flash_attention")
+fused_module = importlib.import_module(
+    "repro_torch.kernels.fused_gemm_epilogue")
+packed_module = importlib.import_module("repro_torch.kernels.packed_gemm")
 
 
 def _normal(rng, shape, scale=1.0):
@@ -222,6 +225,51 @@ def test_fused_gemm_epilogue_bf16():
                               _t(b), act="silu")
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(ref, np.float32), 2e-2)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (128, 1024, 256),
+                                   (77, 1001, 19), (130, 514, 258),
+                                   (1, 7, 3), (2048, 2048, 2048),
+                                   (256, 0, 256), (64, 4096, 64),
+                                   (512, 512, 512), (300, 700, 200)])
+@pytest.mark.parametrize("size", [4, 2], ids=["float32", "bfloat16"])
+def test_fused_k_split_plan_is_shape_only_and_covers_k(m, k, n, size):
+    """The kernel's K split: the same for the same shape, shares of a
+    multiple of 256 bytes of each row (64 float32 / 128 bfloat16 values)
+    that cover K with none empty, as many (at most 8) as keep the blocks
+    within the 132 SMs, and forced counts cut to the K there is."""
+    unit = 256 // size
+    plan = fused_module.k_splits(m, n, k, size)
+    assert plan == fused_module.k_splits(m, n, k, size)
+    tiles = -(-m // 64) * -(-n // 64)
+    for splits, chunk in (plan, fused_module.k_splits(m, n, k, size, 3),
+                          fused_module.k_splits(m, n, k, size, 1)):
+        assert 1 <= splits <= fused_module.MAX_SPLITS
+        assert chunk % unit == 0 and splits * chunk >= k
+        assert (splits - 1) * chunk < k or splits == 1
+    assert (plan[0] > 1) == (2 * tiles <= 132 and k > unit)
+    assert tiles * plan[0] <= 132 or plan[0] == 1
+    units = -(-k // unit)
+    want = max(1, min(132 // tiles, 8, units))
+    per = -(-units // want) if units else 0
+    assert plan == ((-(-units // per) if per else 1), per * unit)
+
+
+@pytest.mark.parametrize("block_m", [128, 64, 96, 32, 48, 100, 24, 7])
+@pytest.mark.parametrize("mp_tiles,n", [(7, 256), (32, 1024), (3, 40)])
+def test_packed_tile_never_spans_two_row_tiles(block_m, mp_tiles, n):
+    """The kernel's block tile: rows the largest of 64/32/16 dividing
+    block_m (else the smallest covering it, up to 64, masked at the
+    boundary), so no block reads two tiles' weights; 32 columns where 64
+    would give under two blocks per SM."""
+    tm, tn = packed_module.packed_tile(block_m, mp_tiles * block_m, n)
+    divisors = [t for t in (64, 32, 16) if block_m % t == 0]
+    assert tm == (divisors[0] if divisors else
+                  16 if block_m <= 16 else 32 if block_m <= 32 else 64)
+    sub = -(-block_m // tm)
+    assert (sub - 1) * tm < block_m <= sub * tm
+    blocks_64 = mp_tiles * sub * -(-n // 64)
+    assert tn == (32 if blocks_64 < 264 else 64)
 
 
 def test_fused_gemm_epilogue_rejects_bad_input():
