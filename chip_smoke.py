@@ -104,7 +104,31 @@ each on standard output (the per-shape details go to standard error):
     float32 and bfloat16, beside ``torch.addmm`` (bias only; for ReLU also
     ``torch._addmm_activation``, the same function), a per-group
     ``torch.matmul`` loop and ``torch._grouped_mm`` where this torch takes
-    the case.
+    the case;
+16. VGG-16: ``api.compile("vgg16", HurryConfig())`` at full width
+    serving batches 1 and 16 (probabilities and logits), logits
+    ``torch.equal`` to the CPU plain path's, both counters one launch per
+    stage and request, and its time per batch;
+17. save/load: ResNet-18 and vit_tiny (compiled on the card) saved to a
+    temporary file and ``api.load``-ed onto the card, batch 16 equal to
+    the in-memory model (``torch.equal``); the seconds of a fresh
+    ``compile`` beside ``load``, and the file's size;
+18. ``make_server("resnet18")`` at batches 1, 3 and 16 ``torch.equal`` to
+    ``CompiledModel.run``, one launch of each kernel per stage and
+    request, and its time per batch beside ``run``'s;
+19. the functional model: ``crossbar_matmul`` on both branches (ragged K,
+    leading dims, a slice axis, operands outside int8) ``torch.equal`` to
+    the CPU with one ``crossbar_gemm`` launch per call; the read-noise
+    statistic on the card within 15% of the CPU's at sigma 0.5 and 2.0;
+    ``graph.forward(mm=make_crossbar_matmul(cfg))`` for ResNet-18 and
+    vit_tiny at batch 16 against the same call on the CPU (ResNet-18 as 5
+    holds ``run``: argmax 1.0 and a relative 1e-4; vit_tiny to 12's
+    ``VIT_REL`` and ``VIT_PROB_ATOL``, its argmax agreement printed with
+    the CPU's top-two margin of each flipped row, not held: a near-tied
+    row flips under the devices' ulp-level differences), its launches,
+    and its time per batch beside ``run``'s;
+20. ``simulate``: ResNet-18's ``SimReport.summary()`` on every arch of
+    ``SIM_ARCHS`` (host only).
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -120,6 +144,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -1383,6 +1408,215 @@ def ops_phase(dev, gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 16-20: the rest of repro_torch.api on the card
+# ---------------------------------------------------------------------------
+
+def counted(fn) -> tuple:
+    """(fn(), launches): both launch counters set to 0 just before ``fn``
+    and read just after (device synchronized on both sides)."""
+    import torch
+    from repro_torch.kernels import crossbar_gemm, fb_epilogue
+    torch.cuda.synchronize()
+    crossbar_gemm.launches = fb_epilogue.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"crossbar_gemm": crossbar_gemm.launches,
+                 "fb_epilogue": fb_epilogue.launches}
+
+
+def vgg_phase(api, rng) -> dict:
+    """Phase 16: VGG-16 at full width serving batches 1 and 16 (probs and
+    logits), logits ``torch.equal`` to the CPU plain path's (a ReLU / max
+    pool chain: every quantization sees the same values)."""
+    import torch
+    gpu = api.compile("vgg16", api.HurryConfig(), seed=0, device="cuda")
+    cpu = api.compile("vgg16", api.HurryConfig(), seed=0, device="cpu")
+    n_stages = len(gpu.program.stages())
+    requests = [rng.standard_normal((b, 32, 32, 3)).astype("float32")
+                for b in (1, 16)]
+    served, launches = counted(lambda: [(gpu.run(x), gpu.run(x, logits=True))
+                                        for x in requests])
+    want = n_stages * 2 * len(requests)
+    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+          f"VGG-16 launch counts {launches}, expected {want} each")
+    for x, (probs, logits) in zip(requests, served):
+        ref = cpu.run(x, logits=True)
+        got, probs = logits.cpu(), probs.cpu()
+        check(got.shape == (len(x), 10) and bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(probs).all()), "VGG-16 non-finite")
+        check(torch.equal(got, ref), f"VGG-16 batch {len(x)}: GPU logits "
+              f"differ from the CPU plain path by up to "
+              f"{(got - ref).abs().max().item():.3e}")
+        check(bool(torch.allclose(probs, cpu.run(x), atol=1e-6)),
+              "VGG-16 probabilities differ from the CPU plain path")
+    ms = {}
+    for b in (1, 16):
+        xb = torch.from_numpy(requests[b > 1]).cuda()
+        ms[b] = wall_ms(lambda: gpu.run(xb))
+    return dict(launches=launches, n_stages=n_stages, ms=ms)
+
+
+def save_load_phase(api, models: dict, gen) -> dict:
+    """Phase 17: each model (compiled on the card) saved to a temporary
+    file and loaded back onto the card; batch-16 ``run`` of the loaded
+    model ``torch.equal`` to the in-memory one's.  The seconds of a fresh
+    ``compile`` beside ``load``, and the file's size."""
+    import tempfile
+    import torch
+    out, launches = {}, {"crossbar_gemm": 0, "fb_epilogue": 0}
+    with tempfile.TemporaryDirectory() as d:
+        for name, model in models.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.compile(name, model.config, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            path = model.save(os.path.join(d, f"{name}.npz"))
+            t0 = time.perf_counter()
+            loaded = api.load(path, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            x = torch.randn(model.program.input_shape(16), generator=gen,
+                            device="cuda")
+            got, n = counted(lambda: (loaded.run(x), loaded.run(
+                x, logits=True)))
+            want = 2 * len(model.program.stages())
+            check(n == {"crossbar_gemm": want, "fb_epilogue": want},
+                  f"loaded {name}: launch counts {n}, expected {want} each")
+            check(torch.equal(got[0], model.run(x))
+                  and torch.equal(got[1], model.run(x, logits=True)),
+                  f"loaded {name} differs from the in-memory model")
+            for k in launches:
+                launches[k] += n[k]
+            out[name] = dict(compile_s=compile_s, load_s=load_s,
+                             mb=os.path.getsize(path) / 2 ** 20)
+    return dict(models=out, launches=launches)
+
+
+def server_phase(api, model, rng) -> dict:
+    """Phase 18: ``make_server("resnet18")`` (the zoo init from seed 0,
+    the weights of ``model``) at batches 1, 3 and 16, ``torch.equal`` to
+    ``CompiledModel.run``; both counters grow by one per stage and
+    request.  Time per batch at 16 beside ``run``'s."""
+    import torch
+    from repro_torch.program.serve import make_server
+    server = make_server("resnet18", config=api.HurryConfig(), seed=0,
+                         device="cuda")
+    requests = [torch.from_numpy(rng.standard_normal(
+        (b, 32, 32, 3)).astype("float32")).cuda() for b in (1, 3, 16)]
+    answers, launches = counted(lambda: [server(x) for x in requests])
+    want = len(server.program.stages()) * len(requests)
+    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+          f"server launch counts {launches}, expected {want} each")
+    for x, a in zip(requests, answers):
+        check(torch.equal(a, model.run(x)),
+              f"server batch {len(x)} differs from CompiledModel.run")
+    x16 = requests[-1]
+    return dict(launches=launches, ms=wall_ms(lambda: server(x16)),
+                run_ms=wall_ms(lambda: model.run(x16)))
+
+
+# (rows, adc_bits, K) of phase 19's crossbar_matmul calls: both branches,
+# ragged K, one chunk and many
+XBAR_CASES = [(512, 9, 27), (512, 9, 1001), (494, 9, 4860), (494, 8, 1001),
+              (256, 9, 777), (255, 8, 300), (512, 8, 2470)]
+NOISE_REL = 0.15
+
+
+def _noise_rel(x, w, cfg, device, draws: int = 4) -> float:
+    """mean |noisy - exact| / mean |exact| over ``draws`` seeded draws."""
+    import torch
+    from repro_torch.core.crossbar import crossbar_matmul
+    x, w = x.to(device), w.to(device)
+    exact = (x.double() @ w.double())
+    errs = [(crossbar_matmul(x, w, cfg, torch.Generator(device)
+                             .manual_seed(7 + i)).double() - exact)
+            .abs().mean().item() for i in range(draws)]
+    return sum(errs) / draws / exact.abs().mean().item()
+
+
+def functional_phase(api, pairs: dict, rng) -> dict:
+    """Phase 19: ``crossbar_matmul`` on the card against the CPU
+    (``torch.equal``, one ``crossbar_gemm`` launch per call, both
+    branches, leading dims and a slice axis), the read-noise statistic
+    on the card against the CPU's, and ``graph.forward`` with the
+    crossbar ``mm`` at batch 16 against the same call on the CPU.
+    ``pairs`` maps a net to (card model, CPU model, relative logit
+    limit, probability limit, whether argmax agreement 1.0 is held)."""
+    import torch
+    from repro_torch.core.crossbar import CrossbarConfig, crossbar_matmul
+    from repro_torch.kernels import clip_possible, softmax_rows
+    from repro_torch.models.cnn import make_crossbar_matmul
+    branches = {"exact": 0, "sliced": 0}
+    for rows, adc, K in XBAR_CASES:
+        x = torch.from_numpy(rng.integers(-300, 300, (2, 5, K),
+                                          dtype="int32"))
+        w = torch.from_numpy(rng.integers(-300, 300, (K, 19), dtype="int32"))
+        x[0, :2] = -1
+        w[:, :5] = -1
+        cfg = CrossbarConfig(rows=rows, adc_bits=adc)
+        for a, b in [(x, w), (x[1][None].expand(3, -1, -1).contiguous(),
+                              w[None].expand(3, -1, -1).contiguous())]:
+            got, n = counted(lambda: crossbar_matmul(a.cuda(), b.cuda(), cfg))
+            check(n["crossbar_gemm"] == 1, f"crossbar_matmul launched {n}")
+            check(torch.equal(got.cpu(), crossbar_matmul(a, b, cfg)),
+                  f"crossbar_matmul rows {rows} adc {adc} K {K} shape "
+                  f"{tuple(a.shape)}: card differs from the CPU")
+            branches["sliced" if clip_possible(min(rows, K), adc)
+                     else "exact"] += 1
+    xn = torch.from_numpy(rng.integers(-128, 128, (8, 256), dtype="int32"))
+    wn = torch.from_numpy(rng.integers(-128, 128, (256, 32), dtype="int32"))
+    noise = {}
+    for sigma in (0.5, 2.0):
+        cfg = CrossbarConfig(rows=256, noise_sigma_thermal=sigma)
+        (g, c), n = counted(lambda: (_noise_rel(xn, wn, cfg, "cuda"),
+                                     _noise_rel(xn, wn, cfg, "cpu")))
+        check(n["crossbar_gemm"] == 0 and g > 0
+              and abs(g - c) <= NOISE_REL * c,
+              f"noise sigma {sigma}: card {g:.4e}, CPU {c:.4e}, {n}")
+        noise[sigma] = (g, c)
+    check(noise[0.5][0] < noise[2.0][0], f"noise not monotone: {noise}")
+    fwd = {}
+    for name, (gpu, cpu, rel_lim, prob_lim, hold_argmax) in pairs.items():
+        mm = make_crossbar_matmul(gpu.config.crossbar())
+        x = rng.standard_normal(gpu.program.input_shape(16)).astype(
+            "float32")
+        xg, xc = torch.from_numpy(x).cuda(), torch.from_numpy(x)
+        (logits, probs), n = counted(lambda: (
+            gpu.graph.forward(gpu.params, xg, mm=mm, logits=True),
+            gpu.graph.forward(gpu.params, xg, mm=mm)))
+        want = 2 * len(gpu.program.stages())
+        check(n == {"crossbar_gemm": want, "fb_epilogue": 0},
+              f"{name} forward launches {n}, expected {want} crossbar_gemm")
+        ref = cpu.graph.forward(cpu.params, xc, mm=mm, logits=True)
+        ref_p = softmax_rows(ref)        # the graph's last layer, on ref
+        got = logits.cpu()
+        check(bool(torch.isfinite(got).all()) and got.shape == (16, 10),
+              f"{name} forward non-finite")
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        flips = got.argmax(1) != ref.argmax(1)
+        agree = 1.0 - flips.float().mean().item()
+        top2 = ref.topk(2, dim=1).values
+        margins = ((top2[:, 0] - top2[:, 1]) / ref.abs().max())[flips]
+        prob = (probs.cpu() - ref_p).abs().max().item()
+        check((agree == 1.0 or not hold_argmax) and rel <= rel_lim
+              and prob <= prob_lim,
+              f"{name} forward card vs CPU: agreement {agree}, rel {rel:.2e}"
+              f" (limit {rel_lim}), probs {prob:.2e} (limit {prob_lim})")
+        run_gap = ((logits - gpu.run(xg, logits=True)).abs().max()
+                   / logits.abs().max()).item()
+        fwd[name] = dict(launches=n["crossbar_gemm"] // 2, rel=rel,
+                         prob=prob, exact=torch.equal(got, ref), agree=agree,
+                         margins=[f"{m:.2e}" for m in margins.tolist()],
+                         run_gap=run_gap,
+                         ms=wall_ms(lambda: gpu.graph.forward(
+                             gpu.params, xg, mm=mm, logits=True)),
+                         run_ms=wall_ms(lambda: gpu.run(xg, logits=True)),
+                         total=n["crossbar_gemm"])
+    return dict(branches=branches, noise=noise, forward=fwd)
+
+
 def kernel_times(label: str) -> int:
     """``--kernel-times``: the times of phases 7 and 15 that compare the
     redesigned kernels with another tree, for the ``repro_torch`` on
@@ -1838,12 +2072,62 @@ def main(argv: list[str] | None = None) -> int:
         f"plain {fl['plain']:.4f}, sdpa {fl['lib']:.4f}); {flash_vs}; "
         f"{gemm_vs}")
 
+    # -- 16-20. the rest of repro_torch.api ------------------------------
+    rng2 = np.random.default_rng(16)
+    vgg = vgg_phase(api, rng2)
+    log(f"[16 vgg16 main path] batches 1,16 x (probs, logits): launches "
+        f"{vgg['launches']} = {vgg['n_stages']} stages each run; logits "
+        "torch.equal to the CPU plain path at both batches, probabilities "
+        f"within 1e-6; end to end {vgg['ms'][1]:.3f} ms at b=1, "
+        f"{vgg['ms'][16]:.3f} ms at b=16 (host clock + synchronize, median "
+        f"of 10) | {card}")
+    sl_ = save_load_phase(api, {"resnet18": resnet_gpu,
+                                "vit_tiny": vit_gpu}, gen)
+    log("[17 save/load] " + "; ".join(
+        f"{name}: compile {m['compile_s']:.3f} s, load {m['load_s']:.3f} s, "
+        f"file {m['mb']:.2f} MiB" for name, m in sl_["models"].items())
+        + f"; loaded b16 runs torch.equal to the in-memory models, launches "
+        f"{sl_['launches']} | {card}")
+    srv = server_phase(api, resnet_gpu, rng2)
+    log(f"[18 ProgramServer] resnet18 batches 1,3,16 torch.equal to "
+        f"CompiledModel.run, launches {srv['launches']}; b16 "
+        f"{srv['ms']:.3f} ms per batch beside run's {srv['run_ms']:.3f} ms "
+        f"| {card}")
+    fn = functional_phase(api, {
+        "resnet18": (resnet_gpu, resnet_cpu, 1e-4, 1e-6, True),
+        "vit_tiny": (vit_gpu, vit_cpu, VIT_REL, VIT_PROB_ATOL, False)}, rng2)
+    log(f"[19 functional model] crossbar_matmul {fn['branches']} calls "
+        "torch.equal to the CPU, one crossbar_gemm launch each; read noise "
+        "card/CPU " + ", ".join(f"sigma {s}: {g:.4e}/{c:.4e}"
+                                for s, (g, c) in fn["noise"].items())
+        + f" (within {NOISE_REL:.0%}); graph.forward(mm=crossbar) b16: "
+        + "; ".join(
+            f"{name} {f['launches']} crossbar_gemm launches per forward, vs "
+            f"CPU rel {f['rel']:.2e} probs {f['prob']:.2e} bit-exact "
+            f"{f['exact']} argmax agreement {f['agree']:.4f} (flipped rows' "
+            f"CPU top-two margin / max|logit|: {f['margins'] or 'none'}), "
+            f"vs run on the card rel {f['run_gap']:.2e}, "
+            f"{f['ms']:.3f} ms per batch beside run's {f['run_ms']:.3f} ms"
+            for name, f in fn["forward"].items()) + f" | {card}")
+    sims = {arch: resnet_gpu.simulate(arch).summary()
+            for arch in api.SIM_ARCHS}
+    check(all(all(math.isfinite(v) and v > 0 for v in r.values())
+              for r in sims.values()), f"simulate: {sims}")
+    log("[20 simulate] resnet18 on the host: " + "; ".join(
+        f"{arch} " + ", ".join(f"{k} {v:.6g}" for k, v in r.items())
+        for arch, r in sims.items()))
+    paths = [main_launches, vit["launches"], vgg["launches"],
+             sl_["launches"], srv["launches"]]
+    path_launches = {k: sum(p[k] for p in paths)
+                     for k in ("crossbar_gemm", "fb_epilogue")}
+    path_launches["crossbar_gemm"] += sum(
+        f["total"] for f in fn["forward"].values())
+
     kernels = [
         dict(name="crossbar_gemm", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
              replaces="src/repro/kernels/crossbar_gemm.py:116",
-             launches=main_launches["crossbar_gemm"]
-             + vit["launches"]["crossbar_gemm"], max_abs_err=gemm_err,
+             launches=path_launches["crossbar_gemm"], max_abs_err=gemm_err,
              ms=g[16]["ms"], plain_ms=g[16]["plain"], bound_ms=g_bound,
              bound_by=g_by, library_ms=g_lib),
         dict(name="crossbar_gemm (sliced path)", route="cuda",
@@ -1855,8 +2139,7 @@ def main(argv: list[str] | None = None) -> int:
         dict(name="fb_epilogue", route="cuda",
              source="src/repro_torch/kernels/csrc/fb_epilogue.cu",
              replaces="src/repro/kernels/fb_epilogue.py:102",
-             launches=main_launches["fb_epilogue"]
-             + vit["launches"]["fb_epilogue"], max_abs_err=fb_err,
+             launches=path_launches["fb_epilogue"], max_abs_err=fb_err,
              ms=f["ms"], plain_ms=f["plain"], bound_ms=f["bound"],
              bound_by="bytes", library_ms=None),
         dict(name="flash_attention", route="cuda",

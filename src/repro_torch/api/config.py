@@ -5,18 +5,23 @@ The port of ``repro.api.config``.  ``HurryConfig`` holds chip geometry
 ADC resolution, read noise) and the JAX package's executor block sizes.
 Every downstream structure is *derived* here and nowhere else:
 
-  ``chip()``      -> ``core.simulator.ChipConfig``   (scheduler geometry)
-  ``crossbar()``  -> ``core.crossbar.CrossbarConfig`` (executor numerics)
+  ``chip()``      -> ``core.simulator.ChipConfig``   (analytical model
+                     and scheduler geometry)
+  ``crossbar()``  -> ``core.crossbar.CrossbarConfig`` (numeric model +
+                     compiled-program executor)
+  ``baseline()``  -> ``core.baselines.BaselineConfig`` (ISAAC/MISCA
+                     comparison chips sharing this geometry)
 
-``baseline()`` (the ISAAC/MISCA comparison chips) waits for the port of
-``core/baselines.py``.  Its fields equal the JAX package's, so one
-config value means the same network on both sides.
+Its fields and defaults equal the JAX package's, so one config value
+means the same network on both sides, and a saved model's config loads
+in either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.baselines import BaselineConfig
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.simulator import ChipConfig
 
@@ -76,6 +81,17 @@ class HurryConfig:
             adc_bits=self.adc_bits, dac_bits=self.dac_bits,
             noise_sigma_thermal=self.noise_sigma_thermal,
             noise_sigma_shot=self.noise_sigma_shot)
+
+    def baseline(self, **overrides) -> BaselineConfig:
+        """ISAAC/MISCA comparison chip sharing this geometry.
+
+        Baseline-specific structure (2-bit MLC cells, halved OR, static
+        arrays) keeps ``BaselineConfig`` defaults unless overridden.
+        """
+        kw = {f: getattr(self, f) for f in _CHIP_FIELDS
+              if f not in ("cell_bits", "or_kb", "controller_area_mult")}
+        kw.update(batch=self.sim_batch, **overrides)
+        return BaselineConfig(**kw)
 
     @classmethod
     def from_chip(cls, chip: ChipConfig, **overrides) -> "HurryConfig":

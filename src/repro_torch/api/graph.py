@@ -23,14 +23,20 @@ inference of shapes).  The sequence FB chain order is ``residual ->
 gelu -> layernorm -> seqpool`` (post-norm transformer blocks).
 
 The resulting ``NetworkGraph`` is the one source of truth for layer
-shapes: the scheduler consumes its ``LayerSpec`` list and
-``init_params`` derives the parameter dict from it.
+shapes: the scheduler consumes its ``LayerSpec`` list, ``init_params``
+derives the parameter dict from it, and ``forward`` is a generic
+functional interpreter (same primitives as ``models/cnn.py``, GEMMs
+routed through any ``mm``: float32 or the crossbar functional model)
+used as the numeric reference for compiled programs.  Attention routes
+all four of its GEMMs (fused qkv projection, per-head Q·Kᵀ, per-head
+P·V, output projection) through the same ``mm``, so the oracle
+evaluates the crossbar-quantized attention the compiled program
+executes.
 
 The port of ``repro.api.graph``: the builder and its validation are the
 JAX package's, line for line.  ``init_params`` draws He init from a
 ``torch.Generator``, so its numbers differ from ``jax.random``'s; tests
 carry the JAX package's parameters over with ``convert.params_from_jax``.
-The functional ``forward`` oracle is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ import torch
 
 from repro_torch.core.workload import (LayerSpec, POST_RANK, input_spec,
                                        layer_groups)
+from repro_torch.kernels.fb_epilogue import gelu, layer_norm_rows, softmax_rows
+from repro_torch.models.cnn import MatmulFn, conv2d, fp_matmul, maxpool
+from repro_torch.program.sequence import (attn_scale, merge_heads,
+                                          split_qkv_heads, tokens)
 
 # shapes are ("spatial", hw, ch) until an fc flattens to ("flat", features)
 # or a sequence op rasterizes to ("seq", tokens, dim); T == 0 marks a
@@ -120,6 +130,95 @@ class NetworkGraph:
                                   "b": torch.zeros(l.features_out)}
         return {k: {n: t.to(device) for n, t in p.items()}
                 for k, p in params.items()}
+
+    def forward(self, params: dict, x: torch.Tensor, *,
+                mm: MatmulFn = fp_matmul, logits: bool = False
+                ) -> torch.Tensor:
+        """Generic functional forward over the graph (the numeric oracle).
+
+        Interprets the layer list with the same primitives as the
+        handwritten CNN forwards, routing every GEMM through ``mm``
+        (``models.cnn.make_crossbar_matmul(cfg)`` for the crossbar
+        model), the two *dynamic-operand* GEMMs inside attention
+        included: those pass ``mm`` the (batch x head) slice axis, so the
+        crossbar quantizes each slice with its own scale, as ``jax.vmap``
+        over ``mm`` does in the JAX package, and runs them all in one
+        ``crossbar_gemm`` call.  ``params`` and ``x`` share a device.
+        ``logits=True`` returns the last GEMM output (pre-softmax).
+
+        With the crossbar ``mm`` on the CPU this equals
+        ``CompiledModel.run(x, logits=True)`` on the same parameters bit
+        for bit (held for AlexNet, VGG-16, ResNet-18, vit_tiny and a
+        net with every CNN FB): both quantize, requantize and add the
+        bias in the same roundings, and compute the FB bodies with the
+        same plain PyTorch functions.  The JAX package gets that only
+        with both sides jitted.  On a GPU ``run``'s epilogues are the
+        ``fb_epilogue`` kernel, which agrees with those functions to the
+        tolerances its tests state.
+        """
+        bufs: dict[str, torch.Tensor] = {"input": x}
+        cur = "input"
+        last_gemm = cur
+        for l in self.layers:
+            if l.kind == "conv":
+                src = bufs[l.input_from or cur]
+                p = params[l.name]
+                y = conv2d(src, p["w"], p["b"], l.stride, l.padding, mm)
+                last_gemm = l.name
+            elif l.kind == "fc":
+                src = bufs[l.input_from or cur]
+                if src.dim() == 4:
+                    src = src.reshape(src.shape[0], -1)
+                p = params[l.name]
+                y = mm(src, p["w"], p["b"])
+                last_gemm = l.name
+            elif l.kind == "linear":
+                src = tokens(bufs[l.input_from or cur])
+                b, t, d = src.shape
+                p = params[l.name]
+                y = mm(src.reshape(b * t, d), p["w"], p["b"]).reshape(
+                    b, t, -1)
+                last_gemm = l.name
+            elif l.kind == "attention":
+                src = tokens(bufs[l.input_from or cur])
+                b, t, d = src.shape
+                p = params[l.name]
+                qkv = mm(src.reshape(b * t, d), p["wqkv"], p["bqkv"])
+                q, kk, v = split_qkv_heads(qkv.reshape(b, t, 3 * d),
+                                           l.heads)
+                scores = mm(q, kk.transpose(1, 2))
+                probs = softmax_rows(scores * attn_scale(d // l.heads))
+                ctx = merge_heads(mm(probs, v), l.heads)
+                y = mm(ctx.reshape(b * t, d), p["wo"], p["bo"]).reshape(
+                    b, t, d)
+                last_gemm = l.name
+            elif l.kind == "relu":
+                y = torch.relu(bufs[cur])
+            elif l.kind == "gelu":
+                y = gelu(bufs[cur])
+            elif l.kind == "layernorm":
+                p = params[l.name]
+                y = layer_norm_rows(tokens(bufs[cur]), p["g"], p["b"])
+            elif l.kind == "maxpool":
+                y = maxpool(bufs[cur], l.ksize, l.stride)
+            elif l.kind == "avgpool":
+                v = bufs[cur]
+                b, h, w_, c = v.shape
+                y = v.reshape(b, h // l.ksize, l.ksize,
+                              w_ // l.ksize, l.ksize, c).mean(dim=(2, 4))
+            elif l.kind == "seqpool":
+                y = tokens(bufs[cur]).mean(dim=1)
+            elif l.kind == "residual":
+                a = bufs[cur]
+                r = bufs[l.residual_from]
+                y = a + (tokens(r) if a.dim() == 3 else r)
+            elif l.kind == "softmax":
+                y = softmax_rows(bufs[cur])
+            else:
+                raise ValueError(f"{l.name}: unknown layer kind {l.kind!r}")
+            bufs[l.name] = y
+            cur = l.name
+        return bufs[last_gemm if logits else cur]
 
     @classmethod
     def from_layers(cls, layers, name: str = "custom") -> "NetworkGraph":

@@ -1,10 +1,12 @@
 """The front-door session object: ``api.compile(...) -> CompiledModel``.
 
-The port of ``repro.api.model``'s compile-and-run path::
+The port of ``repro.api.model``::
 
     model = api.compile("resnet18", HurryConfig())   # on the GPU
     probs = model.run(x)                              # x: (B, 32, 32, 3)
     logits = model.run(x, logits=True)
+    report = model.simulate("isaac-128")              # cycles/energy/area
+    model.save("model.npz"); m2 = api.load("model.npz")   # skip compile
     vit = api.compile("vit_tiny")                     # attention stages too
     tokens = api.compile(graph_with_input_seq_dim)    # x: (B, T, D)
 
@@ -13,52 +15,41 @@ and packs the weights once, on the model's device; ``run`` only
 quantizes activations and launches one ``crossbar_gemm`` and one
 ``fb_epilogue`` per stage, the attention stages' per-(batch, head)
 mounts included.  Batches pad up to the bucket ladder by edge
-replication (slice-exact).  The device is ``"cuda"`` unless the caller
-names another; without a GPU ``compile`` raises rather than carry on on
-the CPU.  ``simulate``/``save``/``load`` are not part of the port yet.
+replication (slice-exact).  ``simulate`` runs the analytical chip model
+on the same graph; ``save``/``load`` persist the packed planes in the
+JAX package's file format, so a file written by either package loads in
+the other.  The device is ``"cuda"`` unless the caller names another;
+without a GPU ``compile`` and ``load`` raise rather than carry on on the
+CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
+from repro_torch.core.baselines import (SimReport, simulate_isaac,
+                                        simulate_misca)
+from repro_torch.core.simulator import simulate_hurry
+from repro_torch.core.workload import SEQ_KINDS
 from repro_torch.program.compile import CrossbarProgram, compile_network
-from repro_torch.program.execute import execute_packed
 from repro_torch.program.pack import PackedProgram, pack_program
-from repro_torch.program.serve import BUCKETS, bucket_batch, pad_batch
+from repro_torch.program.serve import (BUCKETS, params_to, resolve_device,
+                                       run_bucketed)
 
 from .config import HurryConfig
 from .graph import NetworkBuilder, NetworkGraph
+from .serialize import load_model, save_model
 from .zoo import GRAPHS
 
-
-def _as_param(t, device: torch.device) -> torch.Tensor:
-    """A float32 tensor on ``device`` from a tensor or an array-like."""
-    if not isinstance(t, torch.Tensor):
-        t = torch.from_numpy(np.array(t, dtype=np.float32))
-    return t.to(device=device, dtype=torch.float32)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means ``"cuda"``.
-
-    Raises when a CUDA device is asked for and none is present: the
-    port never carries on on the CPU unless told to.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA GPU and none is available; pass "
-            "device='cpu' to run the plain PyTorch path on the CPU")
-    return dev
+SIM_ARCHS = ("hurry", "isaac-128", "isaac-256", "isaac-512", "misca")
 
 
 @dataclasses.dataclass
 class CompiledModel:
-    """A compiled + packed network, runnable on its device."""
+    """A compiled + packed network: runnable on its device, simulatable,
+    persistable."""
 
     graph: NetworkGraph
     config: HurryConfig
@@ -75,10 +66,8 @@ class CompiledModel:
         (softmax probabilities when the graph ends in softmax);
         ``logits=True`` returns the last GEMM output.
         """
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        b = x.shape[0]
-        x = pad_batch(x, bucket_batch(b, self.buckets))
-        return execute_packed(self.packed, x, return_logits=logits)[:b]
+        return run_bucketed(self.packed, x, device=self.device,
+                            buckets=self.buckets, return_logits=logits)
 
     def warmup(self, batch: int = 1, *, logits: bool = False,
                seq_len: int = 16) -> None:
@@ -90,6 +79,30 @@ class CompiledModel:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def simulate(self, arch: str = "hurry") -> SimReport:
+        """Cycle/energy/area report for this graph on ``arch``.
+
+        ``arch`` is one of ``SIM_ARCHS``: the HURRY chip this model was
+        compiled for, or an ISAAC/MISCA comparison chip sharing its
+        geometry.  Pure Python on the host; the device plays no part.
+        """
+        if arch not in SIM_ARCHS:
+            raise ValueError(f"unknown arch {arch!r}; one of {SIM_ARCHS}")
+        if any(l.kind in SEQ_KINDS for l in self.graph.layers):
+            raise ValueError(
+                f"{self.graph.name}: the analytical chip model does not "
+                "cover sequence workloads yet (dynamic-operand mounts "
+                "have no Algorithm 1/2 placement); numeric execution "
+                "via .run() is fully supported")
+        layers = list(self.graph.layers)
+        if arch == "hurry":
+            return simulate_hurry(layers, chip=self.config.chip(),
+                                  name=f"hurry/{self.graph.name}")
+        if arch == "misca":
+            return simulate_misca(layers, chip=self.config)
+        return simulate_isaac(layers, int(arch.split("-")[1]),
+                              chip=self.config)
+
     def summary(self) -> str:
         cfg = self.program.cfg
         return "\n".join([
@@ -99,6 +112,11 @@ class CompiledModel:
             f"{cfg.rows}x{cfg.cols} arrays / {cfg.adc_bits}-bit ADC"
             f"{' (clip-free)' if cfg.clip_free else ''}",
             self.program.summary()])
+
+    def save(self, path: str) -> str:
+        """Persist program + params + packed planes (``save_model``):
+        loading skips both compilation and weight quantization."""
+        return save_model(self, path)
 
 
 def compile(network, config: HurryConfig | None = None, *,
@@ -126,8 +144,13 @@ def compile(network, config: HurryConfig | None = None, *,
     program = compile_network(graph, config=config)
     if params is None:
         params = graph.init_params(torch.Generator().manual_seed(seed))
-    params = {k: {n: _as_param(t, dev) for n, t in p.items()}
-              for k, p in params.items()}
+    params = params_to(params, dev)
     return CompiledModel(graph=graph, config=config, program=program,
                          params=params, packed=pack_program(program, params),
                          device=dev, buckets=tuple(buckets or ()))
+
+
+def load(path: str, *, device=None) -> CompiledModel:
+    """Load a ``CompiledModel`` saved by ``save`` (by either package) onto
+    ``device`` (default ``"cuda"``): no compilation happens."""
+    return load_model(path, device=resolve_device(device))

@@ -4,9 +4,10 @@
 consumer reads (program compiler, FB request builder).  Networks are
 *authored* through ``repro_torch.api.NetworkBuilder`` (shape inference +
 build-time validation); the paper CNNs live in ``repro_torch.api.zoo``.
-A copy of ``repro.core.workload`` without its deprecated ``WORKLOADS``
-shim: the port imports nothing of the JAX package.  Shapes follow the
-common CIFAR-10 variants of AlexNet / VGG-16 / ResNet-18 used by PUMAsim-style
+A copy of ``repro.core.workload``: the port imports nothing of the JAX
+package.  The ``WORKLOADS`` registry is a deprecated compat shim over
+the zoo, as in the JAX package.  Shapes follow the common CIFAR-10
+variants of AlexNet / VGG-16 / ResNet-18 used by PUMAsim-style
 evaluations; BatchNorm is folded into the preceding conv for inference.
 
 Two layer vocabularies share this record:
@@ -26,6 +27,7 @@ Two layer vocabularies share this record:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Iterator
 
 # kinds that head a GEMM group (own weights / mounts on the array)
@@ -94,6 +96,44 @@ class LayerSpec:
             return (self.out_ch * self.out_hw * self.out_hw
                     or self.features_out)
         return self.features_out
+
+
+# -- the paper CNNs (compat shims over the repro_torch.api builder programs)
+# The graphs themselves are authored in ``repro_torch.api.zoo`` through
+# ``NetworkBuilder`` (imported lazily: api builds on top of core).
+
+def alexnet_cifar() -> list[LayerSpec]:
+    from repro_torch.api.zoo import alexnet_graph
+    return list(alexnet_graph().layers)
+
+
+def vgg16_cifar() -> list[LayerSpec]:
+    from repro_torch.api.zoo import vgg16_graph
+    return list(vgg16_graph().layers)
+
+
+def resnet18_cifar() -> list[LayerSpec]:
+    from repro_torch.api.zoo import resnet18_graph
+    return list(resnet18_graph().layers)
+
+
+class _WorkloadShim(dict):
+    """Deprecated registry: warns and forwards to ``repro_torch.api.zoo``."""
+
+    def __getitem__(self, net):
+        warnings.warn(
+            "core.workload.WORKLOADS is deprecated; author networks with "
+            "repro_torch.api.NetworkBuilder and use the repro_torch.api.zoo "
+            "registry (api.zoo.GRAPHS / api.compile(name)) instead",
+            DeprecationWarning, stacklevel=2)
+        return super().__getitem__(net)
+
+
+WORKLOADS = _WorkloadShim({
+    "alexnet": alexnet_cifar,
+    "vgg16": vgg16_cifar,
+    "resnet18": resnet18_cifar,
+})
 
 
 # canonical FB chain order inside one fused group (gemm implicit first):

@@ -551,3 +551,100 @@ def test_batched_crossbar_gemm_edge_shapes(cuda, adc_bits, rows):
         assert torch.equal(got[s], crossbar_gemm(x[s], w[s],
                                                  adc_bits=adc_bits,
                                                  rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# the rest of repro_torch.api on the card: the functional model, save/load,
+# the server, the graph oracle
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,adc_bits,K", [
+    (512, 9, 27), (512, 9, 1001), (256, 9, 777), (494, 8, 1001),
+    (255, 8, 300), (512, 8, 4860)])
+def test_crossbar_matmul_on_the_card_equals_the_cpu(cuda, rows, adc_bits, K):
+    """Noise-free 8-bit calls, leading dims and operands outside int8: one
+    crossbar_gemm launch each (2-D and sliced), equal to the CPU."""
+    from repro_torch.core.crossbar import CrossbarConfig, crossbar_matmul
+    rng = np.random.default_rng(K + rows)
+    x = torch.from_numpy(rng.integers(-300, 300, (2, 5, K), dtype=np.int32))
+    w = torch.from_numpy(rng.integers(-300, 300, (K, 19), dtype=np.int32))
+    x[0, :2] = -1
+    w[:, :5] = -1
+    cfg = CrossbarConfig(rows=rows, adc_bits=adc_bits)
+    before = crossbar_gemm.launches
+    got = crossbar_matmul(x.to(cuda), w.to(cuda), cfg)
+    assert crossbar_gemm.launches == before + 1
+    xs, ws = x[0][None].expand(3, -1, -1), w[None].expand(3, -1, -1)
+    got_s = crossbar_matmul(xs.to(cuda), ws.to(cuda), cfg)
+    assert crossbar_gemm.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), crossbar_matmul(x, w, cfg))
+    assert torch.equal(got_s.cpu(), crossbar_matmul(xs, ws, cfg))
+
+
+@pytest.mark.cuda
+def test_noisy_crossbar_matmul_runs_on_the_card(cuda):
+    """Read noise and other bit widths take the plain model on the card:
+    seeded draws repeat, no kernel launch."""
+    from repro_torch.core.crossbar import CrossbarConfig, crossbar_matmul
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(-128, 128, (8, 256),
+                                      dtype=np.int32)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (256, 32),
+                                      dtype=np.int32)).to(cuda)
+    cfg = CrossbarConfig(rows=256, noise_sigma_thermal=2.0)
+    before = crossbar_gemm.launches
+
+    def draw(seed):
+        return crossbar_matmul(x, w, cfg, torch.Generator(cuda).manual_seed(
+            seed))
+
+    a, b = draw(3), draw(3)
+    exact = (x.double() @ w.double()).to(torch.int32)
+    assert torch.equal(a, b) and not torch.equal(a, exact)
+    cfg4 = CrossbarConfig(input_bits=4, rows=300, adc_bits=8)
+    assert torch.equal(crossbar_matmul(x, w, cfg4).cpu(),
+                       crossbar_matmul(x.cpu(), w.cpu(), cfg4))
+    assert crossbar_gemm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["alexnet", "vit_tiny"])
+def test_save_load_and_server_on_the_card(cuda, net, tmp_path):
+    """A model saved on the card and loaded onto it, and a server on the
+    same weights, answer batch 5 as the in-memory model does."""
+    from repro_torch.program.serve import make_server
+    model = api.compile(net, api.HurryConfig(), seed=2, device="cuda")
+    loaded = api.load(model.save(str(tmp_path / "m.npz")), device="cuda")
+    server = make_server(model.graph, model.params, config=model.config,
+                         device="cuda")
+    x = torch.randn(model.program.input_shape(5), device=cuda)
+    want = model.run(x)
+    assert torch.equal(loaded.run(x), want)
+    assert torch.equal(server(x), want)
+    for a, b in zip(loaded.packed.stages, model.packed.stages):
+        assert (a.wt is None) == (b.wt is None)
+        assert a.wt is None or torch.equal(a.wt, b.wt)
+
+
+@pytest.mark.cuda
+def test_graph_forward_on_the_card(cuda):
+    """The crossbar oracle for AlexNet (ReLU / max pool only) on the card
+    equals the same call on the CPU, with one crossbar_gemm launch per
+    GEMM layer."""
+    from repro_torch.models.cnn import make_crossbar_matmul
+    graph = api.GRAPHS["alexnet"]()
+    params = graph.init_params(torch.Generator().manual_seed(1))
+    gparams = {k: {n: t.to(cuda) for n, t in p.items()}
+               for k, p in params.items()}
+    x = torch.randn(graph.input_shape(4), generator=torch.Generator()
+                    .manual_seed(2))
+    mm = make_crossbar_matmul(api.HurryConfig().crossbar())
+    before = crossbar_gemm.launches
+    got = graph.forward(gparams, x.to(cuda), mm=mm, logits=True)
+    n_gemm = sum(l.kind in ("conv", "fc") for l in graph.layers)
+    assert crossbar_gemm.launches == before + n_gemm
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), graph.forward(params, x, mm=mm,
+                                                logits=True))

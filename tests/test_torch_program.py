@@ -188,6 +188,8 @@ def test_static_stage_bit_exact_with_teacher_forcing(cfg_kw):
     ("alexnet", dict(adc_bits=8), True),         # sliced branch
     ("custom8", dict(), False),                  # avg pool before fc
     ("resnet18", dict(), False),                 # avg pool before fc
+    ("vgg16", dict(), True),                     # relu/maxpool chains
+    ("vgg16", dict(adc_bits=8), True),           # sliced branch
 ])
 def test_end_to_end_logits_against_jax(net, cfg_kw, exact):
     jm, tm, _ = _models(net, cfg_kw)
