@@ -128,7 +128,25 @@ each on standard output (the per-shape details go to standard error):
     row flips under the devices' ulp-level differences), its launches,
     and its time per batch beside ``run``'s;
 20. ``simulate``: ResNet-18's ``SimReport.summary()`` on every arch of
-    ``SIM_ARCHS`` (host only).
+    ``SIM_ARCHS`` (host only);
+21. the LM serving stack (``repro_torch.models.lm``, ``serve``), plain
+    PyTorch like the JAX package's plain ``jnp``: (a) all ten archs at
+    ``reduced()``, and Mixtral with its window cut to 8 decoding 24
+    steps through its ring buffer, on the card against the CPU on the
+    same float32 weights (forward, Whisper's ``encode`` and 16
+    teacher-forced ``decode_step``s within 1e-4 of max |logit|); (b)
+    Qwen3-8B at full width, depth 2, float32, batch 2 x 64, forward on
+    the card against the CPU to 1e-4; (c) Qwen3-8B at full width and
+    its 36 layers, float32 parameters: 128 teacher-forced decode steps
+    against the forward in float32 compute (argmax agreement > 0.95 and
+    correlation > 0.98, ``tests/test_archs_smoke.py``'s thresholds) and
+    in bfloat16 (correlation > 0.98, agreement printed); (d) the same model with bfloat16 parameters served:
+    ``make_prefill_step`` at batch 1 x 4096 (the chunked attention) and
+    ``greedy_generate`` at batch 8 (128-token prompt, 64 new tokens),
+    the prefill's and a decode step's times (``wall_ms``, median of 5)
+    and tokens/s beside their floors, with the device's busy time; (e)
+    ``quantize_kv`` on the card ``torch.equal`` to the CPU; (f) no
+    launch of any of the five kernels across the phase.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -1617,6 +1635,337 @@ def functional_phase(api, pairs: dict, rng) -> dict:
     return dict(branches=branches, noise=noise, forward=fwd)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the LM serving stack (repro_torch.models.lm, serve/) on the card
+# ---------------------------------------------------------------------------
+
+LM_TOL = 1e-4           # card against CPU, relative to max |logit|
+LM_STEPS = 16           # teacher-forced decode steps of (a)
+RING = dict(window=8, steps=24)           # Mixtral's ring buffer in (a)
+QWEN_DEPTH2 = dict(batch=2, seq=64)       # (b)
+QWEN_TEACHER = dict(batch=2, steps=128)   # (c)
+# (c): tests/test_archs_smoke.py's decode-against-forward thresholds
+QWEN_AGREE, QWEN_CORR = 0.95, 0.98
+QWEN_SERVE = dict(prefill=4096, batch=8, prompt=128, new=64)   # (d)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def lm_logits(cfg, params, tokens, frames, steps: int, compute):
+    """Forward logits, encoder states (or None) and the logits of ``steps``
+    teacher-forced ``decode_step``s over the same tokens."""
+    import torch
+    from repro_torch.models import lm
+    fwd = lm.forward(params, cfg, tokens, encoder_input=frames,
+                     compute_dtype=compute)
+    states = (None if frames is None
+              else lm.encode(params, cfg, frames, compute))
+    caches = lm.init_caches(cfg, tokens.shape[0], steps, dtype=compute,
+                            params=params)
+    outs = []
+    for i in range(steps):
+        lg, caches = lm.decode_step(params, cfg, tokens[:, i:i + 1], caches,
+                                    i, encoder_states=states,
+                                    compute_dtype=compute)
+        outs.append(lg)
+    return fwd, states, torch.cat(outs, 1)
+
+
+def _rel(got, ref) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def lm_reduced(dev) -> dict:
+    """(a): every arch at ``reduced()`` (and Mixtral with its window cut to
+    ``RING['window']``, decoded ``RING['steps']`` steps through the ring
+    buffer) on the card against the CPU on the same float32 weights."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import lm
+    cases = [(a, get_config(a).reduced(), LM_STEPS) for a in ARCH_IDS]
+    cases.append(("mixtral_8x22b ring", dataclasses.replace(
+        get_config("mixtral_8x22b").reduced(),
+        sliding_window=RING["window"]), RING["steps"]))
+    errs = {}
+    for i, (name, cfg, steps) in enumerate(cases):
+        gen = torch.Generator().manual_seed(i)
+        params = lm.init_params(cfg, gen, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen)
+        frames = (torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                              generator=gen) if cfg.is_encdec else None)
+        f32 = torch.float32
+        want = lm_logits(cfg, params, tokens, frames, steps, f32)
+        got = lm_logits(cfg, _tree(lambda t: t.to(dev), params),
+                        tokens.to(dev),
+                        None if frames is None else frames.to(dev), steps,
+                        f32)
+        e = {part: _rel(g, w) for part, g, w in
+             zip(("forward", "encode", "decode"), got, want)
+             if w is not None}
+        for part, g in zip(("forward", "encode", "decode"), got):
+            check(g is None or bool(torch.isfinite(g).all()),
+                  f"{name} {part}: non-finite on the card")
+        check(all(v <= LM_TOL for v in e.values()),
+              f"{name} card vs CPU {e} (limit {LM_TOL})")
+        errs[name] = e
+        detail(f"  21a {name}: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in e.items()))
+    return errs
+
+
+def _qwen(n_layers: int | None = None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3_8b")
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def qwen_depth2(dev) -> float:
+    """(b): Qwen3-8B at full width, depth 2, float32: forward logits on
+    the card against the CPU on the same weights."""
+    import torch
+    from repro_torch.models import lm
+    cfg = _qwen(2)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    b, s = QWEN_DEPTH2["batch"], QWEN_DEPTH2["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    got = lm.forward(params, cfg, tokens, compute_dtype=torch.float32)
+    got = got.cpu()
+    params = _tree(lambda t: t.cpu(), params)
+    want = lm.forward(params, cfg, tokens.cpu(), compute_dtype=torch.float32)
+    err = _rel(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= LM_TOL,
+          f"qwen3_8b depth 2 card vs CPU {err:.2e} (limit {LM_TOL})")
+    return err
+
+
+def _agreement(fwd, dec) -> tuple[float, float]:
+    import numpy as np
+    f, d = fwd.float().cpu(), dec.float().cpu()
+    agree = (f.argmax(-1) == d.argmax(-1)).float().mean().item()
+    corr = float(np.corrcoef(f.numpy().ravel(), d.numpy().ravel())[0, 1])
+    return agree, corr
+
+
+def qwen_full_f32(dev) -> dict:
+    """(c): Qwen3-8B at full width and depth, float32 parameters:
+    ``QWEN_TEACHER['steps']`` teacher-forced decode steps against the
+    forward on the same tokens, in bfloat16 compute (the default, as in
+    tests/test_archs_smoke.py) and in float32."""
+    import torch
+    from repro_torch.models import lm
+    cfg = _qwen()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    gb = sum(t.numel() * t.element_size()
+             for t in _tree_leaves(params)) / 1e9
+    b, s = QWEN_TEACHER["batch"], QWEN_TEACHER["steps"]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(dev).manual_seed(2))
+    out = {"gb": gb}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        t0 = time.perf_counter()
+        fwd, _, dec = lm_logits(cfg, params, tokens, None, s, dtype)
+        agree, corr = _agreement(fwd, dec)
+        out[name] = dict(agree=agree, corr=corr, rel=_rel(dec, fwd),
+                         finite=bool(torch.isfinite(dec).all()),
+                         s=time.perf_counter() - t0)
+        detail(f"  21c qwen3_8b 36 layers {name} compute: decode vs "
+               f"forward agreement {agree:.4f}, correlation {corr:.6f}, "
+               f"max rel {out[name]['rel']:.2e}, "
+               f"{out[name]['s']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_serve(dev) -> dict:
+    """(d): Qwen3-8B, full width and depth, bfloat16 parameters, served:
+    ``make_prefill_step`` at batch 1 over ``QWEN_SERVE['prefill']``
+    tokens (the chunked attention) and ``greedy_generate`` at batch 8
+    (128-token prompt, 64 new tokens), each timed by ``wall_ms`` beside
+    its floor worked out from the code's work."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.step import (greedy_generate, make_decode_step,
+                                        make_prefill_step)
+    cfg = _qwen()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            dtype=torch.bfloat16, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = list(_tree_leaves(params))
+    weight_b = sum(t.numel() * t.element_size() for t in leaves)
+    embed_b = params["embed"].numel() * params["embed"].element_size()
+    gen = torch.Generator(dev).manual_seed(3)
+    S = QWEN_SERVE["prefill"]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    prompt_long = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
+                                generator=gen)
+    prefill = make_prefill_step(cfg)
+    last = prefill(params, prompt_long)
+    check(last.shape == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()),
+          f"prefill logits {tuple(last.shape)} not finite")
+    prefill_ms = wall_ms(lambda: prefill(params, prompt_long), runs=5)
+    # every matrix parameter but the embedding table takes part in a
+    # product for each token; attention scores and P.V run over all S
+    # keys (mha_chunked computes each query chunk against every key)
+    mat_params = sum(t.numel() for t in leaves if t.ndim >= 2) \
+        - params["embed"].numel()
+    prefill_flop = 2 * S * mat_params + cfg.n_layers * 4 * h * S * S * hd
+    prefill_floor = max(prefill_flop / BF16_OPS_PER_S,
+                        (weight_b - embed_b) / HBM_BYTES_PER_S) * 1e3
+    prefill_busy, prefill_top = forward_profile(
+        lambda: prefill(params, prompt_long), runs=1)
+    del last
+
+    B, P, N = QWEN_SERVE["batch"], QWEN_SERVE["prompt"], QWEN_SERVE["new"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=gen, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_generate(cfg, params, prompt, N)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    check(out.shape == (B, P + N) and torch.equal(out[:, :P], prompt)
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"greedy_generate output {tuple(out.shape)} wrong")
+    # the first generated token against the prefill's argmax on the same
+    # prompt (bfloat16 on both paths: printed, not held)
+    first = prefill(params, prompt).argmax(-1)
+    first_agree = (first == out[:, P]).float().mean().item()
+    decode = make_decode_step(cfg)
+    caches = lm.init_caches(cfg, B, P + N, params=params)
+    tok = out[:, P:P + 1]
+    pos = torch.tensor(P, dtype=torch.int32, device=dev)
+    step_ms = wall_ms(lambda: decode(params, tok, caches, pos), runs=5)
+    step_busy, step_top = forward_profile(
+        lambda: decode(params, tok, caches, pos), runs=3)
+    cache_b = sum(t.numel() * t.element_size()
+                  for t in _tree_leaves(caches))
+    # a step reads every weight but the embedding table (B rows of it),
+    # reads the cache and writes its new copy
+    step_floor = (weight_b - embed_b + B * cfg.d_model * 2
+                  + 2 * cache_b) / HBM_BYTES_PER_S * 1e3
+    for name, top in (("prefill", prefill_top), ("decode step", step_top)):
+        for ms, n, kname in top:
+            detail(f"  21d {name}: {kname}: {ms:.3f} ms in {n} launches")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(weight_gb=weight_b / 1e9, prefill_ms=prefill_ms,
+                prefill_floor=prefill_floor, prefill_tflop=prefill_flop / 1e12,
+                prefill_busy=prefill_busy, generate_s=generate_s,
+                gen_steps=P + N - 1, step_ms=step_ms, step_floor=step_floor,
+                step_busy=step_busy, tok_s=B / step_ms * 1e3,
+                first_agree=first_agree,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def kv_quant_phase(dev) -> tuple:
+    """(e): ``quantize_kv`` on the card ``torch.equal`` to the CPU at the
+    served Qwen3-8B cache's shape (batch 8, 192 positions, 8 kv heads of
+    128), zero rows included."""
+    import torch
+    from repro_torch.serve.kv_quant import quantize_kv
+    x = torch.randn((8, 192, 8, 128),
+                    generator=torch.Generator().manual_seed(4)) * 3
+    x[0, :5] = 0
+    q, s = quantize_kv(x.to(dev))
+    q_ref, s_ref = quantize_kv(x)
+    same = torch.equal(q.cpu(), q_ref) and torch.equal(s.cpu(), s_ref)
+    check(same, "quantize_kv on the card differs from the CPU")
+    return tuple(x.shape), same
+
+
+def lm_phase(dev) -> dict:
+    """Phase 21: (a)-(e) above, with (f) the five kernel-launch counters
+    unchanged across the whole phase (the LM path is plain PyTorch)."""
+    import torch
+    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
+                                     flash_attention, fused_gemm_epilogue,
+                                     packed_gemm)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    out = dict(reduced=lm_reduced(dev), depth2=qwen_depth2(dev))
+    out["full"] = qwen_full_f32(dev)
+    out["serve"] = qwen_serve(dev)
+    out["kv_shape"], out["kv_equal"] = kv_quant_phase(dev)
+    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    check(not any(launched.values()),
+          f"the LM path launched kernels of repro_torch.kernels: {launched}")
+    # both thresholds held in float32 compute; in bfloat16 compute the
+    # correlation only: 152k random-init logits leave near-ties that
+    # bfloat16 rounding flips (agreement 0.9531 on an H100, one flip
+    # above 0.95; printed)
+    full = out["full"]
+    for name in ("bf16", "f32"):
+        f = full[name]
+        check(f["finite"] and f["corr"] > QWEN_CORR
+              and (name == "bf16" or f["agree"] > QWEN_AGREE),
+              f"qwen3_8b 36 layers {name} compute: decode vs forward "
+              f"agreement {f['agree']:.4f} (> {QWEN_AGREE}), correlation "
+              f"{f['corr']:.5f} (> {QWEN_CORR})")
+    out["launched"] = launched
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_line(lmp: dict, card: str) -> str:
+    """Phase 21's line on standard output."""
+    sv, full = lmp["serve"], lmp["full"]
+    busy = (lambda b, ms: "not measured" if b is None
+            else f"{b:.3f} ms busy, idle {1 - b / ms:.1%}")
+    return ("[21 LM serving] (a) ten archs at reduced() + mixtral ring buffer "
+            f"(window {RING['window']}, {RING['steps']} steps), card vs CPU "
+            "float32, max rel to max|logit| (forward/encode/decode): "
+            + ", ".join(f"{a} " + "/".join(f"{v:.1e}" for v in e.values())
+                        for a, e in lmp["reduced"].items())
+            + f" (limit {LM_TOL}); (b) qwen3_8b full width depth 2 float32 b"
+            f"{QWEN_DEPTH2['batch']}x{QWEN_DEPTH2['seq']} forward card vs CPU "
+            f"{lmp['depth2']:.2e}; (c) qwen3_8b 36 layers, float32 params "
+            f"{full['gb']:.1f} GB, {QWEN_TEACHER['steps']} teacher-forced "
+            "decode steps vs forward: " + ", ".join(
+                f"{n} compute agreement {full[n]['agree']:.4f} correlation "
+                f"{full[n]['corr']:.6f}" for n in ("bf16", "f32"))
+            + f" (held > {QWEN_AGREE} in f32 / > {QWEN_CORR} in both); "
+            "(d) bf16 params "
+            f"{sv['weight_gb']:.2f} GB: prefill b1x{QWEN_SERVE['prefill']} "
+            f"{sv['prefill_ms']:.2f} ms (floor {sv['prefill_floor']:.2f} ms = "
+            f"{sv['prefill_tflop']:.1f} TFLOP / bf16 peak; "
+            f"{busy(sv['prefill_busy'], sv['prefill_ms'])}), decode step b"
+            f"{QWEN_SERVE['batch']} {sv['step_ms']:.3f} ms (floor "
+            f"{sv['step_floor']:.3f} ms = bytes / HBM; "
+            f"{busy(sv['step_busy'], sv['step_ms'])}) = "
+            f"{sv['tok_s']:.1f} tok/s; greedy_generate "
+            f"b{QWEN_SERVE['batch']} prompt {QWEN_SERVE['prompt']} + {QWEN_SERVE['new']} new: "
+            f"{sv['generate_s']:.2f} s for {sv['gen_steps']} steps, first "
+            f"token = prefill argmax on {sv['first_agree']:.3f} of rows; peak "
+            f"{sv['peak_gb']:.1f} GB (host clock + synchronize, median of 5); "
+            f"(e) quantize_kv {lmp['kv_shape']} torch.equal to the CPU "
+            f"{lmp['kv_equal']}; (f) kernel launches from the LM path "
+            f"{lmp['launched']}; phase {lmp['s']:.1f} s | {card}")
+
+
 def kernel_times(label: str) -> int:
     """``--kernel-times``: the times of phases 7 and 15 that compare the
     redesigned kernels with another tree, for the ``repro_torch`` on
@@ -2116,6 +2465,9 @@ def main(argv: list[str] | None = None) -> int:
     log("[20 simulate] resnet18 on the host: " + "; ".join(
         f"{arch} " + ", ".join(f"{k} {v:.6g}" for k, v in r.items())
         for arch, r in sims.items()))
+
+    # -- 21. the LM serving stack ------------------------------------------
+    log(lm_line(lm_phase(dev), card))
     paths = [main_launches, vit["launches"], vgg["launches"],
              sl_["launches"], srv["launches"]]
     path_launches = {k: sum(p[k] for p in paths)

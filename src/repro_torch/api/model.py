@@ -33,10 +33,10 @@ from repro_torch.core.baselines import (SimReport, simulate_isaac,
                                         simulate_misca)
 from repro_torch.core.simulator import simulate_hurry
 from repro_torch.core.workload import SEQ_KINDS
+from repro_torch.device import resolve_device
 from repro_torch.program.compile import CrossbarProgram, compile_network
 from repro_torch.program.pack import PackedProgram, pack_program
-from repro_torch.program.serve import (BUCKETS, params_to, resolve_device,
-                                       run_bucketed)
+from repro_torch.program.serve import BUCKETS, params_to, run_bucketed
 
 from .config import HurryConfig
 from .graph import NetworkBuilder, NetworkGraph

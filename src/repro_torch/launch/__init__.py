@@ -1,0 +1,2 @@
+"""Command-line launchers of the port (``python -m
+repro_torch.launch.serve``)."""

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.simulator import ChipConfig
+from repro_torch.device import resolve_device
 
 from .compile import CrossbarProgram, compile_network
 from .execute import execute_packed
@@ -47,20 +48,6 @@ def pad_batch(x: torch.Tensor, bucket: int) -> torch.Tensor:
     if bucket == b:
         return x
     return torch.cat([x, x[-1:].expand(bucket - b, *x.shape[1:])])
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means ``"cuda"``.
-
-    Raises when a CUDA device is asked for and none is present: the
-    port never carries on on the CPU unless told to.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA GPU and none is available; pass "
-            "device='cpu' to run the plain PyTorch path on the CPU")
-    return dev
 
 
 def params_to(params: dict, device: torch.device) -> dict:

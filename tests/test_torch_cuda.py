@@ -648,3 +648,54 @@ def test_graph_forward_on_the_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), graph.forward(params, x, mm=mm,
                                                 logits=True))
+
+
+def _lm_logits(cfg, params, tokens, frames, steps):
+    """Float32 forward logits and ``steps`` teacher-forced decode steps'."""
+    from repro_torch.models import lm
+    f32 = torch.float32
+    fwd = lm.forward(params, cfg, tokens, encoder_input=frames,
+                     compute_dtype=f32)
+    states = None if frames is None else lm.encode(params, cfg, frames, f32)
+    caches = lm.init_caches(cfg, tokens.shape[0], steps, dtype=f32,
+                            params=params)
+    outs = []
+    for i in range(steps):
+        lg, caches = lm.decode_step(params, cfg, tokens[:, i:i + 1], caches,
+                                    i, encoder_states=states,
+                                    compute_dtype=f32)
+        outs.append(lg)
+    return fwd, torch.cat(outs, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_8b", "mixtral_8x22b", "zamba2_2_7b",
+                                  "xlstm_1_3b", "whisper_medium"])
+def test_lm_on_the_card_equals_the_cpu(cuda, arch):
+    """One reduced arch per family (dense, moe, hybrid, ssm, audio): the
+    float32 forward and 16 teacher-forced decode steps on the card within
+    1e-4 of max |logit| of the same weights on the CPU, and no kernel of
+    ``repro_torch.kernels`` launched (the LM path is plain PyTorch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(3)
+    params = lm.init_params(cfg, gen, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    frames = (torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
+              if cfg.is_encdec else None)
+    want = _lm_logits(cfg, params, tokens, frames, 16)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = [k.launches for k in kernels]
+    got = _lm_logits(cfg, _to(params, cuda), tokens.to(cuda),
+                     None if frames is None else frames.to(cuda), 16)
+    assert [k.launches for k in kernels] == before
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
