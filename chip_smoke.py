@@ -146,7 +146,32 @@ each on standard output (the per-shape details go to standard error):
     the prefill's and a decode step's times (``wall_ms``, median of 5)
     and tokens/s beside their floors, with the device's busy time; (e)
     ``quantize_kv`` on the card ``torch.equal`` to the CPU; (f) no
-    launch of any of the five kernels across the phase.
+    launch of any of the five kernels across the phase;
+22. the LM training path (``repro_torch.train``, ``data``,
+    ``launch.train``): (a) all ten archs at ``reduced()``, float32
+    weights, batch 2 x 16, on the card against the CPU: the float32-
+    compute loss within 1e-5 relative and every gradient leaf within 1e-4
+    of that leaf's max |grad|, and one ``make_train_step`` step (bfloat16
+    compute, remat) whose gradients correlate at 0.99 or more; (b)
+    InternLM2-1.8B at full width, depth 2, b1 x 256, loss and gradients
+    against the CPU at (a)'s tolerances, ``remat=True`` against
+    ``remat=False`` on the card to 1e-6 of max |grad| (``torch.equal``
+    printed), ``microbatches=2`` against 1 at b2 (correlation 0.99); (c)
+    InternLM2-1.8B at full width and its 24 layers, 1.89 B float32
+    parameters with AdamW state, trained 8 remat steps at b1 x 4096 from
+    ``TokenPipeline(seed=11)`` with ``OptimizerConfig(lr=1e-3)``: finite
+    losses, ``step == 8``, every leaf moved; each step's loss and
+    ``grad_norm``, the step time (host clock + synchronize, median of
+    the last 5), tokens/s and the floor worked out from the code
+    (``train_step_flop`` over the bf16 peak plus the optimizer's bytes
+    over HBM), peak memory, one step's device busy time, idle share and
+    largest kernels, the optimizer's time alone and one layer's attention
+    core (``mha_chunked`` as remat runs it) for its elementwise share;
+    (d) ``python -m repro_torch.launch.train --reduced`` 20 steps, then
+    relaunched to 30 in the same temporary directory (it resumes),
+    against a fresh 30-step run through ``main`` here, to 1e-4 of max
+    |param| (``torch.equal`` printed); (e) no launch of any of the five
+    kernels across (a)-(c) and (d)'s fresh run.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -269,13 +294,16 @@ def device_ms(fn, calls: int = TIMED_LAUNCHES, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def forward_profile(fn, runs: int = 3) -> tuple[float | None, list]:
+def forward_profile(fn, runs: int = 3, top: int | None = 8,
+                    name_chars: int = 60) -> tuple[float | None, list]:
     """(device-busy ms, top kernels) per call of a forward, or (None, [])
     when the profiler sees no device events.
 
     Busy time is the summed duration of the device's kernels and copies
     per call (profiler device events); a first short session warms the
-    profiler up.
+    profiler up.  The kernels are (ms, launches, name) per call, grouped
+    by the first ``name_chars`` characters of their names, the ``top``
+    largest by time (all of them when ``top`` is None).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -290,14 +318,14 @@ def forward_profile(fn, runs: int = 3) -> tuple[float | None, list]:
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = by_name.setdefault(e.name[:60], [0.0, 0])
+            t = by_name.setdefault(e.name[:name_chars], [0.0, 0])
             t[0] += e.time_range.elapsed_us() / 1e3 / runs
             t[1] += 1
     if not by_name:
         return None, []
     kernels = sorted(((ms, n // runs, name) for name, (ms, n)
                       in by_name.items()), reverse=True)
-    return sum(ms for ms, _, _ in kernels), kernels[:8]
+    return sum(ms for ms, _, _ in kernels), kernels[:top]
 
 
 def wall_ms(fn, runs: int = 10) -> float:
@@ -1727,10 +1755,11 @@ def lm_reduced(dev) -> dict:
     return errs
 
 
-def _qwen(n_layers: int | None = None):
+def _full(arch: str, n_layers: int | None = None):
+    """``arch``'s published config, its depth cut to ``n_layers``."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3_8b")
+    cfg = get_config(arch)
     return cfg if n_layers is None else dataclasses.replace(
         cfg, n_layers=n_layers)
 
@@ -1740,7 +1769,7 @@ def qwen_depth2(dev) -> float:
     the card against the CPU on the same weights."""
     import torch
     from repro_torch.models import lm
-    cfg = _qwen(2)
+    cfg = _full("qwen3_8b", 2)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
                             device=dev)
     b, s = QWEN_DEPTH2["batch"], QWEN_DEPTH2["seq"]
@@ -1771,7 +1800,7 @@ def qwen_full_f32(dev) -> dict:
     tests/test_archs_smoke.py) and in float32."""
     import torch
     from repro_torch.models import lm
-    cfg = _qwen()
+    cfg = _full("qwen3_8b")
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
                             device=dev)
     gb = sum(t.numel() * t.element_size()
@@ -1806,7 +1835,7 @@ def qwen_serve(dev) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve.step import (greedy_generate, make_decode_step,
                                         make_prefill_step)
-    cfg = _qwen()
+    cfg = _full("qwen3_8b")
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
                             dtype=torch.bfloat16, device=dev)
     torch.cuda.empty_cache()
@@ -1964,6 +1993,428 @@ def lm_line(lmp: dict, card: str) -> str:
             f"(e) quantize_kv {lmp['kv_shape']} torch.equal to the CPU "
             f"{lmp['kv_equal']}; (f) kernel launches from the LM path "
             f"{lmp['launched']}; phase {lmp['s']:.1f} s | {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the LM training path (repro_torch.train, data, launch.train)
+# ---------------------------------------------------------------------------
+
+# card against CPU in float32 compute: the loss relative, each gradient
+# leaf against that leaf's max |grad| (the CPU tests' tolerances against
+# JAX); bfloat16 compute by the gradients' correlation, as phase 21 holds
+# bfloat16 logits
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_BF16_CORR = 1e-5, 1e-4, 0.99
+REMAT_TOL = 1e-6        # remat against no remat on the card, of max |grad|
+TRAIN_DEPTH2 = dict(batch=1, seq=256)                       # (b)
+# (c): one device's share of configs/base.py's train_4k shape (4096
+# tokens, global batch 256 over a 16x16 mesh), with launch.train's seed
+# and learning rate
+TRAIN_FULL = dict(batch=1, seq=4096, steps=8, timed=5, seed=11, lr=1e-3)
+TRAIN_CLI = dict(first=20, total=30, every=10)             # (d)
+# (d): the resumed run's final parameters against a fresh run's, relative
+# to max |param|
+TRAIN_RESUME_TOL = 1e-4
+# GEMM kernels by name (cuBLAS / cuBLASLt / CUTLASS), the rest being the
+# elementwise, reduction and copy passes
+GEMM_NAMES = ("gemm", "Gemm", "nvjet", "xmma", "cutlass")
+
+
+def _is_gemm(name: str) -> bool:
+    return any(g in name for g in GEMM_NAMES)
+
+
+def _is_fill(name: str) -> bool:
+    """A kernel that writes a constant (``zeros``, ``fill_``) or a memset:
+    what indexing layer i of a stacked leaf costs per layer in the
+    backward pass."""
+    return "FillFunctor" in name or "Memset" in name
+
+
+def f32_value_and_grad(cfg, params, batch, remat: bool = False):
+    """The next-token cross entropy in float32 compute and its gradient
+    per leaf path (``torch.autograd``; zeros for an unread leaf)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train.step import cross_entropy
+    from repro_torch.tree import tree_from_items, tree_items
+    leaves = {k: v.detach().requires_grad_() for k, v in tree_items(params)}
+    logits = lm.forward(tree_from_items(params, leaves), cfg,
+                        batch["tokens"], encoder_input=batch.get("frames"),
+                        compute_dtype=torch.float32, remat=remat)
+    loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                         cfg.vocab_size)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), grads)}
+
+
+def _grad_gap(got: dict, want: dict) -> float:
+    """Largest leaf gap over that leaf's max |grad| (want's device)."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device).float()
+        scale = w.abs().max().item()
+        gap = (g - w.float()).abs().max().item()
+        worst = max(worst, gap / scale if scale else
+                    (0.0 if gap == 0 else math.inf))
+    return worst
+
+
+def _grad_corr(got: dict, want: dict) -> float:
+    """Correlation of two gradient trees, leaf sums in float64."""
+    tot = [0.0] * 5
+    n = 0
+    for k, w in want.items():
+        x = got[k].double()
+        y = w.to(x.device).double()
+        tot = [t + s.item() for t, s in zip(tot, (
+            x.sum(), y.sum(), (x * x).sum(), (y * y).sum(), (x * y).sum()))]
+        n += x.numel()
+    sx, sy, sxx, syy, sxy = tot
+    return (sxy - sx * sy / n) / math.sqrt((sxx - sx * sx / n)
+                                           * (syy - sy * sy / n))
+
+
+def train_reduced(dev) -> dict:
+    """(a): every arch at ``reduced()``, float32 weights, batch 2 x 16 on
+    the card against the CPU: float32-compute loss and gradients, and one
+    ``make_train_step`` step (bfloat16 compute, remat on)."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    from repro_torch.tree import tree_items
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator().manual_seed(22 + i)
+        params = lm.init_params(cfg, gen, device="cpu")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=gen, dtype=torch.int32)}
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                          generator=gen)
+        params_d = _tree(lambda t: t.to(dev), params)
+        batch_d = _tree(lambda t: t.to(dev), batch)
+        loss_c, grads_c = f32_value_and_grad(cfg, params, batch)
+        loss_d, grads_d = f32_value_and_grad(cfg, params_d, batch_d)
+        loss_rel = abs(loss_d.item() / loss_c.item() - 1)
+        grad_gap = _grad_gap(grads_d, grads_c)
+        step = make_train_step(cfg)
+        _, st_c, m_c = step(params, init_opt_state(params), batch)
+        _, st_d, m_d = step(params_d, init_opt_state(params_d), batch_d)
+        corr = _grad_corr(dict(tree_items(make_grad_fn(cfg)(
+            params_d, batch_d)[1])), dict(tree_items(make_grad_fn(cfg)(
+                params, batch)[1])))
+        r = dict(loss_rel=loss_rel, grad_gap=grad_gap, corr=corr,
+                 loss=(m_d["loss"].item(), m_c["loss"].item()),
+                 grad_norm=(m_d["grad_norm"].item(),
+                            m_c["grad_norm"].item()))
+        detail(f"  22a {arch}: f32 loss {loss_d.item():.6f} (CPU "
+               f"{loss_c.item():.6f}, rel {loss_rel:.1e}), worst gradient "
+               f"leaf {grad_gap:.1e} of its max; bf16 step loss "
+               f"{r['loss'][0]:.5f}/{r['loss'][1]:.5f} grad_norm "
+               f"{r['grad_norm'][0]:.5f}/{r['grad_norm'][1]:.5f} (card/CPU), "
+               f"gradient correlation {corr:.6f}")
+        check(math.isfinite(loss_d.item()) and loss_rel <= TRAIN_LOSS_TOL
+              and grad_gap <= TRAIN_GRAD_TOL,
+              f"{arch} float32 loss / gradients card vs CPU: loss rel "
+              f"{loss_rel:.2e} (limit {TRAIN_LOSS_TOL}), gradient "
+              f"{grad_gap:.2e} (limit {TRAIN_GRAD_TOL})")
+        check(corr >= TRAIN_BF16_CORR and int(st_d["step"]) == 1
+              and math.isfinite(r["loss"][0]),
+              f"{arch} bf16 train step card vs CPU: gradient correlation "
+              f"{corr:.5f} (limit {TRAIN_BF16_CORR})")
+        out[arch] = r
+    return out
+
+
+def train_depth2(dev) -> dict:
+    """(b): InternLM2-1.8B at full width, depth 2, float32: loss and
+    gradients on the card against the CPU at b1 x 256; remat against no
+    remat on the card; microbatches=2 against 1 at b2 (bfloat16)."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_grad_fn
+    from repro_torch.tree import tree_items
+    cfg = _full("internlm2_1_8b", 2)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    b, s = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"]
+    batch = TokenPipeline(cfg.vocab_size, b, s, seed=11,
+                          device=dev).batch_at(0)
+    loss_d, grads_d = f32_value_and_grad(cfg, params, batch)
+    loss_r, grads_r = f32_value_and_grad(cfg, params, batch, remat=True)
+    remat_gap = _grad_gap(grads_r, grads_d)
+    remat_equal = torch.equal(loss_r, loss_d) and all(
+        torch.equal(grads_r[k], grads_d[k]) for k in grads_d)
+    del grads_r
+    grads_d = _tree(lambda t: t.cpu(), grads_d)
+    params_c = _tree(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    loss_c, grads_c = f32_value_and_grad(
+        cfg, params_c, _tree(lambda t: t.cpu(), batch))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss_d.item() / loss_c.item() - 1)
+    grad_gap = _grad_gap(grads_d, grads_c)
+    del grads_c, grads_d, params_c
+    batch2 = TokenPipeline(cfg.vocab_size, 2, s, seed=11,
+                           device=dev).batch_at(0)
+    l1, g1 = make_grad_fn(cfg, 1, remat=False)(params, batch2)
+    l2, g2 = make_grad_fn(cfg, 2, remat=False)(params, batch2)
+    mb_corr = _grad_corr(dict(tree_items(g2)), dict(tree_items(g1)))
+    mb_loss_rel = abs(l2.item() / l1.item() - 1)
+    check(loss_rel <= TRAIN_LOSS_TOL and grad_gap <= TRAIN_GRAD_TOL,
+          f"internlm2 depth 2 float32 card vs CPU: loss rel {loss_rel:.2e} "
+          f"(limit {TRAIN_LOSS_TOL}), gradient {grad_gap:.2e} (limit "
+          f"{TRAIN_GRAD_TOL})")
+    check(remat_gap <= REMAT_TOL,
+          f"internlm2 depth 2 remat vs no remat: {remat_gap:.2e} (limit "
+          f"{REMAT_TOL})")
+    check(mb_corr >= TRAIN_BF16_CORR,
+          f"internlm2 depth 2 microbatches 2 vs 1: gradient correlation "
+          f"{mb_corr:.5f} (limit {TRAIN_BF16_CORR})")
+    del params, g1, g2
+    torch.cuda.empty_cache()
+    return dict(loss=loss_d.item(), loss_rel=loss_rel, grad_gap=grad_gap,
+                cpu_s=cpu_s, remat_gap=remat_gap, remat_equal=remat_equal,
+                mb_corr=mb_corr, mb_loss_rel=mb_loss_rel)
+
+
+def train_step_flop(cfg, params, tokens: int, seq: int) -> float:
+    """Operations of one remat train step of a dense model, worked out
+    from the code: each layer matrix and the head in a product per token
+    (forward, and twice that backward), the layers' products once more in
+    remat's recompute, and ``mha_chunked``'s scores and P.V over all
+    ``seq`` keys of every row (it computes each query chunk against every
+    key, masked after) in the forward, the recompute and twice backward."""
+    from repro_torch.tree import tree_items
+    layer_mat = sum(t.numel() for k, t in tree_items(params["blocks"])
+                    if t.ndim >= 3)
+    head = params.get("lm_head", params["embed"]).numel()
+    attn = cfg.n_layers * 4 * cfg.n_heads * cfg.resolved_head_dim \
+        * seq * tokens
+    return tokens * (6 * (layer_mat + head) + 2 * layer_mat) + 4 * attn
+
+
+def train_full(dev) -> dict:
+    """(c): InternLM2-1.8B at full width and its 24 layers, float32
+    parameters with AdamW state, ``TRAIN_FULL['steps']`` remat steps at
+    b1 x 4096 from ``TokenPipeline(seed=11)``, timed and profiled."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_items, tree_leaves
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _full("internlm2_1_8b")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    opt = init_opt_state(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    sums0 = {k: t.double().sum().item() for k, t in tree_items(params)}
+    b, s = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    pipe = TokenPipeline(cfg.vocab_size, b, s, seed=TRAIN_FULL["seed"],
+                         device=dev)
+    ocfg = OptimizerConfig(lr=TRAIN_FULL["lr"])
+    step = make_train_step(cfg, ocfg, remat=True)
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_FULL["steps"]):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        detail(f"  22c step {i + 1}: loss {losses[-1]:.5f} grad_norm "
+               f"{norms[-1]:.5f} {times[-1]:.1f} ms")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [k for k, t in tree_items(params)
+             if t.double().sum().item() != sums0[k]]
+    check(all(math.isfinite(x) for x in losses + norms)
+          and int(opt["step"]) == TRAIN_FULL["steps"]
+          and len(moved) == len(sums0),
+          f"internlm2 full training: losses {losses}, step "
+          f"{int(opt['step'])}, {len(moved)} of {len(sums0)} leaves moved")
+    step_ms = statistics.median(times[-TRAIN_FULL["timed"]:])
+    flop = train_step_flop(cfg, params, b * s, s)
+    state_b = 4 * n_params
+    opt_bytes = 7 * state_b      # read p, g, m, v; write p, m, v
+    floor = (flop / BF16_OPS_PER_S + opt_bytes / HBM_BYTES_PER_S) * 1e3
+    batch = pipe.batch_at(TRAIN_FULL["steps"])
+    busy, kernels = forward_profile(lambda: step(params, opt, batch),
+                                    runs=1, top=None, name_chars=400)
+    # the optimizer alone (the parameters stand in for the gradients: its
+    # time does not depend on their values)
+    opt_ms = wall_ms(lambda: adamw_update(ocfg, params, params, opt),
+                     runs=3)
+    # one layer's attention core as remat runs it: a forward, then the
+    # recomputed forward and its backward
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    qkv = [torch.randn((b, s, h, hd), device=dev, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(3)]
+    g_out = torch.randn((b, s, h, hd), device=dev, dtype=torch.bfloat16)
+
+    def attn_layer():
+        with torch.no_grad():
+            L.mha_chunked(*qkv, causal=True, window=cfg.sliding_window)
+        out = L.mha_chunked(*qkv, causal=True, window=cfg.sliding_window)
+        torch.autograd.grad(out, qkv, g_out)
+    _, attn_kernels = forward_profile(attn_layer, runs=1, top=None)
+    del params, opt, m, qkv
+    torch.cuda.empty_cache()
+    out = dict(losses=losses, norms=norms, step_ms=step_ms,
+               tok_s=b * s / step_ms * 1e3, floor=floor, tflop=flop / 1e12,
+               opt_gb=opt_bytes / 1e9, params_b=n_params / 1e9,
+               peak_gb=peak_gb, held_gb=held_gb, busy=busy, opt_ms=opt_ms,
+               opt_floor=opt_bytes / HBM_BYTES_PER_S * 1e3,
+               layers=cfg.n_layers)
+    if busy is not None:
+        gemm = sum(ms for ms, _, name in kernels if _is_gemm(name))
+        attn_elem = cfg.n_layers * sum(ms for ms, _, name in attn_kernels
+                                       if not _is_gemm(name))
+        out.update(gemm_ms=gemm, attn_elem_ms=attn_elem, top=kernels[:3],
+                   launches=sum(n for _, n, _ in kernels),
+                   fills=sum(n for _, n, name in kernels if _is_fill(name)))
+        for ms, n, name in kernels[:10]:
+            detail(f"  22c step profile: {name[:100]}: {ms:.3f} ms in {n} "
+                   "launches")
+    return out
+
+
+def train_cli(dev) -> dict:
+    """(d): ``python -m repro_torch.launch.train --reduced`` for
+    ``TRAIN_CLI['first']`` steps, then relaunched to ``['total']`` in the
+    same directory (it resumes), against a fresh ``['total']``-step run
+    through ``main(argv)`` in this process."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train as launch_train
+    args = ["--arch", "internlm2_1_8b", "--reduced", "--ckpt-every",
+            str(TRAIN_CLI["every"])]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed, fresh = os.path.join(tmp, "resumed"), os.path.join(tmp,
+                                                                   "fresh")
+        outs = []
+        t0 = time.perf_counter()
+        for steps in (TRAIN_CLI["first"], TRAIN_CLI["total"]):
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *args,
+                 "--steps", str(steps), "--ckpt-dir", resumed], env=env,
+                capture_output=True, text=True, timeout=600)
+            check(p.returncode == 0, f"launch.train --steps {steps} exited "
+                  f"{p.returncode}: {p.stderr[-2000:]}")
+            outs.append(p.stdout)
+        cli_s = time.perf_counter() - t0
+        check(f"[resume] step {TRAIN_CLI['first']}" in outs[1]
+              and "training complete" in outs[1],
+              f"the relaunch did not resume: {outs[1][-500:]}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launch_train.main([*args, "--steps", str(TRAIN_CLI["total"]),
+                               "--ckpt-dir", fresh])
+        for ln in outs[1].splitlines() + buf.getvalue().splitlines():
+            detail(f"  22d {ln}")
+        gap, equal = 0.0, True
+        for name in ("params", "opt_state"):
+            path = f"step_{TRAIN_CLI['total']}/{name}.npz"
+            with np.load(os.path.join(resumed, path)) as a, \
+                    np.load(os.path.join(fresh, path)) as f:
+                for k in f.files:
+                    equal &= bool(np.array_equal(a[k], f[k]))
+                    if name == "params":
+                        scale = float(np.abs(f[k]).max())
+                        gap = max(gap, float(np.abs(a[k] - f[k]).max())
+                                  / scale if scale else 0.0)
+    check(gap <= TRAIN_RESUME_TOL,
+          f"resumed launch.train vs a fresh run: {gap:.2e} of max |param| "
+          f"(limit {TRAIN_RESUME_TOL})")
+    return dict(gap=gap, equal=equal, cli_s=cli_s)
+
+
+def train_phase(dev) -> dict:
+    """Phase 22: (a)-(d) above, with (e) the five kernel-launch counters
+    unchanged across it (the training path is plain PyTorch)."""
+    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
+                                     flash_attention, fused_gemm_epilogue,
+                                     packed_gemm)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    out = dict(reduced=train_reduced(dev), depth2=train_depth2(dev),
+               full=train_full(dev), cli=train_cli(dev))
+    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    check(not any(launched.values()),
+          f"the training path launched kernels of repro_torch.kernels: "
+          f"{launched}")
+    out["launched"] = launched
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def train_line(tp: dict, card: str) -> str:
+    """Phase 22's line on standard output."""
+    d2, fu, cli = tp["depth2"], tp["full"], tp["cli"]
+    red = tp["reduced"]
+    if fu["busy"] is None:
+        prof = "device busy not measured (no profiler device events)"
+    else:
+        prof = (f"busy {fu['busy']:.1f} ms, idle "
+                f"{1 - fu['busy'] / fu['step_ms']:.1%}, {fu['launches']} "
+                f"launches ({fu['fills']} fill), GEMMs {fu['gemm_ms']:.1f} "
+                f"ms ({fu['gemm_ms'] / fu['busy']:.1%} of busy), attention's "
+                f"elementwise passes {fu['attn_elem_ms']:.1f} ms "
+                f"({fu['attn_elem_ms'] / fu['busy']:.1%} of busy); largest "
+                "kernels " + ", ".join(
+                    f"{name.removeprefix('void at::native::')[:64]} "
+                    f"{ms:.1f} ms in {n}" for ms, n, name in fu["top"]))
+    return ("[22 LM training] (a) ten archs at reduced(), b2x16, card vs "
+            "CPU: float32 loss rel / worst gradient leaf / bf16 step "
+            "gradient correlation: " + ", ".join(
+                f"{a} {r['loss_rel']:.0e}/{r['grad_gap']:.0e}/"
+                f"{r['corr']:.5f}" for a, r in red.items())
+            + f" (limits {TRAIN_LOSS_TOL}/{TRAIN_GRAD_TOL}/"
+            f"{TRAIN_BF16_CORR}); (b) internlm2_1_8b full width depth 2 "
+            f"float32 b{TRAIN_DEPTH2['batch']}x{TRAIN_DEPTH2['seq']}: card vs "
+            f"CPU loss rel {d2['loss_rel']:.1e}, gradient "
+            f"{d2['grad_gap']:.1e}; remat vs none {d2['remat_gap']:.1e} "
+            f"(torch.equal {d2['remat_equal']}); microbatches 2 vs 1 at b2 "
+            f"bf16: gradient correlation {d2['mb_corr']:.6f}, loss rel "
+            f"{d2['mb_loss_rel']:.1e}; (c) internlm2_1_8b {fu['layers']} "
+            "layers, "
+            f"{fu['params_b']:.3f} B float32 params + AdamW, remat, b"
+            f"{TRAIN_FULL['batch']}x{TRAIN_FULL['seq']}, "
+            f"{TRAIN_FULL['steps']} steps: loss "
+            + "/".join(f"{x:.4f}" for x in fu["losses"])
+            + ", grad_norm " + "/".join(f"{x:.3f}" for x in fu["norms"])
+            + f"; step {fu['step_ms']:.1f} ms (host clock + synchronize, "
+            f"median of the last {TRAIN_FULL['timed']}) = "
+            f"{fu['tok_s']:.0f} tokens/s; floor {fu['floor']:.1f} ms "
+            f"({fu['tflop']:.1f} TFLOP at the bf16 peak + the optimizer's "
+            f"{fu['opt_gb']:.1f} GB over HBM); {prof}; optimizer alone "
+            f"{fu['opt_ms']:.1f} ms ({fu['opt_ms'] / fu['step_ms']:.1%} of "
+            f"the step; floor {fu['opt_floor']:.1f} ms); peak "
+            f"{fu['peak_gb']:.1f} GB ({fu['held_gb']:.1f} GB held before); "
+            f"(d) launch.train --reduced {TRAIN_CLI['first']} steps + resume "
+            f"to {TRAIN_CLI['total']} ({cli['cli_s']:.1f} s) vs a fresh "
+            f"{TRAIN_CLI['total']}-step run: {cli['gap']:.1e} of max |param| "
+            f"(limit {TRAIN_RESUME_TOL}), torch.equal {cli['equal']}; (e) "
+            f"kernel launches from the training path {tp['launched']}; phase "
+            f"{tp['s']:.1f} s | {card}")
 
 
 def kernel_times(label: str) -> int:
@@ -2468,6 +2919,8 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 21. the LM serving stack ------------------------------------------
     log(lm_line(lm_phase(dev), card))
+    # -- 22. the LM training path ------------------------------------------
+    log(train_line(train_phase(dev), card))
     paths = [main_launches, vit["launches"], vgg["launches"],
              sl_["launches"], srv["launches"]]
     path_launches = {k: sum(p[k] for p in paths)

@@ -8,7 +8,9 @@ port's dict, so both packages compute on the same weights.
 
 The LM stack's pytree (``repro.models.lm.init_params``) nests deeper and
 stacks per-layer weights on leading axes; ``tree_from_jax`` carries any
-such nesting across as it is.
+such nesting across as it is, and so also carries the training state:
+``repro.train.optimizer.init_opt_state``'s tree (float32 ``m`` / ``v``,
+a 0-d int32 ``step`` that stays int32).
 """
 
 from __future__ import annotations

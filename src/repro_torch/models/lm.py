@@ -17,32 +17,50 @@ Families:
   audio (whisper)        — encoder (full attn over stubbed frame
                            embeddings) + decoder (causal self + cross)
 
-Serving only: the JAX package's ``remat`` (rematerialisation for the
-backward pass) belongs with training and is not taken here.
+Training differentiates ``forward`` with ``torch.autograd``.  Its
+``remat=True`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``) where the JAX package wraps the same block
+bodies in ``jax.checkpoint``; the loops take the stacked weights apart
+with one ``unbind`` per leaf, whose backward pass is one ``stack``.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 from . import layers as L
 
 
-def _tree_map(fn, tree):
+def _unstack(tree) -> list:
+    """The per-layer trees of a tree stacked on a leading axis.
+
+    One ``unbind`` per leaf: its backward pass stacks the layers'
+    gradients once, where indexing layer ``i`` (``t[i]``) would write a
+    zero tensor of the whole stack and add into it for every layer.
+    """
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a tree stacked on a leading axis."""
-    return _tree_map(lambda t: t[i], tree)
+def _remat(body, remat: bool):
+    """``body``, recomputed in the backward pass when ``remat`` (the JAX
+    package's ``jax.checkpoint``); the bodies draw no random numbers."""
+    if not remat:
+        return body
+    return partial(checkpoint, body, use_reentrant=False,
+                   preserve_rng_state=False)
 
 
 def _stack(trees: list):
@@ -141,8 +159,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         raise ValueError(f"unknown family {fam}")
 
-    return _tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
-                     else t, params)
+    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
+                    else t, params)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +189,8 @@ def _decoder_block(blk, x, positions, cfg, kv_cache=None, cross=None):
 
 
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-           compute_dtype=torch.bfloat16) -> torch.Tensor:
+           compute_dtype=torch.bfloat16,
+           remat: bool = False) -> torch.Tensor:
     """Whisper encoder: stubbed frame embeddings -> encoder states.
 
     Serving computes this once at prefill; ``decode_step`` consumes the
@@ -181,16 +200,19 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     enc_pos = torch.arange(enc.shape[1], device=enc.device)[None] \
         .expand(enc.shape[:2])
     enc = enc + _sinusoidal(enc_pos, cfg.d_model, compute_dtype)
-    for i in range(cfg.encoder_layers):
-        blk = _layer(params["enc_blocks"], i)
+
+    def enc_body(ec, blk):
         h, _ = L.attention(blk["attn"],
-                           L.apply_norm(enc, blk["ln1"], cfg.norm,
+                           L.apply_norm(ec, blk["ln1"], cfg.norm,
                                         cfg.norm_eps),
                            enc_pos, cfg, causal=False)
-        enc = enc + h
-        enc = enc + L.mlp(blk["mlp"],
-                          L.apply_norm(enc, blk["ln2"], cfg.norm,
+        ec = ec + h
+        return ec + L.mlp(blk["mlp"],
+                          L.apply_norm(ec, blk["ln2"], cfg.norm,
                                        cfg.norm_eps), cfg.act)
+    enc_body = _remat(enc_body, remat)
+    for blk in _unstack(params["enc_blocks"]):
+        enc = enc_body(enc, blk)
     return L.apply_norm(enc, params["enc_norm"], cfg.norm, cfg.norm_eps)
 
 
@@ -213,8 +235,15 @@ def _logits(params, cfg, x):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             encoder_input: Optional[torch.Tensor] = None,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, padded_vocab)."""
+            compute_dtype=torch.bfloat16,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, padded_vocab).
+
+    ``remat`` recomputes, in the backward pass, the bodies the JAX
+    package wraps in ``jax.checkpoint``: every decoder block, the Mamba2
+    and mLSTM bodies (not the shared attention block or the sLSTM), and
+    Whisper's encoder and decoder blocks.  The logits do not change.
+    """
     b, s = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     if positions is None:
@@ -227,26 +256,29 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
-        for i in range(cfg.n_layers):
-            x, _ = _decoder_block(_layer(params["blocks"], i), x, positions,
-                                  cfg)
+        body = _remat(lambda xc, blk: _decoder_block(blk, xc, positions,
+                                                     cfg)[0], remat)
+        for blk in _unstack(params["blocks"]):
+            x = body(x, blk)
     elif fam == "hybrid":
-        for gi in range(cfg.n_layers // cfg.shared_attn_every):
-            grp = _layer(params["groups"], gi)
-            for li in range(cfg.shared_attn_every):
-                lp = _layer(grp, li)
-                x = x + L.mamba2(lp["mamba"],
-                                 L.apply_norm(x, lp["ln"], cfg.norm,
+        def mamba_body(xi, lp):
+            return xi + L.mamba2(lp["mamba"],
+                                 L.apply_norm(xi, lp["ln"], cfg.norm,
                                               cfg.norm_eps), cfg)
+        mamba_body = _remat(mamba_body, remat)
+        for grp in _unstack(params["groups"]):
+            for lp in _unstack(grp):
+                x = mamba_body(x, lp)
             x, _ = _decoder_block(params["shared"], x, positions, cfg)
     elif fam == "ssm":
-        for gi in range(cfg.n_layers // cfg.xlstm_slstm_every):
-            grp = _layer(params["groups"], gi)
-            for li in range(cfg.xlstm_slstm_every - 1):
-                lp = _layer(grp["mlstm"], li)
-                x = x + L.mlstm(lp["cell"],
-                                L.apply_norm(x, lp["ln"], cfg.norm,
+        def ml_body(xi, lp):
+            return xi + L.mlstm(lp["cell"],
+                                L.apply_norm(xi, lp["ln"], cfg.norm,
                                              cfg.norm_eps), cfg)
+        ml_body = _remat(ml_body, remat)
+        for grp in _unstack(params["groups"]):
+            for lp in _unstack(grp["mlstm"]):
+                x = ml_body(x, lp)
             sl = grp["slstm"]
             x = x + L.slstm(sl["cell"],
                             L.apply_norm(x, sl["ln"], cfg.norm,
@@ -255,11 +287,17 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if encoder_input is None:
             raise ValueError("whisper needs frame embeddings "
                              "(encoder_input)")
-        enc = encode(params, cfg, encoder_input, compute_dtype)
-        for i in range(cfg.n_layers):
-            blk = _layer(params["dec_blocks"], i)
-            x, _ = _decoder_block(blk, x, positions, cfg,
-                                  cross=_cross_kv(blk, enc, b, cfg, x.dtype))
+        enc = encode(params, cfg, encoder_input, compute_dtype, remat)
+
+        def dec_body(xc, blk):
+            # this block's cross K/V from the encoder states, inside the
+            # rematerialised body as in the JAX package
+            return _decoder_block(blk, xc, positions, cfg,
+                                  cross=_cross_kv(blk, enc, b, cfg,
+                                                  xc.dtype))[0]
+        dec_body = _remat(dec_body, remat)
+        for blk in _unstack(params["dec_blocks"]):
+            x = dec_body(x, blk)
     else:
         raise ValueError(fam)
     return _logits(params, cfg, x)
@@ -284,7 +322,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
     def kv(n):
         c = L.init_kv_cache(batch, max_len, cfg, dtype, device=dev)
-        return _tree_map(lambda t: t.expand((n,) + t.shape).clone(), c)
+        return tree_map(lambda t: t.expand((n,) + t.shape).clone(), c)
 
     if fam in ("dense", "moe", "vlm"):
         return {"kv": kv(cfg.n_layers)}
@@ -309,7 +347,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         ml = {"C": torch.zeros(lead + (hd, hd), device=dev),
               "n": torch.zeros(lead + (hd,), device=dev),
               "m": torch.full(lead, -30.0, device=dev)}
-        sl = _tree_map(lambda t: t.expand((n_groups,) + t.shape).clone(),
+        sl = tree_map(lambda t: t.expand((n_groups,) + t.shape).clone(),
                        L.init_slstm_state(batch, cfg.d_model, dtype,
                                           device=dev))
         return {"mlstm": ml, "slstm": sl}
@@ -341,51 +379,45 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         new_kv = []
-        for i in range(cfg.n_layers):
-            x, nc = _decoder_block(_layer(params["blocks"], i), x, positions,
-                                   cfg, kv_cache=_layer(caches["kv"], i))
+        for blk, kv in zip(_unstack(params["blocks"]),
+                           _unstack(caches["kv"])):
+            x, nc = _decoder_block(blk, x, positions, cfg, kv_cache=kv)
             new_kv.append(nc)
         new_caches = {"kv": _stack(new_kv)}
     elif fam == "hybrid":
         shared = params["shared"]
         new_mamba, new_kv = [], []
-        for gi in range(cfg.n_layers // cfg.shared_attn_every):
-            grp = _layer(params["groups"], gi)
-            mamba_c = _layer(caches["mamba"], gi)
+        for grp, mamba_c, kv in zip(_unstack(params["groups"]),
+                                    _unstack(caches["mamba"]),
+                                    _unstack(caches["kv"])):
             states = []
-            for li in range(cfg.shared_attn_every):
-                lp = _layer(grp, li)
+            for lp, st in zip(_unstack(grp), _unstack(mamba_c)):
                 h, nst = L.mamba2_step(
                     lp["mamba"], L.apply_norm(x, lp["ln"], cfg.norm,
-                                              cfg.norm_eps),
-                    _layer(mamba_c, li), cfg)
+                                              cfg.norm_eps), st, cfg)
                 x = x + h
                 states.append(nst)
             new_mamba.append(_stack(states))
-            x, nc = _decoder_block(shared, x, positions, cfg,
-                                   kv_cache=_layer(caches["kv"], gi))
+            x, nc = _decoder_block(shared, x, positions, cfg, kv_cache=kv)
             new_kv.append(nc)
         new_caches = {"mamba": _stack(new_mamba), "kv": _stack(new_kv)}
     elif fam == "ssm":
         new_ml, new_sl = [], []
-        for gi in range(cfg.n_layers // cfg.xlstm_slstm_every):
-            grp = _layer(params["groups"], gi)
-            ml_c = _layer(caches["mlstm"], gi)
+        for grp, ml_c, sl_c in zip(_unstack(params["groups"]),
+                                   _unstack(caches["mlstm"]),
+                                   _unstack(caches["slstm"])):
             states = []
-            for li in range(cfg.xlstm_slstm_every - 1):
-                lp = _layer(grp["mlstm"], li)
+            for lp, st in zip(_unstack(grp["mlstm"]), _unstack(ml_c)):
                 h, nst = L.mlstm_step(
                     lp["cell"], L.apply_norm(x, lp["ln"], cfg.norm,
-                                             cfg.norm_eps),
-                    _layer(ml_c, li), cfg)
+                                             cfg.norm_eps), st, cfg)
                 x = x + h
                 states.append(nst)
             new_ml.append(_stack(states))
             sl = grp["slstm"]
             h, nsl = L.slstm_step(
                 sl["cell"], L.apply_norm(x, sl["ln"], cfg.norm,
-                                         cfg.norm_eps),
-                _layer(caches["slstm"], gi), cfg)
+                                         cfg.norm_eps), sl_c, cfg)
             x = x + h
             new_sl.append(nsl)
         new_caches = {"mlstm": _stack(new_ml), "slstm": _stack(new_sl)}
@@ -394,10 +426,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             raise ValueError("whisper decode needs encoder_states "
                              "(lm.encode of the frames)")
         new_kv = []
-        for i in range(cfg.n_layers):
-            blk = _layer(params["dec_blocks"], i)
+        for blk, kv in zip(_unstack(params["dec_blocks"]),
+                           _unstack(caches["kv"])):
             x, nc = _decoder_block(
-                blk, x, positions, cfg, kv_cache=_layer(caches["kv"], i),
+                blk, x, positions, cfg, kv_cache=kv,
                 cross=_cross_kv(blk, encoder_states, b, cfg, x.dtype))
             new_kv.append(nc)
         new_caches = {"kv": _stack(new_kv)}

@@ -699,3 +699,64 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _f32_value_and_grad(cfg, params, batch):
+    """Float32-compute next-token loss and its gradient per leaf path."""
+    from repro_torch.models import lm
+    from repro_torch.train.step import cross_entropy
+    from repro_torch.tree import tree_from_items, tree_items
+    leaves = {k: v.detach().requires_grad_() for k, v in tree_items(params)}
+    logits = lm.forward(tree_from_items(params, leaves), cfg,
+                        batch["tokens"], encoder_input=batch.get("frames"),
+                        compute_dtype=torch.float32)
+    loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                         cfg.vocab_size)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return loss.item(), {k: (torch.zeros_like(v) if g is None else g).cpu()
+                         for (k, v), g in zip(leaves.items(), grads)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mixtral_8x22b",
+                                  "zamba2_2_7b", "xlstm_1_3b",
+                                  "whisper_medium"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One reduced arch per family, as ``chip_smoke.py`` phase 22 (a):
+    float32-compute loss within 1e-5 relative and every gradient leaf
+    within 1e-4 of that leaf's max |grad| of the CPU's on the same
+    weights; one ``make_train_step`` step (bfloat16 compute, remat) whose
+    gradients correlate with the CPU's at 0.99 or more; no kernel of
+    ``repro_torch.kernels`` launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    from repro_torch.tree import tree_items
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(5)
+    params = lm.init_params(cfg, gen, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = [k.launches for k in kernels]
+    params_d, batch_d = _to(params, cuda), _to(batch, cuda)
+    loss_c, grads_c = _f32_value_and_grad(cfg, params, batch)
+    loss_d, grads_d = _f32_value_and_grad(cfg, params_d, batch_d)
+    assert abs(loss_d / loss_c - 1) <= 1e-5
+    for k, w in grads_c.items():
+        assert (grads_d[k] - w).abs().max() <= 1e-4 * w.abs().max(), k
+    _, state, m = make_train_step(cfg)(params_d, init_opt_state(params_d),
+                                       batch_d)
+    assert int(state["step"]) == 1 and torch.isfinite(m["loss"])
+    x = torch.cat([g.flatten().double().cpu() for _, g in
+                   tree_items(make_grad_fn(cfg)(params_d, batch_d)[1])])
+    y = torch.cat([g.flatten().double() for _, g in
+                   tree_items(make_grad_fn(cfg)(params, batch)[1])])
+    assert torch.corrcoef(torch.stack([x, y]))[0, 1] >= 0.99
+    assert [k.launches for k in kernels] == before
