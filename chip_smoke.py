@@ -171,7 +171,28 @@ each on standard output (the per-shape details go to standard error):
     relaunched to 30 in the same temporary directory (it resumes),
     against a fresh 30-step run through ``main`` here, to 1e-4 of max
     |param| (``torch.equal`` printed); (e) no launch of any of the five
-    kernels across (a)-(c) and (d)'s fresh run.
+    kernels across (a)-(c) and (d)'s fresh run;
+23. the LM framework's sharding (``repro_torch.sharding``) and mesh
+    dry-run (``launch.{mesh,cost,dryrun,roofline}``): (a) a 1-rank NCCL
+    group and ``make_local_mesh("cuda")``, Qwen3-8B at full width and
+    depth 2 as DTensors under the active rules: the bfloat16 prefill at
+    b2 x 64 against the plain path (1e-4 of max |logit|; ``torch.equal``
+    printed) and 16 float32 decode steps through the sequence-sharded
+    flash decode against the plain decode (2e-4 of max |logit|, the first
+    layer's cache ``torch.equal``, both layers' within 2e-4 of max),
+    InternLM2-1.8B at depth 2, b1 x 256: float32 loss and gradients at
+    phase 22's tolerances and one bfloat16 ``make_train_step`` step's
+    parameters against the plain path; (b) ``python -m
+    repro_torch.launch.dryrun --arch qwen3_8b`` at full size for
+    ``train_4k``, ``decode_32k`` and ``--multi-pod train_4k`` on the fake
+    256- and 512-rank worlds, in three processes at once, each ``ok``,
+    their JSON lines, seconds and roofline table (data-sheet constants: a
+    model of an H100 cluster); (c) ``launch.cost.Counter`` under
+    ``FakeTensorMode`` over InternLM2-1.8B's remat train step and
+    Qwen3-8B's prefill at b1 x 4096, within 5% of phases 22 (c)'s and 21
+    (d)'s hand counts, their roofline times printed beside the measured
+    step and prefill; no launch of any of the five kernels across (a) and
+    (c).
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -2417,6 +2438,313 @@ def train_line(tp: dict, card: str) -> str:
             f"{tp['s']:.1f} s | {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the LM framework's sharding (repro_torch.sharding, the
+# sequence-sharded decode) and the mesh dry-run (repro_torch.launch.{mesh,
+# cost,dryrun,roofline})
+# ---------------------------------------------------------------------------
+
+SHARD_PREFILL = dict(batch=2, seq=64)       # (a): phase 21 (b)'s cell
+SHARD_DECODE = dict(batch=2, steps=16, cache=64)
+SHARD_SEQ_TOL = 2e-4    # seq-sharded decode vs plain, of max |logit|
+SHARD_PREFILL_TOL = 1e-4
+# (b): the three full-size dry-run cells, traced concurrently
+DRYRUN_CELLS = (("train_4k", False), ("decode_32k", False),
+                ("train_4k", True))
+DRYRUN_TIMEOUT = 600
+# (c): the hand counts of phases 21 (d) and 22 (c), and their measured times
+COUNT_TOL = 0.05
+MEASURED_MS = dict(train=806.7, prefill=455.14)    # PERF.md §5
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _full_tensors(tree):
+    return _tree(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                 else t, tree)
+
+
+def shard_mesh_phase(dev) -> dict:
+    """(a): a 1-rank NCCL group and ``make_local_mesh("cuda")``; Qwen3-8B
+    at full width, depth 2, as DTensors under the active rules: the
+    bfloat16 prefill against the plain path, 16 float32 decode steps
+    through the sequence-sharded branch against the plain decode;
+    InternLM2-1.8B at depth 2, b1 x 256: the float32 loss and gradients
+    and one bfloat16 ``make_train_step`` step against the plain path."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.rules import ShardingRules, distribute
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_train_step
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_local_mesh("cuda")
+        cfg = _full("qwen3_8b", 2)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        rules = ShardingRules(cfg, model_size=1, data_size=1)
+        rules.mesh = mesh
+        dparams = distribute(params, rules.param_specs(params), mesh)
+        b, s = SHARD_PREFILL["batch"], SHARD_PREFILL["seq"]
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+        dtok = distribute(tokens, rules.tokens_spec(b), mesh)
+        prefill = make_prefill_step(cfg)
+        want = prefill(params, tokens)
+        with shctx.use_rules(rules):
+            got = prefill(dparams, dtok).full_tensor()
+        out["prefill_equal"] = torch.equal(got, want)
+        out["prefill_gap"] = _rel(got, want)
+        check(bool(torch.isfinite(got).all())
+              and out["prefill_gap"] <= SHARD_PREFILL_TOL,
+              f"qwen3_8b depth 2 prefill under the mesh vs plain: "
+              f"{out['prefill_gap']:.2e} (limit {SHARD_PREFILL_TOL})")
+
+        f32 = torch.float32
+        B, n = SHARD_DECODE["batch"], SHARD_DECODE["steps"]
+        caches = lm.init_caches(cfg, B, SHARD_DECODE["cache"], dtype=f32,
+                                params=params)
+        dcaches = distribute(caches, rules.cache_specs(caches, B), mesh)
+        worst, seqsharded = 0.0, True
+        for i in range(n):
+            tok = tokens[:B, i:i + 1]
+            lw, caches = lm.decode_step(params, cfg, tok, caches, i,
+                                        compute_dtype=f32)
+            with shctx.use_rules(rules):
+                lg, dcaches = lm.decode_step(dparams, cfg, dtok[:B, i:i + 1],
+                                             dcaches, i, compute_dtype=f32)
+            worst = max(worst, _rel(lg.full_tensor(), lw))
+            seqsharded &= type(dcaches["kv"]["k"]).__name__ == "DTensor"
+        # the first layer's cache is written from the same embedding rows:
+        # equal; the second's from activations that carry the first
+        # layer's ulps (held to the logits' tolerance, of max |k|, |v|)
+        full = _full_tensors(dcaches)
+        cache_equal = all(torch.equal(full["kv"][k][0], caches["kv"][k][0])
+                          for k in ("k", "v"))
+        cache_gap = max(_rel(full["kv"][k], caches["kv"][k])
+                        for k in ("k", "v"))
+        out.update(decode_gap=worst, cache_equal=cache_equal,
+                   cache_gap=cache_gap)
+        check(seqsharded and worst <= SHARD_SEQ_TOL and cache_equal
+              and cache_gap <= SHARD_SEQ_TOL,
+              f"qwen3_8b depth 2 sequence-sharded decode vs plain: "
+              f"{worst:.2e} (limit {SHARD_SEQ_TOL}), first layer's cache "
+              f"equal {cache_equal}, caches {cache_gap:.2e}")
+        del params, dparams, caches, dcaches
+        torch.cuda.empty_cache()
+
+        cfg = _full("internlm2_1_8b", 2)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        rules = ShardingRules(cfg, model_size=1, data_size=1)
+        rules.mesh = mesh
+        dparams = distribute(params, rules.param_specs(params), mesh)
+        b, s = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"]
+        batch = TokenPipeline(cfg.vocab_size, b, s, seed=11,
+                              device=dev).batch_at(0)
+        dbatch = {"tokens": distribute(batch["tokens"],
+                                       rules.tokens_spec(b), mesh)}
+        loss, grads = f32_value_and_grad(cfg, params, batch)
+        with shctx.use_rules(rules):
+            dloss, dgrads = f32_value_and_grad(cfg, dparams, dbatch)
+        out["loss_rel"] = abs(dloss.full_tensor().item() / loss.item() - 1)
+        out["grad_gap"] = _grad_gap(_full_tensors(dgrads), grads)
+        del grads, dgrads
+        step = make_train_step(cfg, remat=True)
+        opt = init_opt_state(params)
+        new, _, m = step(params, opt, batch)
+        with shctx.use_rules(rules):
+            dnew, _, dm = step(dparams, init_opt_state(dparams), dbatch)
+        dnew = _full_tensors(dnew)
+        out["step_loss_equal"] = torch.equal(
+            _full_tensors({"l": dm["loss"]})["l"], m["loss"])
+        out["step_param_gap"] = max(
+            ((dnew[k] - new[k]).abs().max() / new[k].abs().max()).item()
+            for k in ("embed", "lm_head"))
+        check(out["loss_rel"] <= TRAIN_LOSS_TOL
+              and out["grad_gap"] <= TRAIN_GRAD_TOL
+              and out["step_param_gap"] <= TRAIN_GRAD_TOL,
+              f"internlm2 depth 2 under the mesh vs plain: loss rel "
+              f"{out['loss_rel']:.2e} (limit {TRAIN_LOSS_TOL}), gradient "
+              f"{out['grad_gap']:.2e} (limit {TRAIN_GRAD_TOL}), step's "
+              f"parameters {out['step_param_gap']:.2e}")
+        del params, dparams, new, dnew, opt
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase() -> dict:
+    """(b): ``python -m repro_torch.launch.dryrun`` for Qwen3-8B's
+    ``DRYRUN_CELLS`` at full size on the fake 256- and 512-rank worlds,
+    three processes at once; each cell's JSON line and seconds."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(cell):
+        shape, multi_pod = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "qwen3_8b", "--shape", shape] + (["--multi-pod"]
+                                                if multi_pod else [])
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, text=True,
+                                  capture_output=True,
+                                  timeout=DRYRUN_TIMEOUT)
+            code, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            code, stdout, stderr = "timeout", e.stdout or "", e.stderr or ""
+        return cell, code, stdout, stderr, time.perf_counter() - t0
+
+    cells = []
+    with ThreadPoolExecutor(len(DRYRUN_CELLS)) as pool:
+        for (shape, multi_pod), code, stdout, stderr, secs in pool.map(
+                run, DRYRUN_CELLS):
+            lines = [ln for ln in str(stdout).splitlines()
+                     if ln.startswith("{")]
+            rec = json.loads(lines[-1]) if lines else {}
+            detail(f"  23b {shape}{' multi-pod' if multi_pod else ''}: "
+                   f"exit {code}, {secs:.1f} s; {str(stderr)[-1500:]}")
+            check(code == 0 and rec.get("status") == "ok",
+                  f"dry-run qwen3_8b {shape} multi_pod={multi_pod}: exit "
+                  f"{code}, {rec or str(stderr)[-800:]}")
+            cells.append(dict(rec, seconds=secs))
+    return {"cells": cells}
+
+
+def count_phase() -> dict:
+    """(c): ``launch.cost.Counter`` under ``FakeTensorMode`` (no card
+    memory) over InternLM2-1.8B's remat train step at b1 x 4096 and
+    Qwen3-8B's bfloat16 prefill at b1 x 4096, against the hand counts of
+    phases 22 (c) (``train_step_flop``) and 21 (d)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import cost
+    from repro_torch.models import lm
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    out = {}
+    with FakeTensorMode():
+        cfg = _full("internlm2_1_8b")
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cuda")
+        tokens = torch.zeros((1, 4096), dtype=torch.int32, device="cuda")
+        step = make_train_step(cfg, OptimizerConfig(lr=1e-3), remat=True)
+        opt = init_opt_state(params)
+        t0 = time.perf_counter()
+        with cost.Counter() as c:
+            c.track((params, opt))
+            step(params, opt, {"tokens": tokens})
+        hand = train_step_flop(cfg, params, 4096, 4096)
+        out["train"] = dict(flops=c.flops, hand=hand, s=time.perf_counter()
+                            - t0, roof=c.roofline().as_dict())
+        del params, opt
+
+        cfg = _full("qwen3_8b")
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                dtype=torch.bfloat16, device="cuda")
+        S = QWEN_SERVE["prefill"]
+        mat = sum(t.numel() for t in _tree_leaves(params) if t.ndim >= 2) \
+            - params["embed"].numel()
+        hand = 2 * S * mat + cfg.n_layers * 4 * cfg.n_heads * S * S \
+            * cfg.resolved_head_dim
+        t0 = time.perf_counter()
+        with cost.Counter() as c:
+            c.track(params)
+            make_prefill_step(cfg)(params, tokens[:, :S])
+        out["prefill"] = dict(flops=c.flops, hand=hand,
+                              s=time.perf_counter() - t0,
+                              roof=c.roofline().as_dict())
+    for name, r in out.items():
+        check(abs(r["flops"] / r["hand"] - 1) <= COUNT_TOL,
+              f"counted {name} flops {r['flops']:.4e} vs hand count "
+              f"{r['hand']:.4e} (limit {COUNT_TOL:.0%})")
+    return out
+
+
+def shard_phase(dev) -> dict:
+    """Phase 23: (a)-(c) above, with the five kernel-launch counters
+    unchanged across (a) and (c) (the sharded paths are plain PyTorch)."""
+    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
+                                     flash_attention, fused_gemm_epilogue,
+                                     packed_gemm)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    out = dict(mesh=shard_mesh_phase(dev))
+    out["mesh_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["dryrun"] = dryrun_phase()
+    out["dryrun_s"] = time.perf_counter() - t1
+    out["count"] = count_phase()
+    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    check(not any(launched.values()),
+          f"the sharded paths launched kernels of repro_torch.kernels: "
+          f"{launched}")
+    out["launched"] = launched
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def shard_line(sp: dict, card: str) -> str:
+    """Phase 23's line on standard output (the dry-run's roofline terms
+    come from data-sheet constants: a model of an H100 cluster)."""
+    from repro_torch.launch import roofline
+    m, cnt = sp["mesh"], sp["count"]
+    for rec in sp["dryrun"]["cells"]:
+        log("[23 dry-run] " + json.dumps(
+            {k: v for k, v in rec.items() if k != "roofline"}))
+    for mp_ in (False, True):
+        rows = [r for r in sp["dryrun"]["cells"]
+                if r["cell"].endswith("multipod") == mp_]
+        for ln in roofline.fmt_table(rows).splitlines():
+            log(f"[23 roofline {'multi' if mp_ else 'single'}-pod, "
+                f"data-sheet model] {ln}")
+    cells = "; ".join(
+        f"{r['cell']} {r['status']} trace {r['trace_s']} s (process "
+        f"{r['seconds']:.1f} s), peak "
+        f"{r['memory']['peak_bytes_per_device'] / 1e9:.2f} GB/device, "
+        f"useful {r['useful_flops_ratio']:.3f}, bound "
+        f"{r['roofline']['bottleneck']}" for r in sp["dryrun"]["cells"])
+    counts = "; ".join(
+        f"{name} counted {r['flops'] / 1e12:.2f} TFLOP vs hand "
+        f"{r['hand'] / 1e12:.2f} ({r['flops'] / r['hand'] - 1:+.2%}, "
+        f"limit {COUNT_TOL:.0%}; {r['s']:.1f} s), data-sheet roofline "
+        f"compute {r['roof']['compute_s'] * 1e3:.1f} ms / memory "
+        f"{r['roof']['memory_s'] * 1e3:.1f} ms beside the measured "
+        f"{MEASURED_MS[name]} ms" for name, r in cnt.items())
+    return ("[23 LM sharding] (a) 1-rank NCCL mesh: qwen3_8b depth 2 bf16 "
+            f"prefill b{SHARD_PREFILL['batch']}x{SHARD_PREFILL['seq']} vs "
+            f"plain {m['prefill_gap']:.2e} (torch.equal "
+            f"{m['prefill_equal']}); {SHARD_DECODE['steps']} sequence-"
+            f"sharded float32 decode steps vs plain {m['decode_gap']:.2e} "
+            f"(limit {SHARD_SEQ_TOL}), first layer's cache torch.equal "
+            f"{m['cache_equal']}, both layers' {m['cache_gap']:.1e} of max; "
+            "internlm2 depth 2 b"
+            f"{TRAIN_DEPTH2['batch']}x{TRAIN_DEPTH2['seq']} float32 loss rel "
+            f"{m['loss_rel']:.1e} gradient {m['grad_gap']:.1e}, bf16 step "
+            f"loss torch.equal {m['step_loss_equal']} parameters "
+            f"{m['step_param_gap']:.1e} ({sp['mesh_s']:.1f} s); (b) "
+            f"dry-run {cells} ({sp['dryrun_s']:.1f} s); (c) {counts}; "
+            f"kernel launches {sp['launched']}; phase {sp['s']:.1f} s | "
+            f"{card}")
+
+
 def kernel_times(label: str) -> int:
     """``--kernel-times``: the times of phases 7 and 15 that compare the
     redesigned kernels with another tree, for the ``repro_torch`` on
@@ -2921,6 +3249,8 @@ def main(argv: list[str] | None = None) -> int:
     log(lm_line(lm_phase(dev), card))
     # -- 22. the LM training path ------------------------------------------
     log(train_line(train_phase(dev), card))
+    # -- 23. the LM sharding and the mesh dry-run ---------------------------
+    log(shard_line(shard_phase(dev), card))
     paths = [main_launches, vit["launches"], vgg["launches"],
              sl_["launches"], srv["launches"]]
     path_launches = {k: sum(p[k] for p in paths)

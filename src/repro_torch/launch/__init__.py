@@ -1,2 +1,3 @@
 """Command-line launchers of the port (``python -m
-repro_torch.launch.serve``, ``python -m repro_torch.launch.train``)."""
+repro_torch.launch.serve``, ``.train``, ``.dryrun``, ``.roofline``), the
+production meshes (``mesh``) and the per-device cost counter (``cost``)."""

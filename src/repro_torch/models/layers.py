@@ -22,9 +22,12 @@ names.  Conventions:
 
 The matrix products are plain ``torch.matmul`` / ``einsum``, as the JAX
 layers are plain ``jnp``: no kernel of ``repro_torch.kernels`` is on this
-path.  The sequence-sharded flash decode of the JAX package needs a
-device mesh and is not here; without a mesh the JAX package's sharding
-constraints are no-ops, so the port has none.
+path.  Under a device mesh the parameters and activations are DTensors:
+the layers constrain activations where the JAX package does
+(``sharding.context``'s ``constrain_*``, which return their input itself
+when no rules are active), and a one-token decode step over a cache whose
+sequence is sharded on the ``"model"`` axis runs the sequence-sharded
+flash decode (``_flash_decode_seqsharded``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import context as shctx
 
 
 def _normal(gen: torch.Generator, shape: tuple, scale: float,
@@ -190,8 +194,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool, window: int = 0, chunk: int = 512
-                ) -> torch.Tensor:
+                causal: bool, window: int = 0, chunk: int = 512,
+                q_offset: int = 0) -> torch.Tensor:
     """Memory-bounded attention: a loop over query chunks (the JAX
     package's ``lax.scan``).
 
@@ -199,6 +203,8 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sliding window: each query chunk slices the static band
     k[ci*chunk - window : ci*chunk + chunk], clipped into the sequence,
     so compute and memory drop from O(S) to O(window + chunk) per chunk.
+    ``q_offset`` is the absolute position of q[0] (a rank's block of a
+    sequence-sharded q; the band needs the whole sequence, ``sq == sk``).
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -213,7 +219,7 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for ci in range(nq):
         qc = q[:, ci * chunk:(ci + 1) * chunk]
-        qpos = ci * chunk + ar[:chunk]
+        qpos = q_offset + ci * chunk + ar[:chunk]
         if banded:
             start = min(max(ci * chunk - window, 0), sk - band)
             kc, vc = k[:, start:start + band], v[:, start:start + band]
@@ -233,6 +239,46 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 _CHUNK_THRESHOLD = 2048
 
 
+def _on_shards(core, q, k, v):
+    """``core(q, k, v, q_offset)``, the attention core, on each rank's own
+    blocks when ``q`` is a DTensor, else on the tensors themselves.
+
+    Attention is independent per (batch row, head), and per query row
+    given every key: each rank attends its block of q (batch, heads, or
+    the sequence where ``constrain_heads`` shards q on it) to k and v
+    redistributed to the same batch and head blocks and every key row.
+    DTensor's einsum cannot run this itself: it merges (batch, heads)
+    into one bmm dim, which has no sharding strategy while heads are
+    sharded inside it.
+    """
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          distribute_tensor)
+    if not isinstance(q, DTensor):
+        return core(q, k, v, 0)
+    mesh = q.device_mesh
+    h = q.shape[2]
+    kv_pl = tuple(pl if pl.is_shard() and pl.dim in (0, 2) else Replicate()
+                  for pl in q.placements)
+    # ranks holding other query rows take other gradients of the same keys
+    kv_grad = tuple(Partial() if pl.is_shard(1) else kv
+                    for pl, kv in zip(q.placements, kv_pl))
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = distribute_tensor(t, mesh, kv_pl)
+        if t.shape[2] != h:       # GQA: a rank's q heads need their groups
+            t = _expand_kv(shctx.unshard(t, 2), h)
+        return t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+
+    q_offset = 0
+    for i, pl in enumerate(q.placements):
+        if pl.is_shard(1):
+            q_offset = mesh.get_local_rank(i) * (q.shape[1]
+                                                 // mesh.size(i))
+    out = core(q.to_local(), local(k), local(v), q_offset)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
 def dynamic_update_slice(buf: torch.Tensor, upd: torch.Tensor,
                          start: torch.Tensor) -> torch.Tensor:
     """``jax.lax.dynamic_update_slice`` along axis 1: a new tensor, with
@@ -242,6 +288,79 @@ def dynamic_update_slice(buf: torch.Tensor, upd: torch.Tensor,
                         0, buf.shape[1] - s)
     rows = start.long() + torch.arange(s, device=buf.device)
     return buf.index_copy(1, rows, upd)
+
+
+def _flash_decode_seqsharded(q, cache_k, cache_v, k_new, v_new, idx,
+                             cfg, rules):
+    """Sequence-sharded flash decode.
+
+    The KV cache's seq dim is sharded on "model" (``rules.mesh``): instead
+    of gathering the cache, each model shard updates its own slice (only
+    where the index lands in it) and computes partial (m, l, o) softmax
+    statistics over its keys; the shards combine them with all-reduces
+    over the "model" group (MAX of m, SUM of l·α and o·α) — the
+    distributed form of the paper's Eq. 1 max-stabilized softmax.  The
+    port of the JAX package's ``shard_map`` body: each rank computes on
+    its local blocks (``to_local``) and wraps the results back as
+    DTensors.  The index stays a tensor (no host sync).
+    """
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.sharding.rules import P, placements
+
+    mesh = rules.mesh
+    b, _, h, hd = q.shape
+    S = cache_k.shape[1]
+    hkv = cache_k.shape[2]
+    shard = S // rules.model_size
+    bsh = rules._bshard(b)
+    qspec = P(bsh, None, None, None)
+    kvspec = P(bsh, "model", None, None)
+
+    def local(t, spec):
+        pl = placements(spec, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, pl).to_local()
+        return distribute_tensor(t, mesh, pl).to_local()
+
+    q_l, kn, vn = (local(t, qspec) for t in (q, k_new, v_new))
+    k_l, v_l = local(cache_k, kvspec), local(cache_v, kvspec)
+    idx_l = local(idx, P())
+    group = mesh.get_group("model")
+    lo = mesh.get_local_rank("model") * shard
+    slot = idx_l - lo
+    in_range = (slot >= 0) & (slot < shard)
+    cl = torch.clamp(slot, 0, shard - 1)
+    k_l = torch.where(in_range, dynamic_update_slice(
+        k_l, kn.to(k_l.dtype), cl), k_l)
+    v_l = torch.where(in_range, dynamic_update_slice(
+        v_l, vn.to(v_l.dtype), cl), v_l)
+
+    kk, vv = k_l.to(q_l.dtype), v_l.to(q_l.dtype)
+    if hkv != h:
+        kk = _expand_kv(kk, h)
+        vv = _expand_kv(vv, h)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_l, kk) / math.sqrt(hd)
+    valid = (lo + torch.arange(shard, device=q_l.device)) < (idx_l + 1)
+    scores = torch.where(valid[None, None, None, :], scores, -1e30)
+    m = scores.amax(-1)                                        # (b,h,1)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(-1)                                              # (b,h,1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)
+    # distributed Eq. 1 combine
+    m_g = funcol.all_reduce(m, "max", group)
+    alpha = torch.exp(m - m_g)
+    l_g = funcol.all_reduce(l * alpha, "sum", group)
+    o_g = funcol.all_reduce(
+        o * alpha.transpose(1, 2)[..., None].to(o.dtype), "sum", group)
+    out = o_g / l_g.clamp_min(1e-30).transpose(1, 2)[..., None].to(o.dtype)
+
+    def wrap(t, spec):
+        return DTensor.from_local(t, mesh, placements(spec, mesh),
+                                  run_check=False)
+    return (wrap(out.to(q_l.dtype), qspec), wrap(k_l, kvspec),
+            wrap(v_l, kvspec))
 
 
 def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -257,10 +376,13 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     """
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    q = shctx.constrain_heads(
+        (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd), role="q")
     if cross_kv is None:
-        k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd)
-        v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd)
+        k = shctx.constrain_heads(
+            (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd), role="kv")
+        v = shctx.constrain_heads(
+            (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd), role="kv")
     else:
         k, v = cross_kv
     if "q_norm" in p:
@@ -274,30 +396,44 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     new_cache = None
     if kv_cache is not None:
         idx = kv_cache["index"]
+        rules = shctx.get()
         S_cache = kv_cache["k"].shape[1]
-        # a sliding-window cache is a ring buffer over the window
-        slot = idx % S_cache if cfg.sliding_window > 0 else idx
-        ck = dynamic_update_slice(kv_cache["k"],
-                                  k.to(kv_cache["k"].dtype), slot)
-        cv = dynamic_update_slice(kv_cache["v"],
-                                  v.to(kv_cache["v"].dtype), slot)
-        new_cache = {"k": ck, "v": cv, "index": idx + s}
-        k, v = ck.to(x.dtype), cv.to(x.dtype)
-        kpos_valid = (torch.arange(S_cache, device=x.device)
-                      < torch.clamp(idx + s, max=S_cache))
-        out = _decode_mha(q, k, v, kpos_valid, hd, h, hkv)
+        use_seqsharded = (
+            s == 1 and rules is not None
+            and getattr(rules, "mesh", None) is not None
+            and cfg.sliding_window == 0
+            and S_cache % rules.model_size == 0)
+        if use_seqsharded:
+            out, ck, cv = _flash_decode_seqsharded(
+                q, kv_cache["k"], kv_cache["v"], k, v, idx, cfg, rules)
+            new_cache = {"k": ck, "v": cv, "index": idx + s}
+        else:
+            # a sliding-window cache is a ring buffer over the window
+            slot = idx % S_cache if cfg.sliding_window > 0 else idx
+            ck = dynamic_update_slice(kv_cache["k"],
+                                      k.to(kv_cache["k"].dtype), slot)
+            cv = dynamic_update_slice(kv_cache["v"],
+                                      v.to(kv_cache["v"].dtype), slot)
+            new_cache = {"k": ck, "v": cv, "index": idx + s}
+            k, v = ck.to(x.dtype), cv.to(x.dtype)
+            kpos_valid = (torch.arange(S_cache, device=x.device)
+                          < torch.clamp(idx + s, max=S_cache))
+            if hasattr(kpos_valid, "to_local"):    # replicated: its value
+                kpos_valid = kpos_valid.to_local()
+            out = _on_shards(lambda q_, k_, v_, _: _decode_mha(
+                q_, k_, v_, kpos_valid, hd, q_.shape[2], k_.shape[2]),
+                q, k, v)
     else:
         if hkv != h:
-            k = _expand_kv(k, h)
-            v = _expand_kv(v, h)
-        if max(s, k.shape[1]) > _CHUNK_THRESHOLD:
-            out = mha_chunked(q, k, v, causal=causal and cross_kv is None,
-                              window=cfg.sliding_window)
-        else:
-            out = mha(q, k, v, causal=causal and cross_kv is None,
-                      window=cfg.sliding_window)
-    out = out.reshape(b, s, h * hd)
-    return out @ p["wo"].to(x.dtype), new_cache
+            k = shctx.constrain_heads(_expand_kv(k, h), role="kv")
+            v = shctx.constrain_heads(_expand_kv(v, h), role="kv")
+        attend = mha_chunked if max(s, k.shape[1]) > _CHUNK_THRESHOLD \
+            else mha
+        out = _on_shards(lambda q_, k_, v_, off: attend(
+            q_, k_, v_, causal=causal and cross_kv is None,
+            window=cfg.sliding_window, q_offset=off), q, k, v)
+    out = shctx.constrain_heads(out, role="q").reshape(b, s, h * hd)
+    return shctx.constrain_resid(out @ p["wo"].to(x.dtype)), new_cache
 
 
 def _decode_mha(q, k, v, kvalid, hd, h, hkv):
@@ -347,9 +483,9 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *, device=None,
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g = _act(act)(x @ p["w_gate"].to(x.dtype))
-    u = x @ p["w_up"].to(x.dtype)
-    return (g * u) @ p["w_down"].to(x.dtype)
+    g = shctx.constrain_ff(_act(act)(x @ p["w_gate"].to(x.dtype)))
+    u = shctx.constrain_ff(x @ p["w_up"].to(x.dtype))
+    return shctx.constrain_resid((g * u) @ p["w_down"].to(x.dtype))
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -364,6 +500,51 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     }
 
 
+def _rowwise(fn, *ts):
+    """``fn(*ts)`` on each rank's batch rows when ``ts[0]`` is a DTensor,
+    else on the tensors themselves.
+
+    For computations independent per batch row that DTensor has no
+    strategy for (the MoE dispatch's sort, ``searchsorted``, scatter and
+    ``index_add``): every DTensor argument is redistributed to the batch
+    sharding of ``ts[0]`` and replicated otherwise, and every output
+    (leading batch dim) comes back as a DTensor of that sharding.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    mesh = ts[0].device_mesh
+    pl = tuple(q if q.is_shard(0) else Replicate()
+               for q in ts[0].placements)
+    outs = fn(*(t.redistribute(mesh, pl).to_local()
+                if isinstance(t, DTensor) else t for t in ts))
+    wrap = lambda t: DTensor.from_local(t, mesh, pl, run_check=False)
+    return tuple(map(wrap, outs)) if isinstance(outs, tuple) else wrap(outs)
+
+
+def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, E, C, K) x (E, K, N) -> (B, E, C, N), one product per expert.
+
+    ``einsum`` on plain tensors; on DTensors the broadcasting ``matmul``
+    (the same products), since the backward of DTensor's einsum here
+    fails a view on its local blocks."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return torch.matmul(x, w)
+    return torch.einsum("beck,ekn->becn", x, w)
+
+
+def _log_sigmoid(x):
+    """``F.logsigmoid``; on a DTensor, on each rank's block (DTensor has no
+    strategy for it), a partial sum reduced first."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    x = shctx.unshard(x)
+    return DTensor.from_local(F.logsigmoid(x.to_local()), x.device_mesh,
+                              x.placements, run_check=False)
+
+
 def moe(p: dict, x: torch.Tensor, n_experts: int, top_k: int,
         act: str = "silu", capacity_factor: float = 1.25) -> torch.Tensor:
     """Top-k MoE: batch-local sorted dispatch + grouped expert GEMMs.
@@ -372,45 +553,57 @@ def moe(p: dict, x: torch.Tensor, n_experts: int, top_k: int,
     fixed-capacity expert slots; a token past its expert's capacity is
     dropped (its slot is the dump row, cut before the expert GEMMs).
     Each batch row dispatches only its own tokens: the JAX package's
-    ``jax.vmap`` over rows is batched indexing here.
+    ``jax.vmap`` over rows is batched indexing here, and under a mesh the
+    dispatch and the combine run on each rank's rows (``_rowwise``).
     """
     b, s, d = x.shape
     logits = x @ p["router"].to(x.dtype)                      # (B,S,E)
-    gates, idx = torch.topk(torch.softmax(logits, -1), top_k)  # (B,S,k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     capacity = max(1, int(capacity_factor * s * top_k / n_experts))
     n_slots = n_experts * capacity
 
-    flat_exp = idx.reshape(b, s * top_k)
-    flat_tok = torch.arange(s, device=x.device).repeat_interleave(top_k)
-    flat_gate = gates.reshape(b, s * top_k)
-    order = torch.argsort(flat_exp, dim=-1, stable=True)
-    sorted_exp = flat_exp.gather(1, order)
-    sorted_tok = flat_tok[order]                              # (B,S*k)
-    sorted_gate = flat_gate.gather(1, order)
-    pos = torch.arange(s * top_k, device=x.device) - torch.searchsorted(
-        sorted_exp, sorted_exp, side="left")
-    keep = pos < capacity
-    slot = torch.where(keep, sorted_exp * capacity + pos, n_slots)
-    rows = torch.arange(b, device=x.device)[:, None]
-    buf = x.new_zeros((b, n_slots + 1, d))
-    # dropped tokens all write zeros into the dump row n_slots
-    buf[rows, slot] = x[rows, sorted_tok] * keep[..., None].to(x.dtype)
-    xe = buf[:, :-1].reshape(b, n_experts, capacity, d)       # (B,E,C,d)
+    def dispatch(x, logits):
+        b = x.shape[0]
+        gates, idx = torch.topk(torch.softmax(logits, -1), top_k)  # (B,S,k)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        flat_exp = idx.reshape(b, s * top_k)
+        flat_tok = torch.arange(s, device=x.device).repeat_interleave(top_k)
+        flat_gate = gates.reshape(b, s * top_k)
+        order = torch.argsort(flat_exp, dim=-1, stable=True)
+        sorted_exp = flat_exp.gather(1, order)
+        sorted_tok = flat_tok[order]                          # (B,S*k)
+        sorted_gate = flat_gate.gather(1, order)
+        pos = torch.arange(s * top_k, device=x.device) - torch.searchsorted(
+            sorted_exp, sorted_exp, side="left")
+        keep = pos < capacity
+        slot = torch.where(keep, sorted_exp * capacity + pos, n_slots)
+        rows = torch.arange(b, device=x.device)[:, None]
+        buf = x.new_zeros((b, n_slots + 1, d))
+        # dropped tokens all write zeros into the dump row n_slots
+        buf[rows, slot] = x[rows, sorted_tok] * keep[..., None].to(x.dtype)
+        return buf[:, :-1], slot, sorted_tok, sorted_gate, keep
+
+    buf, slot, sorted_tok, sorted_gate, keep = _rowwise(dispatch, x, logits)
+    xe = shctx.constrain_expert(
+        buf.reshape(b, n_experts, capacity, d))               # (B,E,C,d)
 
     a = _act(act)
-    g = a(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(x.dtype)))
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"].to(x.dtype))
-    ye = torch.einsum("becf,efd->becd", g * u, p["w_down"].to(x.dtype))
+    g = a(_expert_mm(xe, p["w_gate"].to(x.dtype)))
+    u = _expert_mm(xe, p["w_up"].to(x.dtype))
+    ye = _expert_mm(g * u, p["w_down"].to(x.dtype))
 
-    ye_flat = ye.reshape(b, n_slots, d)
-    picked = ye_flat[rows, torch.clamp(slot, max=n_slots - 1)]
-    contrib = torch.where(keep[..., None], picked, 0.0) \
-        * sorted_gate[..., None].to(ye.dtype)
-    out = ye.new_zeros((b * s, d))
-    out.index_add_(0, (rows * s + sorted_tok).reshape(-1),
-                   contrib.reshape(-1, d))
-    return out.reshape(b, s, d)
+    def combine(ye, slot, sorted_tok, sorted_gate, keep):
+        b = ye.shape[0]
+        rows = torch.arange(b, device=ye.device)[:, None]
+        ye_flat = ye.reshape(b, n_slots, d)
+        picked = ye_flat[rows, torch.clamp(slot, max=n_slots - 1)]
+        contrib = torch.where(keep[..., None], picked, 0.0) \
+            * sorted_gate[..., None].to(ye.dtype)
+        out = ye.new_zeros((b * s, d))
+        out.index_add_(0, (rows * s + sorted_tok).reshape(-1),
+                       contrib.reshape(-1, d))
+        return out.reshape(b, s, d)
+
+    return _rowwise(combine, ye, slot, sorted_tok, sorted_gate, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -505,11 +698,12 @@ def mamba2(p: dict, x: torch.Tensor, cfg, chunk: int = 128) -> torch.Tensor:
 
     # chunk-final states: S_z = sum_j exp(cum_c - cum_j) dt_j B_j x_j^T
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B,NC,c,H)
-    SB = torch.einsum("bzjh,bzjn,bzjhp->bzhnp",
-                      (decay_to_end * dt).to(x.dtype), Bm, X)
+    SB = shctx.constrain_state_matrix(torch.einsum(
+        "bzjh,bzjn,bzjhp->bzhnp", (decay_to_end * dt).to(x.dtype), Bm, X))
     # inter-chunk scan over z
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,NC,H)
-    prev_states = _carry_scan(SB, chunk_decay)                # (B,NC,H,N,P)
+    prev_states = shctx.constrain_state_matrix(
+        _carry_scan(SB, chunk_decay))                         # (B,NC,H,N,P)
 
     inter_decay = torch.exp(cum)                              # (B,NC,c,H)
     y_inter = torch.einsum("bzin,bzih,bzhnp->bzihp", Cm,
@@ -518,7 +712,9 @@ def mamba2(p: dict, x: torch.Tensor, cfg, chunk: int = 128) -> torch.Tensor:
     y = y + X.reshape(b, nc * c, h, hd)[:, :s] \
         * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    # d_inner on model for the row-parallel w_out: the chunked einsums
+    # leave y's sequence sharded, which DTensor cannot flatten into a GEMM
+    y = shctx.constrain_ff(rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps))
     return y @ p["w_out"].to(x.dtype)
 
 
@@ -593,12 +789,14 @@ def mlstm(p: dict, x: torch.Tensor, cfg, chunk: int = 512) -> torch.Tensor:
     hd = d_inner // h
     up = x @ p["w_up"].to(x.dtype)
     u, z = up.chunk(2, -1)
-    u = F.silu(u)
-    qkv = u @ p["w_qkv"].to(x.dtype)
+    u = shctx.constrain_ff(F.silu(u))       # (see mamba2's out projection)
+    # d_inner whole on each rank: DTensor cannot split a sharded dim in 3
+    qkv = shctx.unshard(u @ p["w_qkv"].to(x.dtype), -1)
     q, k, v = qkv.chunk(3, -1)
-    gates = (u @ p["w_if"].to(x.dtype)).float()
+    # the gates whole on each rank (a partial sum over d_inner reduced)
+    gates = shctx.unshard((u @ p["w_if"].to(x.dtype)).float(), -1)
     i_g, f_g = gates.chunk(2, -1)                             # (B,S,H)
-    logf = F.logsigmoid(f_g)
+    logf = _log_sigmoid(f_g)
     logi = i_g  # log-space input gate (exp applied with stabilizer)
 
     c = chunk
@@ -628,17 +826,19 @@ def mlstm(p: dict, x: torch.Tensor, cfg, chunk: int = 512) -> torch.Tensor:
 
     # inter-chunk: states carried with decay
     dec_to_end = torch.exp(cumf[:, :, -1:, :] - cumf + LI)    # (B,NC,c,H)
-    SB = torch.einsum("bzjh,bzjhd,bzjhe->bzhde",
-                      dec_to_end.to(x.dtype), K, V)           # (B,NC,H,hd,hd)
+    SB = shctx.constrain_state_matrix(torch.einsum(
+        "bzjh,bzjhd,bzjhe->bzhde", dec_to_end.to(x.dtype), K, V))
     chunk_decay = torch.exp(cumf[:, :, -1, :])
-    prev = _carry_scan(SB, chunk_decay)                       # (B,NC,H,hd,hd)
+    prev = shctx.constrain_state_matrix(
+        _carry_scan(SB, chunk_decay))                         # (B,NC,H,hd,hd)
     dec_from_start = torch.exp(cumf)                          # (B,NC,c,H)
     y_inter = torch.einsum("bzihd,bzih,bzhde->bzihe", Q,
                            dec_from_start.to(x.dtype), prev)
     # normalizer uses the same stabilized accumulations (approx: intra term)
     y = (y_intra + y_inter) / norm_intra[..., None].to(x.dtype).clamp_min(1.0)
     y = y.reshape(b, nc * c, d_inner)[:, :s]
-    y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    y = shctx.constrain_ff(rms_norm(y, p["norm"], cfg.norm_eps)
+                           * F.silu(z))    # (see mamba2's out projection)
     return y @ p["w_down"].to(x.dtype)
 
 
@@ -663,12 +863,13 @@ def mlstm_step(p: dict, x: torch.Tensor, state: dict, cfg
     up = x[:, 0] @ p["w_up"].to(x.dtype)
     u, z = up.chunk(2, -1)
     u = F.silu(u)
-    qkv = u @ p["w_qkv"].to(x.dtype)
+    # d_inner whole on each rank: DTensor cannot split a sharded dim in 3
+    qkv = shctx.unshard(u @ p["w_qkv"].to(x.dtype), -1)
     q, k, v = (t.reshape(b, h, hd) for t in qkv.chunk(3, -1))
     q = q / math.sqrt(hd)
     gates = (u @ p["w_if"].to(x.dtype)).float()
     i_g, f_g = gates.chunk(2, -1)                             # (B,H)
-    logf = F.logsigmoid(f_g)
+    logf = _log_sigmoid(f_g)
     m_new = torch.maximum(logf + state["m"], i_g)
     i_s = torch.exp(i_g - m_new)
     f_s = torch.exp(logf + state["m"] - m_new)
@@ -678,7 +879,8 @@ def mlstm_step(p: dict, x: torch.Tensor, state: dict, cfg
         * torch.einsum("bhd,bhe->bhde", v, k).to(cd)
     nvec = state["n"] * f_s[:, :, None].to(nd) \
         + i_s[:, :, None].to(nd) * k.to(nd)
-    num = torch.einsum("bhde,bhe->bhd", C, q.to(C.dtype))
+    # hd whole on each rank before (h, hd) merge into d_inner
+    num = shctx.unshard(torch.einsum("bhde,bhe->bhd", C, q.to(C.dtype)), -1)
     den = torch.einsum("bhd,bhd->bh", nvec, q.to(nvec.dtype)).abs() \
         .clamp_min(1.0)
     y = (num / den[:, :, None]).to(x.dtype).reshape(b, d_inner)
@@ -701,7 +903,7 @@ def init_slstm(gen: torch.Generator, d_model: int, cfg, *, device=None,
 def _slstm_cell(g: torch.Tensor, c, n, m, dtype):
     """One sLSTM update from the gate pre-activations ``g`` (B, 4D)."""
     zi, zf, zo, zz = g.float().chunk(4, -1)
-    logf = F.logsigmoid(zf)
+    logf = _log_sigmoid(zf)
     m_new = torch.maximum(logf + m, zi)
     i_s = torch.exp(zi - m_new)
     f_s = torch.exp(logf + m - m_new)

@@ -31,10 +31,12 @@ from functools import partial
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding import context as shctx
 from repro_torch.tree import tree_map
 
 from . import layers as L
@@ -68,6 +70,38 @@ def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table.
+
+    On a DTensor table the vocabulary rows stay where they are: each
+    rank looks up the tokens in its own block of rows (zero for the
+    rest), the d_model columns gathered, and the blocks sum over the
+    vocab axis's ranks (a ``Partial`` result, constrained to the residual
+    stream's spec).  DTensor has no strategy for a row index into a
+    vocab-sharded table, and its ``embedding`` strategy's masked partial
+    cannot take the gradient of the constraint after it.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    table = shctx.unshard(table, 1)
+    lo, block, vocab_axes = shctx.local_block(table, 0)
+    pl = tuple(Replicate() if i in vocab_axes else p
+               for i, p in enumerate(tokens.placements))
+    local = tokens.redistribute(mesh, pl).to_local() - lo
+    inside = (local >= 0) & (local < block)
+    # the table's gradient differs between ranks holding other tokens
+    grad_pl = tuple(Partial() if p.is_shard() else q
+                    for p, q in zip(pl, table.placements))
+    rows = F.embedding(local.clamp(0, block - 1),
+                       table.to_local(grad_placements=grad_pl))
+    rows = torch.where(inside[..., None], rows, 0.0)
+    return shctx.constrain_resid(DTensor.from_local(
+        rows, mesh, tuple(Partial() if i in vocab_axes else p
+                          for i, p in enumerate(pl)), run_check=False))
 
 
 def _sinusoidal(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
@@ -245,7 +279,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     Whisper's encoder and decoder blocks.  The logits do not change.
     """
     b, s = tokens.shape
-    x = params["embed"][tokens].to(compute_dtype)
+    x = _embed(params["embed"], tokens).to(compute_dtype)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if cfg.mrope_sections:
@@ -367,7 +401,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     returned.
     """
     b = token.shape[0]
-    x = params["embed"][token].to(compute_dtype)
+    x = _embed(params["embed"], token).to(compute_dtype)
     positions = torch.as_tensor(position, device=x.device).reshape(1, 1) \
         .expand(b, 1)
     if cfg.mrope_sections:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.sharding import context as shctx
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -31,7 +32,10 @@ def make_decode_step(cfg: ModelConfig):
         logits, new_caches = lm.decode_step(
             params, cfg, token, caches, position,
             encoder_states=encoder_states)
-        next_tok = logits[:, -1].argmax(-1).to(torch.int32)
+        # the vocabulary whole on each rank: DTensor's argmax over a
+        # sharded dim is not available in every torch version
+        next_tok = shctx.unshard(logits[:, -1], -1).argmax(-1) \
+            .to(torch.int32)
         return next_tok[:, None], logits, new_caches
     return serve_step
 
