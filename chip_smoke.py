@@ -192,7 +192,44 @@ each on standard output (the per-shape details go to standard error):
     Qwen3-8B's prefill at b1 x 4096, within 5% of phases 22 (c)'s and 21
     (d)'s hand counts, their roofline times printed beside the measured
     step and prefill; no launch of any of the five kernels across (a) and
-    (c).
+    (c);
+24. the examples and the entry points a user starts, each with no
+    ``--device`` (the card is the default): (a)
+    ``examples/quickstart_torch.py`` for AlexNet at batch 2 as a
+    subprocess (``bit-exact=True`` twice), then through ``main`` for
+    ResNet-18 and the custom net (bit-exact and the save/load round trip
+    ``True``) and vit-tiny (logits and probabilities within the
+    example's ``SEQ_REL`` / ``SEQ_PROB_ATOL``, which are 12's
+    ``VIT_REL`` / ``VIT_PROB_ATOL``; the kernel's GELU, layer norm and
+    softmax round in another order than ``graph.forward``'s), one
+    launch of each kernel per stage in ``run``, and the simulate table;
+    (b) ``examples/crossbar_inference_torch.py`` for AlexNet and
+    ResNet-18 at batch 8 on the card and on the CPU: clean crossbar
+    logits argmax 1.0 and ``XBAR_REL``, the noisy run's relative error
+    within ``NOISE_REL`` of the CPU's, one ``crossbar_gemm`` launch per
+    GEMM clean and none noisy, the branch of each GEMM and the forwards'
+    times; (c) ``examples/serve_lm_torch.py`` for ``SERVE_ARCHS`` on the
+    card and on the CPU, continuation ids equal up to the first step
+    whose CPU top-two margin is under ``TIE`` of max |logit| (that step
+    and margin printed; bfloat16 logits tie exactly at times), and the
+    example's loop in float32 likewise with every step's logits within
+    ``LM_TOL``, bfloat16 tokens/s, no launch of the five kernels, then
+    ``python -m repro_torch.launch.serve --rounds 2``; (d)
+    ``examples/train_lm_torch.py`` (100M, b8 x 256) ``--steps 60
+    --ckpt-every 20`` killed with SIGKILL once step 40 is committed and
+    rerun to 60 (it resumes), against an uninterrupted run through
+    ``main`` to ``TRAIN_RESUME_TOL`` of max |param| (``torch.equal``
+    printed, not held: a backward with atomics may reorder sums),
+    ms per step, tokens/s and peak memory; (e) ``python -m
+    repro_torch.launch.train --reduced`` sent SIGTERM after its first
+    step line: it saves the step it reached and exits 0; relaunched, it
+    resumes to ``SIGTERM_STEPS``, against an uninterrupted run at (d)'s
+    tolerance; (f) ``api.load`` of a version-1 file (parameters only)
+    onto the card, the repack there, batch 16 ``torch.equal`` to the
+    in-memory ResNet-18; (g) ``program.execute_program`` on ResNet-18 at
+    batch 16 ``torch.equal`` to ``execute_packed``, one launch of each
+    kernel per stage, both times.  (b)'s CPU references run in a thread
+    beside (d)'s two subprocesses (whose times are not kept).
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -2745,6 +2782,461 @@ def shard_line(sp: dict, card: str) -> str:
             f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the examples and the entry points on the card
+# ---------------------------------------------------------------------------
+
+QUICK_NETS = ("resnet18", "custom", "vit-tiny")    # (a), in this process
+XBAR_NETS = ("alexnet", "resnet18")                # (b)
+XBAR_BATCH = 8
+XBAR_REL = 1e-4          # card against CPU, clean logits (as phase 5)
+SERVE_ARCHS = ("internlm2_1_8b", "xlstm_1_3b", "whisper_medium")   # (c)
+TIE = 1e-4               # a near-tied greedy step: top-two margin / max|logit|
+TRAIN_EX = dict(steps=60, every=20, kill=40)       # (d)
+SIGTERM_STEPS = 30       # (e)
+
+
+def _example(name: str):
+    """``examples/<name>.py`` loaded as a module (the examples are
+    scripts, not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _main(mod, argv: list) -> dict:
+    """An example's ``main(argv)`` with its printing sent to standard
+    error; its ``SystemExit`` (a failed check) fails the phase."""
+    import contextlib
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            return mod.main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"{mod.__name__} {' '.join(argv)}: {e}") from e
+
+
+def _env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                PYTHONUNBUFFERED="1")
+
+
+def _run(argv: list, timeout: int = 300) -> str:
+    """A subprocess from the repository root; fails the phase unless it
+    exits 0.  Returns its standard output."""
+    p = subprocess.run([sys.executable, *argv], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=timeout)
+    check(p.returncode == 0, f"{' '.join(argv)} exited {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    for ln in p.stdout.splitlines():
+        detail(f"  24 {argv[1] if argv[0] == '-m' else argv[0]}: {ln}")
+    return p.stdout
+
+
+def _five_kernels():
+    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
+                                     flash_attention, fused_gemm_epilogue,
+                                     packed_gemm)
+    return (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
+            packed_gemm)
+
+
+def _launch_counts() -> dict:
+    return {k.__name__: k.launches for k in _five_kernels()}
+
+
+def quickstart_phase() -> dict:
+    """(a): ``examples/quickstart_torch.py``: AlexNet at batch 2 as a
+    subprocess with no ``--device`` (bit-exact twice), then ResNet-18,
+    the custom net and vit-tiny through ``main`` here: bit-exact and the
+    round trip for the CNNs, vit-tiny's logits and probabilities within
+    the example's ``SEQ_REL`` / ``SEQ_PROB_ATOL`` (its round trip
+    exact), and one launch of each kernel per stage in ``run``."""
+    out = _run(["examples/quickstart_torch.py", "--net", "alexnet",
+                "--batch", "2"])
+    first = out.splitlines()[0]
+    check(first.startswith("device: NVIDIA")
+          and out.count("bit-exact=True") == 2,
+          f"quickstart alexnet: {first!r}, bit-exact=True "
+          f"{out.count('bit-exact=True')} times (want 2)")
+    alex_us = float(re.search(r"steady-state (\d+) us", out).group(1))
+    quick = _example("quickstart_torch")
+    nets, launches = {}, {"crossbar_gemm": 0, "fb_epilogue": 0}
+    for net in QUICK_NETS:
+        r, n = counted(lambda: _main(quick, ["--net", net]))
+        want = {"crossbar_gemm": r["stages"], "fb_epilogue": r["stages"]}
+        check(r["launches"] == want, f"quickstart {net}: run launched "
+              f"{r['launches']}, expected {want}")
+        check(r["roundtrip"], f"quickstart {net}: the loaded model differs")
+        if net != "vit-tiny":
+            check(r["exact"], f"quickstart {net}: not bit-exact on the card "
+                  f"(rel {r['rel']:.3e})")
+        else:
+            check(r["rel"] <= quick.SEQ_REL
+                  and r["prob_gap"] <= quick.SEQ_PROB_ATOL,
+                  f"quickstart vit-tiny: rel {r['rel']:.3e}, probs "
+                  f"{r['prob_gap']:.3e}")
+        for k in launches:
+            launches[k] += n[k]
+        nets[net] = r
+    return dict(nets=nets, launches=launches, alexnet_us=alex_us,
+                sim=nets["resnet18"]["sim"])
+
+
+def xbar_cpu_refs() -> dict:
+    """(b)'s CPU references: ``evaluate`` of ``examples/
+    crossbar_inference_torch.py`` on the weights and input its ``main``
+    draws, batch ``XBAR_BATCH``, for each of ``XBAR_NETS``."""
+    xb = _example("crossbar_inference_torch")
+    return {net: xb.evaluate(net, *xb.inputs(net, XBAR_BATCH, "cpu"))
+            for net in XBAR_NETS}
+
+
+def xbar_example_phase(cpu_refs: dict) -> dict:
+    """(b): ``examples/crossbar_inference_torch.py`` at batch 8 on the
+    card against ``cpu_refs`` (``xbar_cpu_refs``): clean
+    logits argmax 1.0 and ``XBAR_REL`` (``torch.equal`` printed), the
+    noisy run's relative error within ``NOISE_REL`` of the CPU's, one
+    ``crossbar_gemm`` launch per GEMM clean and none noisy."""
+    import torch
+    xb = _example("crossbar_inference_torch")
+    nets, launches = {}, 0
+    for net in XBAR_NETS:
+        card, n = counted(lambda: _main(xb, ["--net", net, "--batch",
+                                             str(XBAR_BATCH)]))
+        cpu = cpu_refs[net]
+        c, h = card["clean"], cpu["clean"]
+        got, ref = c["logits"].cpu(), h["logits"]
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+        check(agree == 1.0 and rel <= XBAR_REL, f"crossbar_inference {net}: "
+              f"clean card vs CPU argmax {agree}, rel {rel:.3e}")
+        nz, nzc = card["noisy"], cpu["noisy"]
+        check(abs(nz["rel"] - nzc["rel"]) <= NOISE_REL * nzc["rel"],
+              f"crossbar_inference {net}: noisy rel-err card {nz['rel']:.4f} "
+              f"vs CPU {nzc['rel']:.4f}")
+        check(c["launches"] == c["gemms"] and nz["launches"] == 0
+              and n["crossbar_gemm"] == c["gemms"],
+              f"crossbar_inference {net}: launches clean {c['launches']} of "
+              f"{c['gemms']} GEMMs, noisy {nz['launches']}")
+        launches += n["crossbar_gemm"]
+        nets[net] = dict(card=card, cpu=cpu, rel=rel, agree=agree,
+                         exact=torch.equal(got, ref))
+    return dict(nets=nets, launches=launches)
+
+
+def _greedy_agreement(card: dict, cpu: dict, prompt: int) -> dict:
+    """Continuation ids card against CPU up to the first step whose CPU
+    top-two margin is under ``TIE`` of max |logit| (a near tie may flip
+    under the devices' rounding differences), and that step's margin."""
+    lg = cpu["logits"][:, prompt - 1:]               # the decode steps
+    top = lg.topk(2, dim=-1).values
+    margin = ((top[..., 0] - top[..., 1]).amin(0)
+              / lg.abs().max()).tolist()
+    stop = next((j for j, m in enumerate(margin) if m < TIE), len(margin))
+    a, b = card["seqs"].cpu()[:, prompt:], cpu["seqs"][:, prompt:]
+    equal = bool((a[:, :stop] == b[:, :stop]).all())
+    diverge = next((j for j in range(a.shape[1])
+                    if not bool((a[:, j] == b[:, j]).all())), None)
+    same = (diverge if diverge is not None else a.shape[1]) + prompt - 1
+    gap = ((card["logits"].cpu()[:, :same] - cpu["logits"][:, :same]).abs()
+           .max() / cpu["logits"][:, :same].abs().max()).item()
+    return dict(equal=equal, stop=stop, diverge=diverge, gap=gap,
+                margin=margin[stop] if stop < len(margin) else None,
+                min_margin=min(margin))
+
+
+def serve_example_phase() -> dict:
+    """(c): ``examples/serve_lm_torch.py`` for ``SERVE_ARCHS`` on the card
+    against the CPU (``_greedy_agreement``), tokens/s, no launch of the
+    five kernels; then ``python -m repro_torch.launch.serve --rounds 2``
+    with no ``--device``."""
+    import torch
+    sv = _example("serve_lm_torch")
+    before = _launch_counts()
+    archs = {}
+    for arch in SERVE_ARCHS:
+        card = _main(sv, ["--arch", arch])
+        cpu = _main(sv, ["--arch", arch, "--device", "cpu"])
+        ag = _greedy_agreement(card, cpu, card["prompt_len"])
+        check(ag["equal"], f"serve_lm {arch}: card ids differ from the "
+              f"CPU's before the first near tie (step {ag['stop']}): "
+              f"{ag}")
+        # the same loop in float32 on the CPU's inputs: ids as above, and
+        # every step's logits within LM_TOL of max |logit|
+        f32 = {d: sv.generate(*sv.inputs(arch, card["batch"],
+                                         card["prompt_len"], d),
+                              card["seqs"].shape[1] - card["prompt_len"],
+                              compute_dtype=torch.float32)
+               for d in ("cuda", "cpu")}
+        a32 = _greedy_agreement(f32["cuda"], f32["cpu"], card["prompt_len"])
+        check(a32["equal"] and a32["gap"] <= LM_TOL,
+              f"serve_lm {arch} float32: card against CPU {a32}")
+        archs[arch] = dict(ag, f32=a32, tok_s=card["tok_s"],
+                           decode_ms=card["decode_ms"],
+                           prefill_ms=card["prefill_ms"])
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
+    check(not any(launched.values()),
+          f"serve_lm launched kernels of repro_torch.kernels: {launched}")
+    out = _run(["-m", "repro_torch.launch.serve", "--rounds", "2"])
+    tail = out.strip().splitlines()[-1]
+    check("tok/s" in tail and "NVIDIA" in tail,
+          f"launch.serve: last line {tail!r}")
+    return dict(archs=archs, launched=launched, launcher=tail)
+
+
+def _params_gap(a_dir: str, b_dir: str, step: int) -> tuple[float, bool]:
+    """Max over leaves of |a - b| / max |b| of step ``step``'s
+    parameters in two checkpoint directories, and whether the parameters
+    and optimizer states are equal."""
+    import numpy as np
+    gap, equal = 0.0, True
+    for name in ("params", "opt_state"):
+        path = f"step_{step}/{name}.npz"
+        with np.load(os.path.join(a_dir, path)) as a, \
+                np.load(os.path.join(b_dir, path)) as b:
+            check(sorted(a.files) == sorted(b.files), f"{path}: keys differ")
+            for k in b.files:
+                equal &= bool(np.array_equal(a[k], b[k]))
+                if name == "params":
+                    scale = float(np.abs(b[k]).max())
+                    gap = max(gap, float(np.abs(a[k] - b[k]).max()) / scale
+                              if scale else 0.0)
+    return gap, equal
+
+
+def train_example_phase(tmp: str, wait=lambda: None) -> dict:
+    """(d): ``examples/train_lm_torch.py`` at its own 100M config, b8 x
+    256, with no ``--device``: ``--steps 60 --ckpt-every 20`` killed with
+    SIGKILL once step 40's checkpoint is committed, rerun to 60 in the
+    same directory (it resumes from 40), against an uninterrupted 60-step
+    run through ``main`` here (ms per step, tokens/s, peak memory), to
+    ``TRAIN_RESUME_TOL`` of max |param|.  ``wait`` returns once work
+    running beside the two subprocesses is done, so that nothing shares
+    the host with the timed run."""
+    import signal
+    killed, fresh = os.path.join(tmp, "killed"), os.path.join(tmp, "fresh")
+    argv = ["examples/train_lm_torch.py", "--steps", str(TRAIN_EX["steps"]),
+            "--ckpt-every", str(TRAIN_EX["every"]), "--ckpt-dir", killed]
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=_env(),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    commit = os.path.join(killed, f"step_{TRAIN_EX['kill']}", "meta.json")
+    try:
+        while not os.path.exists(commit) and p.poll() is None:
+            time.sleep(0.01)
+            check(time.perf_counter() - t0 < 300,
+                  "train_lm: no step-40 checkpoint in 300 s")
+        p.send_signal(signal.SIGKILL)
+        _, err = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    check(p.returncode == -signal.SIGKILL,
+          f"train_lm was not killed mid-run (exit {p.returncode}): "
+          f"{err[-2000:]}")
+    out = _run(argv)
+    check(f"resumed from step {TRAIN_EX['kill']}" in out,
+          f"train_lm did not resume from step {TRAIN_EX['kill']}: "
+          f"{out[-500:]}")
+    wait()
+    tl = _example("train_lm_torch")
+    r = _main(tl, ["--steps", str(TRAIN_EX["steps"]), "--ckpt-every",
+                   str(TRAIN_EX["steps"]), "--ckpt-dir", fresh])
+    gap, equal = _params_gap(killed, fresh, TRAIN_EX["steps"])
+    check(gap <= TRAIN_RESUME_TOL, f"train_lm resumed vs uninterrupted: "
+          f"{gap:.2e} of max |param| (limit {TRAIN_RESUME_TOL})")
+    return dict(gap=gap, equal=equal, ms=r["ms_per_step"], tok_s=r["tok_s"],
+                peak_gb=r["peak_gb"], loss=r["losses"][-1],
+                s=time.perf_counter() - t0)
+
+
+def sigterm_phase(tmp: str) -> dict:
+    """(e): ``python -m repro_torch.launch.train --reduced`` with no
+    ``--device``, sent SIGTERM once a step line is printed: it saves the
+    step it reached and exits 0; relaunched, it resumes to
+    ``SIGTERM_STEPS``, against an uninterrupted run through ``main`` here
+    at (d)'s tolerance."""
+    import contextlib
+    import signal
+    from repro_torch.launch import train as launch_train
+    stopped, fresh = os.path.join(tmp, "sigterm"), os.path.join(tmp, "f")
+    argv = ["-m", "repro_torch.launch.train", "--arch", "internlm2_1_8b",
+            "--reduced", "--steps", str(SIGTERM_STEPS), "--ckpt-dir",
+            stopped]
+    p = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=_env(),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    lines = []
+    try:
+        for ln in p.stdout:
+            lines.append(ln.rstrip())
+            if ln.startswith("step "):
+                p.send_signal(signal.SIGTERM)
+                break
+        rest, err = p.communicate(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    lines += rest.splitlines()
+    for ln in lines:
+        detail(f"  24e launch.train: {ln}")
+    saved = [int(m.group(1)) for ln in lines
+             if (m := re.match(r"\[preempt\] checkpointed at (\d+)", ln))]
+    check(p.returncode == 0 and len(saved) == 1
+          and saved[0] < SIGTERM_STEPS,
+          f"launch.train after SIGTERM: exit {p.returncode}, saved {saved}: "
+          f"{err[-2000:]}")
+    out = _run(argv)
+    check(f"[resume] step {saved[0]}" in out and "training complete" in out,
+          f"launch.train did not resume from {saved[0]}: {out[-500:]}")
+    with contextlib.redirect_stdout(sys.stderr):
+        launch_train.main(argv[2:-1] + [fresh])
+    gap, equal = _params_gap(stopped, fresh, SIGTERM_STEPS)
+    check(gap <= TRAIN_RESUME_TOL, f"launch.train after SIGTERM vs "
+          f"uninterrupted: {gap:.2e} of max |param|")
+    return dict(saved=saved[0], gap=gap, equal=equal)
+
+
+def v1_load_phase(api, model, tmp: str, gen) -> dict:
+    """(f): ``model`` saved, rewritten as a version-1 file (parameters
+    only, as ``tests/test_torch_api.py`` writes one) and ``api.load``-ed
+    with no device: the repack runs on the card; batch 16 ``torch.equal``
+    to the in-memory model."""
+    import json as _json
+    import numpy as np
+    import torch
+    path = model.save(os.path.join(tmp, "v3.npz"))
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if k.startswith("p")}
+        meta = _json.loads(str(z["__meta__"][()]))
+    meta["version"] = 1
+    del meta["packed_stages"], meta["ln_stages"]
+    v1 = os.path.join(tmp, "v1.npz")
+    np.savez(v1, __meta__=np.asarray(_json.dumps(meta)), **arrays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = api.load(v1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(loaded.device.type == "cuda", f"v1 load on {loaded.device}")
+    x = torch.randn(model.program.input_shape(16), generator=gen,
+                    device="cuda")
+    got, n = counted(lambda: loaded.run(x, logits=True))
+    check(torch.equal(got, model.run(x, logits=True)),
+          "the version-1 file's model differs from the in-memory one")
+    return dict(load_s=load_s, launches=n)
+
+
+def execute_program_phase(model, gen) -> dict:
+    """(g): ``program.execute_program`` on ResNet-18 at b16 (packing under
+    the call) ``torch.equal`` to ``execute_packed``, one launch of each
+    kernel per stage."""
+    import torch
+    from repro_torch.program import execute_packed, execute_program
+    x = torch.randn(model.program.input_shape(16), generator=gen,
+                    device="cuda")
+    got, n = counted(lambda: execute_program(model.program, model.params, x,
+                                             return_logits=True))
+    stages = len(model.program.stages())
+    check(n == {"crossbar_gemm": stages, "fb_epilogue": stages},
+          f"execute_program launches {n}, expected {stages} each")
+    check(torch.equal(got, execute_packed(model.packed, x,
+                                          return_logits=True)),
+          "execute_program differs from execute_packed")
+    ms = wall_ms(lambda: execute_program(model.program, model.params, x))
+    packed_ms = wall_ms(lambda: execute_packed(model.packed, x))
+    return dict(launches=n, ms=ms, packed_ms=packed_ms)
+
+
+def examples_phase(dev) -> dict:
+    """Phase 24: (a)-(g) above.  (b)'s CPU references are computed in a
+    worker thread beside (d)'s two subprocesses, whose times are not
+    kept; every timed part runs with the host to itself."""
+    import tempfile
+    import torch
+    from repro_torch import api
+    gen = torch.Generator(device=dev).manual_seed(24)
+    out, secs = {}, {}
+    resnet = api.compile("resnet18", api.HurryConfig(), seed=0, device=dev)
+
+    def run(key: str, fn) -> None:
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        run("quick", quickstart_phase)
+        run("serve", serve_example_phase)
+        refs = pool.submit(xbar_cpu_refs)
+        run("train", lambda: train_example_phase(tmp, refs.result))
+        run("xbar", lambda: xbar_example_phase(refs.result()))
+        run("sigterm", lambda: sigterm_phase(tmp))
+        run("v1", lambda: v1_load_phase(api, resnet, tmp, gen))
+        run("program", lambda: execute_program_phase(resnet, gen))
+    out["secs"] = secs
+    out["s"] = sum(secs.values())
+    return out
+
+
+def examples_line(ep: dict, card: str) -> str:
+    """Phase 24's line on standard output."""
+    q, xb, sv, tr, st = (ep[k] for k in ("quick", "xbar", "serve", "train",
+                                         "sigterm"))
+    quick = "; ".join(
+        f"{net} {r['stages']} stages bit-exact {r['exact']}"
+        + (f" (rel {r['rel']:.2e}, probs {r['prob_gap']:.2e})"
+           if net == "vit-tiny" else "")
+        + f" round trip {r['roundtrip']} {r['us']:.0f} us/batch{r['batch']}"
+        for net, r in q["nets"].items())
+    xbar = "; ".join(
+        f"{net} clean vs CPU argmax {r['agree']} rel {r['rel']:.2e} "
+        f"(torch.equal {r['exact']}), "
+        + ", ".join(f"{k} {n}" for k, n in r["card"]["clean"]["branches"]
+                    .items())
+        + f", {r['card']['clean']['launches']} crossbar_gemm launches clean, "
+        f"{r['card']['noisy']['launches']} noisy; noisy rel-err card "
+        f"{r['card']['noisy']['rel']:.4f} / CPU {r['cpu']['noisy']['rel']:.4f}"
+        f"; forward ms card fp32 {r['card']['fp32']['s'] * 1e3:.1f} clean "
+        f"{r['card']['clean']['s'] * 1e3:.1f} noisy "
+        f"{r['card']['noisy']['s'] * 1e3:.1f} (CPU noisy "
+        f"{r['cpu']['noisy']['s'] * 1e3:.0f})"
+        for net, r in xb["nets"].items())
+    serve = "; ".join(
+        f"{arch} ids equal to the CPU's "
+        + (f"through step {a['stop']} (first near tie, CPU margin "
+           f"{a['margin']:.2e})" if a["margin"] is not None
+           else "at every step")
+        + f", first differing step {a['diverge']}, logit gap before it "
+        f"{a['gap']:.2e}; float32 ids equal through step {a['f32']['stop']}"
+        f" (first differing {a['f32']['diverge']}), logit gap "
+        f"{a['f32']['gap']:.2e}; bf16 {a['tok_s']:.0f} tok/s"
+        for arch, a in sv["archs"].items())
+    return (f"[24 examples] (a) quickstart: alexnet subprocess bit-exact "
+            f"twice, {q['alexnet_us']:.0f} us/batch2; {quick}; launches "
+            f"{q['launches']}; (b) "
+            f"crossbar_inference b8: {xbar}; (c) serve_lm: {serve}; kernel "
+            f"launches {sv['launched']}; launch.serve: {sv['launcher']}; "
+            f"(d) train_lm 100M b8x256: killed after step "
+            f"{TRAIN_EX['kill']}, resumed to {TRAIN_EX['steps']}: "
+            f"{tr['gap']:.2e} of max |param| (torch.equal {tr['equal']}), "
+            f"{tr['ms']:.1f} ms/step, {tr['tok_s']:.0f} tokens/s, peak "
+            f"{tr['peak_gb']:.2f} GB; (e) launch.train SIGTERM: saved step "
+            f"{st['saved']}, resumed to {SIGTERM_STEPS}: {st['gap']:.2e} "
+            f"(torch.equal {st['equal']}); (f) v1 load on the card "
+            f"{ep['v1']['load_s']:.3f} s, b16 torch.equal; (g) "
+            f"execute_program b16 torch.equal to execute_packed, launches "
+            f"{ep['program']['launches']}, {ep['program']['ms']:.3f} ms "
+            f"beside {ep['program']['packed_ms']:.3f}; phase {ep['s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in ep["secs"].items())
+            + f") | {card}")
+
+
 def kernel_times(label: str) -> int:
     """``--kernel-times``: the times of phases 7 and 15 that compare the
     redesigned kernels with another tree, for the ``repro_torch`` on
@@ -3251,12 +3743,19 @@ def main(argv: list[str] | None = None) -> int:
     log(train_line(train_phase(dev), card))
     # -- 23. the LM sharding and the mesh dry-run ---------------------------
     log(shard_line(shard_phase(dev), card))
+    # -- 24. the examples and the entry points ------------------------------
+    ex = examples_phase(dev)
+    for ln in ex["quick"]["sim"].splitlines():
+        if ln:
+            log(f"[24 quickstart resnet18 simulate] {ln}")
+    log(examples_line(ex, card))
     paths = [main_launches, vit["launches"], vgg["launches"],
-             sl_["launches"], srv["launches"]]
+             sl_["launches"], srv["launches"], ex["quick"]["launches"],
+             ex["v1"]["launches"], ex["program"]["launches"]]
     path_launches = {k: sum(p[k] for p in paths)
                      for k in ("crossbar_gemm", "fb_epilogue")}
     path_launches["crossbar_gemm"] += sum(
-        f["total"] for f in fn["forward"].values())
+        f["total"] for f in fn["forward"].values()) + ex["xbar"]["launches"]
 
     kernels = [
         dict(name="crossbar_gemm", route="cuda",

@@ -48,7 +48,8 @@ import torch
 
 from repro_torch.core.workload import (LayerSpec, POST_RANK, input_spec,
                                        layer_groups)
-from repro_torch.kernels.fb_epilogue import gelu, layer_norm_rows, softmax_rows
+from repro_torch.kernels.fb_epilogue import (avg_windows, gelu,
+                                             layer_norm_rows, softmax_rows)
 from repro_torch.models.cnn import MatmulFn, conv2d, fp_matmul, maxpool
 from repro_torch.program.sequence import (attn_scale, merge_heads,
                                           split_qkv_heads, tokens)
@@ -204,8 +205,8 @@ class NetworkGraph:
             elif l.kind == "avgpool":
                 v = bufs[cur]
                 b, h, w_, c = v.shape
-                y = v.reshape(b, h // l.ksize, l.ksize,
-                              w_ // l.ksize, l.ksize, c).mean(dim=(2, 4))
+                y = avg_windows(v.reshape(b, h // l.ksize, l.ksize,
+                                          w_ // l.ksize, l.ksize, c))
             elif l.kind == "seqpool":
                 y = tokens(bufs[cur]).mean(dim=1)
             elif l.kind == "residual":

@@ -96,6 +96,19 @@ def _check_modes(M: int, N: int, *, act, pool, window, img_hw, softmax,
 # plain version (the CPU path, and what the kernel is held against)
 # ---------------------------------------------------------------------------
 
+def avg_windows(x6: torch.Tensor) -> torch.Tensor:
+    """(B, OH, k, OW, k, C) -> (B, OH, OW, C): each k x k window summed in
+    row-major order, then multiplied by ``f32(1 / k^2)``: the kernel's
+    order on every device (a ``mean`` reduction's order depends on the
+    device)."""
+    k = x6.shape[2]
+    acc = torch.zeros_like(x6[:, :, 0, :, 0])
+    for a in range(k):
+        for b in range(k):
+            acc = acc + x6[:, :, a, :, b]
+    return acc * float(np.float32(1.0) / np.float32(k * k))
+
+
 def dequant(y: torch.Tensor, scale: torch.Tensor,
             bias: torch.Tensor) -> torch.Tensor:
     """``fma(float32(y), scale, bias)`` with one rounding, via float64."""
@@ -113,9 +126,10 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """The plain PyTorch composition the kernel must equal.
 
     Average pooling sums each window in row-major order and multiplies
-    by ``f32(1 / window^2)``, the order the kernel uses.  A 3-D ``y``
-    (S, M, N) takes a (S, 1, 1) ``scale``; no pool window or sequence
-    crosses a slice, so the rest of the chain runs on the (S*M, N) rows.
+    by ``f32(1 / window^2)``, the order the kernel uses
+    (``avg_windows``).  A 3-D ``y`` (S, M, N) takes a (S, 1, 1)
+    ``scale``; no pool window or sequence crosses a slice, so the rest
+    of the chain runs on the (S*M, N) rows.
     """
     N = y.shape[-1]
     out = dequant(y, scale.reshape(-1, 1, 1) if y.dim() == 3
@@ -136,14 +150,7 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     elif pool != "none":
         oh = img_hw // window
         x6 = out.reshape(M // (img_hw * img_hw), oh, window, oh, window, N)
-        if pool == "max":
-            out = x6.amax(dim=(2, 4))
-        else:
-            acc = torch.zeros_like(x6[:, :, 0, :, 0])
-            for a in range(window):
-                for b in range(window):
-                    acc = acc + x6[:, :, a, :, b]
-            out = acc * float(np.float32(1.0) / np.float32(window * window))
+        out = x6.amax(dim=(2, 4)) if pool == "max" else avg_windows(x6)
         out = out.reshape(-1, N)
     if softmax:
         out = softmax_rows(out)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.crossbar import CrossbarConfig, crossbar_linear
+from repro_torch.kernels.fb_epilogue import avg_windows
 from repro_torch.program.compile import compile_network
 from repro_torch.program.execute import execute_packed, im2col
 from repro_torch.program.pack import pack_program
@@ -177,7 +178,10 @@ def resnet18_forward(params: dict, x: torch.Tensor,
                 pp = params[f"{pre}_proj"]
                 res = conv2d(x, pp["w"], pp["b"], stride, 0, mm)
             x = torch.relu(h + res)
-    x = x.mean(dim=(1, 2))
+    # the global average pool in the kernel's summation order, which does
+    # not depend on the device (a ``mean`` reduction's does)
+    n, h, w, c = x.shape
+    x = avg_windows(x.reshape(n, 1, h, 1, w, c)).reshape(n, c)
     return mm(x, params["fc"]["w"], params["fc"]["b"])
 
 

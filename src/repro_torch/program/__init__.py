@@ -10,7 +10,7 @@ batch-shape bucketing.
 """
 
 from .compile import CrossbarProgram, MountRound, ProgramOp, compile_network
-from .execute import execute_packed
+from .execute import execute_packed, execute_program
 from .pack import PackedProgram, PackedStage, pack_program
 from .serve import (BUCKETS, ProgramServer, bucket_batch, make_server,
                     pad_batch)
@@ -18,5 +18,6 @@ from .serve import (BUCKETS, ProgramServer, bucket_batch, make_server,
 __all__ = [
     "CrossbarProgram", "MountRound", "ProgramOp", "compile_network",
     "PackedProgram", "PackedStage", "pack_program", "execute_packed",
+    "execute_program",
     "ProgramServer", "make_server", "BUCKETS", "bucket_batch", "pad_batch",
 ]

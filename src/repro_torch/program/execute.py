@@ -25,7 +25,9 @@ contraction sized to the runtime head dim or sequence length.
 
 Buffers are dropped as soon as no later stage reads them.  On a CUDA
 device both calls launch the hand-written kernels; on the CPU they take
-their plain PyTorch versions.
+their plain PyTorch versions.  ``execute_program`` is the
+params-consuming entry: it packs under the call, then runs
+``execute_packed``.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from repro_torch.core.crossbar import (dequant_scale, quantize_scale,
 from repro_torch.kernels.crossbar_gemm import crossbar_gemm, kernel_layout
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 
-from .compile import ProgramOp
-from .pack import PackedProgram, PackedStage, plane_pack
+from .compile import CrossbarProgram, ProgramOp
+from .pack import PackedProgram, PackedStage, pack_program, plane_pack
 from .sequence import merge_heads, split_qkv_heads, tokens
 
 
@@ -220,3 +222,21 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
                 bufs.pop(name, None)
                 del last[name]
     return bufs[ret]
+
+
+def execute_program(program: CrossbarProgram, params: dict, x: torch.Tensor,
+                    *, block_m: int = 512, block_n: int = 512,
+                    return_logits: bool = False) -> torch.Tensor:
+    """Params-consuming compatibility entry (pre-packing cost profile).
+
+    Packs ``params`` on their device under the call, so the weight
+    planes are derived again on every call, which is what serving paid
+    before compile-time mounting; servers pack once and call
+    ``execute_packed`` (``ProgramServer`` and ``api.CompiledModel`` do).
+    Numerics are ``execute_packed``'s.  ``block_m`` / ``block_n`` are
+    the JAX package's Pallas tile sizes, accepted for parity: the CUDA
+    kernels choose their own tiles.
+    """
+    del block_m, block_n        # accepted for parity; see the docstring
+    return execute_packed(pack_program(program, params), x,
+                          return_logits=return_logits)

@@ -26,12 +26,14 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """The greedy decode step, computing in ``compute_dtype`` (the JAX
+    package's bfloat16 unless the caller asks for another)."""
     def serve_step(params, token, caches, position,
                    encoder_states: Optional[torch.Tensor] = None):
         logits, new_caches = lm.decode_step(
             params, cfg, token, caches, position,
-            encoder_states=encoder_states)
+            encoder_states=encoder_states, compute_dtype=compute_dtype)
         # the vocabulary whole on each rank: DTensor's argmax over a
         # sharded dim is not available in every torch version
         next_tok = shctx.unshard(logits[:, -1], -1).argmax(-1) \

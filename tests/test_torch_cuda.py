@@ -760,3 +760,100 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
                    tree_items(make_grad_fn(cfg)(params, batch)[1])])
     assert torch.corrcoef(torch.stack([x, y]))[0, 1] >= 0.99
     assert [k.launches for k in kernels] == before
+
+
+# ---------------------------------------------------------------------------
+# the examples (examples/*_torch.py) on the card, at a small size
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def quiet(fn, *args, **kw):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args, **kw)
+    return mod, quiet
+
+
+@pytest.mark.cuda
+def test_quickstart_example_custom_on_the_card(cuda):
+    """The custom net by default on the card: bit-exact against the
+    functional forward and through save/load, one launch of each kernel
+    per stage in ``run``."""
+    quick, quiet = _example("quickstart_torch")
+    r = quiet(quick.main, ["--net", "custom", "--batch", "3"])
+    assert r["device"].startswith("cuda")
+    assert r["exact"] and r["roundtrip"]
+    assert r["launches"] == {"crossbar_gemm": r["stages"],
+                             "fb_epilogue": r["stages"]}
+
+
+@pytest.mark.cuda
+def test_crossbar_inference_example_on_the_card(cuda):
+    """AlexNet at batch 2: the clean forward launches ``crossbar_gemm``
+    once per GEMM and equals the CPU's (argmax, 1e-4 relative); the noisy
+    one launches none."""
+    xb, quiet = _example("crossbar_inference_torch")
+    card = quiet(xb.main, ["--net", "alexnet", "--batch", "2"])
+    cpu = quiet(xb.main, ["--net", "alexnet", "--batch", "2", "--device",
+                          "cpu"])
+    c = card["clean"]
+    assert c["launches"] == c["gemms"] == 8
+    assert card["noisy"]["launches"] == 0
+    got, ref = c["logits"].cpu(), cpu["clean"]["logits"]
+    assert (got.argmax(1) == ref.argmax(1)).all()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_serve_lm_example_on_the_card(cuda):
+    """The example's loop in float32 on the card against the CPU: logits
+    within 1e-4 of max |logit| and equal ids; no kernel launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    sv, _ = _example("serve_lm_torch")
+    cfg = get_config("internlm2_1_8b").reduced()
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = [k.launches for k in kernels]
+    f32 = torch.float32
+    got = sv.generate(cfg, _to(params, cuda), prompts.to(cuda), None, 8,
+                      compute_dtype=f32)
+    want = sv.generate(cfg, params, prompts, None, 8, compute_dtype=f32)
+    assert [k.launches for k in kernels] == before
+    gap = (got["logits"].cpu() - want["logits"]).abs().max()
+    assert gap <= 1e-4 * want["logits"].abs().max()
+    assert torch.equal(got["seqs"].cpu(), want["seqs"])
+
+
+@pytest.mark.cuda
+def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two steps of a 2-layer reduced InternLM2 by default on the card:
+    finite losses, both steps saved, no kernel launch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    tl, quiet = _example("train_lm_torch")
+    monkeypatch.setattr(tl, "build_100m_config", lambda: dataclasses.replace(
+        get_config("internlm2_1_8b").reduced(), n_layers=2))
+    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
+               fused_gemm_epilogue, packed_gemm)
+    before = [k.launches for k in kernels]
+    r = quiet(tl.main, ["--steps", "2", "--batch", "2", "--seq", "32",
+                        "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
+    assert [k.launches for k in kernels] == before
+    assert r["device"].startswith("cuda") and len(r["losses"]) == 2
+    assert all(np.isfinite(r["losses"]))
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1", "step_2"]

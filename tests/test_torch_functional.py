@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.crossbar import CrossbarConfig as TCfg
 from repro_torch.core.crossbar import crossbar_linear, crossbar_matmul
 from repro_torch.kernels import crossbar_gemm
+from repro_torch.kernels.fb_epilogue import avg_windows
 from repro_torch.models import cnn as tcnn
 
 from test_torch_program import AVGPOOL_REL, _graphs, _params, _x
@@ -382,3 +383,28 @@ def test_primitives_against_jax():
     np.testing.assert_array_equal(
         tcnn.maxpool(torch.from_numpy(x)).numpy(),
         np.asarray(jcnn.maxpool(jnp.asarray(x))))
+
+
+def test_graph_forward_avgpool_sums_in_the_kernels_order():
+    """``graph.forward``'s average pool sums each window in row-major
+    order, as the ``fb_epilogue`` kernel and its plain version do, on
+    every device; a ``mean`` reduction orders its sums by device (on the
+    CPU it already differs on mixed-scale windows).  Identity 1x1 conv
+    and fc weights pass the pooled values through to the logits."""
+    C = 10
+    nb = tapi.NetworkBuilder("pool", input_hw=4, input_ch=C)
+    nb.conv(C, k=1, padding=0, name="c")
+    nb.avgpool(k=4, stride=4, name="gap")
+    nb.fc(C, name="fc")
+    graph = nb.build()
+    eye = torch.eye(C)
+    params = {"c": {"w": eye.reshape(1, 1, C, C), "b": torch.zeros(C)},
+              "fc": {"w": eye, "b": torch.zeros(C)}}
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(64, 4, 4, C, generator=g)
+         * torch.logspace(-4, 4, 16).reshape(1, 4, 4, 1))
+    got = graph.forward(params, x, logits=True)
+    want = avg_windows(x.reshape(64, 1, 4, 1, 4, C)).reshape(64, C)
+    assert torch.equal(got, want)
+    assert not torch.equal(x.reshape(64, 1, 4, 1, 4, C).mean(dim=(2, 4))
+                           .reshape(64, C), want)

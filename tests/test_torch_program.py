@@ -20,10 +20,12 @@ import torch
 
 from repro import api as japi
 from repro.program.execute import _static_stage as jax_static_stage
+from repro.program.execute import execute_program as jax_execute_program
 from repro.program.pack import pack_program as jax_pack_program
 from repro_torch import api as tapi
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import crossbar_gemm, fb_epilogue
+from repro_torch.program import execute_program
 from repro_torch.program.execute import _static_stage, execute_packed
 from repro_torch.program.pack import pack_program
 from repro_torch.program.serve import bucket_batch, pad_batch
@@ -225,6 +227,39 @@ def test_adc8_alexnet_runs_its_stages_on_the_sliced_branch(monkeypatch):
     model.run(_x(model.graph, 1), logits=True)
     assert len(calls) == len(model.program.stages()) - 1
     assert all(cg.clip_possible(r, 8) for r in calls)
+
+
+@pytest.mark.parametrize("net,cfg_kw,exact", [
+    ("custom8", dict(), False),                  # avg pool before fc
+    ("custom8", dict(adc_bits=5), False),        # sliced branch
+    ("alexnet", dict(array_rows=511), True),     # relu/maxpool chains
+])
+@pytest.mark.parametrize("logits", [True, False])
+def test_execute_program_against_jax_and_execute_packed(net, cfg_kw, exact,
+                                                        logits):
+    """The params-consuming entry packs under the call: equal to JAX's
+    jitted ``execute_program`` (interpret mode) where the whole network
+    is (logits exact, or argmax and AVGPOOL_REL after an average pool;
+    probabilities to 1e-6), and ``torch.equal`` to the port's
+    ``execute_packed`` on the model's packing."""
+    jm, tm, params = _models(net, cfg_kw)
+    x = _x(jm.graph, 2)
+    run = jax.jit(lambda p, v: jax_execute_program(
+        jm.program, p, v, interpret=True, return_logits=logits))
+    ref = np.asarray(run(jax.tree.map(jnp.asarray, params), jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    got = execute_program(tm.program, tm.params, xt, block_m=128,
+                          block_n=128, return_logits=logits)
+    assert torch.equal(got, execute_packed(tm.packed, xt,
+                                           return_logits=logits))
+    got = got.numpy()
+    if not logits:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    elif exact:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert (got.argmax(1) == ref.argmax(1)).all()
+        assert np.abs(got - ref).max() <= AVGPOOL_REL * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("batch", [3, 5])
