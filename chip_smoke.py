@@ -229,7 +229,42 @@ each on standard output (the per-shape details go to standard error):
     in-memory ResNet-18; (g) ``program.execute_program`` on ResNet-18 at
     batch 16 ``torch.equal`` to ``execute_packed``, one launch of each
     kernel per stage, both times.  (b)'s CPU references run in a thread
-    beside (d)'s two subprocesses (whose times are not kept).
+    beside (d)'s two subprocesses (whose times are not kept);
+25. crossbar programs at other widths (``WIDTHS``: 4- to 8-bit operands,
+    5- to 8-bit ADCs, 512/256/128-row arrays): (b) the sliced branch at
+    adc 5/6/7 x rows 128/256 (``NARROW``) against its plain version, M
+    1/4/16, a K of 40 chunks (split by chunk, and forced unsplit), all -1
+    operands, clips where ``clip_possible`` says; (a) ResNet-18 b16 and
+    AlexNet b4 compiled on the card at every width, ``torch.equal`` to
+    the CPU plain path (computed in a worker thread meanwhile), each
+    stage on the branch ``clip_possible(min(rows, K), adc_bits)``
+    predicts, both counters one launch per stage, µs per batch beside the
+    8/8/9 default's; vit_tiny b16 at ``w4a4_adc6``: every stage
+    teacher-forced from the CPU path's buffers (held as in 12), its
+    branches, the free run against the CPU (12's ``VIT_REL`` /
+    ``VIT_PROB_ATOL``), time per batch;
+26. every LM family at its published width (plain PyTorch): (a) the nine
+    archs other than Qwen3-8B at full width, the depth cut to one of every
+    block kind (``WIDE_CUTS``), float32 weights drawn on the card, forward
+    b2 x 64 and 8 teacher-forced decode steps against the CPU on a copy
+    of the weights (``LM_TOL``; each CPU side in a worker thread while the
+    next arch runs on the card; (a) itself runs while 25's CPU references
+    finish); (b) the five whose bfloat16 weights fit
+    one card (``SERVED``) at full width and depth: 32 teacher-forced
+    decode steps against the forward (float32 compute: 21 (c)'s
+    thresholds, MoE ``MOE_CORR`` with its agreement printed; bfloat16:
+    correlation, printed for ``BF16_DRIFT``),
+    ``make_prefill_step`` at b1 x 2048 (Whisper: 64 tokens over 1500
+    frames), ``greedy_generate`` at b4 (64-token prompt, 32 new) and a
+    decode step timed beside floors worked out from the code's work
+    (``lm_flop``), with busy time, idle share, the init and serving
+    peaks; part 3, the int8 KV cache at the served Qwen3-8B cache's shape
+    on a 16-slot ring (``KV_RING``): every field of every update and
+    ``read_quant_cache`` ``torch.equal`` card against CPU, ``_decode_mha``
+    over it within ``KV_ATTN_TOL`` of the float32 ring's; (c) no launch of
+    the five kernels across the phase.  To run 25-26 alone, drive
+    ``widths_phase`` and ``lm_wide_phase`` from a script under ``build/``
+    after the kernel build.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises before it.
@@ -353,22 +388,26 @@ def device_ms(fn, calls: int = TIMED_LAUNCHES, replays: int = 5) -> float:
 
 
 def forward_profile(fn, runs: int = 3, top: int | None = 8,
-                    name_chars: int = 60) -> tuple[float | None, list]:
+                    name_chars: int = 60,
+                    warm: bool = True) -> tuple[float | None, list]:
     """(device-busy ms, top kernels) per call of a forward, or (None, [])
     when the profiler sees no device events.
 
     Busy time is the summed duration of the device's kernels and copies
     per call (profiler device events); a first short session warms the
-    profiler up.  The kernels are (ms, launches, name) per call, grouped
-    by the first ``name_chars`` characters of their names, the ``top``
-    largest by time (all of them when ``top`` is None).
+    profiler up (``warm=False`` leaves it out, where an earlier session
+    has warmed it and ``fn`` launches too much to trace twice).  The
+    kernels are (ms, launches, name) per call, grouped by the first
+    ``name_chars`` characters of their names, the ``top`` largest by time
+    (all of them when ``top`` is None).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
-        fn()
-        torch.cuda.synchronize()
+    if warm:
+        with profile(activities=acts):
+            fn()
+            torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         for _ in range(runs):
             fn()
@@ -386,10 +425,11 @@ def forward_profile(fn, runs: int = 3, top: int | None = 8,
     return sum(ms for ms, _, _ in kernels), kernels[:top]
 
 
-def wall_ms(fn, runs: int = 10) -> float:
-    """Median host-clock time of ``fn`` ending in a device synchronize."""
+def wall_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Median host-clock time of ``fn`` ending in a device synchronize,
+    after ``warmup`` calls."""
     import torch
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -815,20 +855,16 @@ def gemm_exact_phase(dev, gen, shapes) -> tuple[int, int, int]:
     return worst, n + 2, split
 
 
-def gemm_sliced_phase(dev, gen) -> tuple[int, int, int, int]:
-    """Phase 3: the sliced branch against its plain version on inputs where
-    clips fire (a quarter of the rows and columns all ones), every chunk
-    height of the program and the smoke run at M = 1, 4, 16, all -1 (every
-    count equals the chunk height), and the chunk split on and off.
-    Returns (max error, cases, cases where a clip fired, the split)."""
+def _sliced_cases(dev, gen, cases) -> tuple[int, int]:
+    """Each (adc, rows, M, K, N) of ``cases`` through the sliced branch
+    against its plain version, a quarter of the rows and columns all
+    ones (their counts reach the chunk height); a clip must fire exactly
+    where ``clip_possible`` says.  Returns (max error, cases where a clip
+    fired)."""
     import torch
     from repro_torch.kernels import (clip_possible, crossbar_gemm,
                                      crossbar_gemm_exact_ref,
                                      crossbar_gemm_ref)
-    cases = [(8, 494, 2048, 988, 64), (8, 494, 1024, 1976, 384),
-             (9, 512, 512, 1536, 96), (9, 512, 33, 700, 17),
-             (8, 486, 64, 4446, 1024)]
-    cases += [(8, rows, M, 1458, 77) for rows in EDGE_ROWS for M in EDGE_M]
     worst = clipped = 0
     for adc, rows, M, K, N in cases:
         x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
@@ -847,11 +883,40 @@ def gemm_sliced_phase(dev, gen) -> tuple[int, int, int, int]:
         check(fired == clip_possible(rows, adc), f"ADC clips at adc={adc} "
               f"rows={rows} M={M}: fired {fired}")
         clipped += int(fired)
+    return worst, clipped
+
+
+def _all_minus_one(dev, adc: int, rows: int) -> None:
+    """All -1 operands (every bit set: each count equals the chunk height
+    and clips wherever a clip can fire) through the sliced branch, equal to
+    the plain version."""
+    import torch
+    from repro_torch.kernels import (clip_possible, crossbar_gemm,
+                                     crossbar_gemm_exact_ref,
+                                     crossbar_gemm_ref)
     x = torch.full((16, 4860), -1, dtype=torch.int8, device=dev)
     w = torch.full((4860, 77), -1, dtype=torch.int8, device=dev)
-    y = crossbar_gemm(x, w, adc_bits=8, rows=494, exact=False)
-    check(torch.equal(y, crossbar_gemm_ref(x, w, adc_bits=8, rows=494)),
-          "crossbar_gemm sliced differs on all -1 operands")
+    y = crossbar_gemm(x, w, adc_bits=adc, rows=rows, exact=False)
+    ref = crossbar_gemm_ref(x, w, adc_bits=adc, rows=rows)
+    check(torch.equal(y, ref), f"crossbar_gemm sliced differs on all -1 "
+          f"operands at adc={adc} rows={rows}")
+    check(torch.equal(ref, crossbar_gemm_exact_ref(x, w))
+          != clip_possible(rows, adc), f"all -1 operands at adc={adc} "
+          f"rows={rows}: clips not where clip_possible says")
+
+
+def gemm_sliced_phase(dev, gen) -> tuple[int, int, int, int]:
+    """Phase 3: the sliced branch against its plain version on inputs where
+    clips fire (a quarter of the rows and columns all ones), every chunk
+    height of the program and the smoke run at M = 1, 4, 16, all -1 (every
+    count equals the chunk height), and the chunk split on and off.
+    Returns (max error, cases, cases where a clip fired, the split)."""
+    cases = [(8, 494, 2048, 988, 64), (8, 494, 1024, 1976, 384),
+             (9, 512, 512, 1536, 96), (9, 512, 33, 700, 17),
+             (8, 486, 64, 4446, 1024)]
+    cases += [(8, rows, M, 1458, 77) for rows in EDGE_ROWS for M in EDGE_M]
+    worst, clipped = _sliced_cases(dev, gen, cases)
+    _all_minus_one(dev, 8, 494)
     split = _split_on_and_off(dev, gen, False, 4, 4374, 1024, 486, 8)
     return worst, len(cases) + 2, clipped + 1, split
 
@@ -1813,13 +1878,14 @@ def lm_reduced(dev) -> dict:
     return errs
 
 
-def _full(arch: str, n_layers: int | None = None):
-    """``arch``'s published config, its depth cut to ``n_layers``."""
+def _full(arch: str, n_layers: int | None = None, **kw):
+    """``arch``'s published config, its depth cut to ``n_layers`` (and
+    any other field replaced by ``kw``)."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    return cfg if n_layers is None else dataclasses.replace(
-        cfg, n_layers=n_layers)
+    if n_layers is not None:
+        kw["n_layers"] = n_layers
+    return dataclasses.replace(get_config(arch), **kw)
 
 
 def qwen_depth2(dev) -> float:
@@ -3237,6 +3303,647 @@ def examples_line(ep: dict, card: str) -> str:
             + f") | {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 25: crossbar programs at other bit widths and array heights
+# ---------------------------------------------------------------------------
+
+# HurryConfig kwargs of the widths held (tests/test_torch_program.py's
+# WIDTHS): narrower operands and ADCs on 512-row arrays, and smaller arrays
+# (128 rows: the isaac-128 baseline's)
+WIDTHS = {
+    "w4a4_adc5": dict(input_bits=4, weight_bits=4, adc_bits=5),
+    "w8a6_adc5": dict(input_bits=6, weight_bits=8, adc_bits=5),
+    "w4a8_adc5": dict(input_bits=8, weight_bits=4, adc_bits=5),
+    "w4a4_adc6": dict(input_bits=4, weight_bits=4, adc_bits=6),
+    "rows256_adc8": dict(array_rows=256, adc_bits=8),
+    "rows128_adc7": dict(array_rows=128, adc_bits=7),
+}
+WIDTH_NETS = (("resnet18", 16), ("alexnet", 4))      # (a): net, batch
+WIDTH_VIT = ("w4a4_adc6", 16)                         # (a): width, batch
+# (b): narrower ADCs on smaller arrays; every full chunk can clip
+NARROW = tuple((adc, rows) for adc in (5, 6, 7) for rows in (128, 256))
+
+
+def narrow_sliced_phase(dev, gen) -> dict:
+    """(b): the sliced branch at every ``NARROW`` (adc, rows) against its
+    plain version: M 1/4/16 x K 1458 x N 77 and a K of 40 chunks at M 4
+    (where the kernel splits K by chunk) with a quarter of the rows and
+    columns all ones, all -1 operands, and the chunk split on and off."""
+    cases = [(adc, rows, M, 1458, 77) for adc, rows in NARROW
+             for M in EDGE_M]
+    cases += [(adc, rows, 4, 40 * rows, 64) for adc, rows in NARROW]
+    worst, clipped = _sliced_cases(dev, gen, cases)
+    for adc, rows in NARROW:
+        _all_minus_one(dev, adc, rows)
+    splits = {f"adc{adc}/rows{rows}": _split_on_and_off(
+        dev, gen, False, 4, 40 * rows, 64, rows, adc)
+        for adc, rows in NARROW}
+    return dict(err=worst, cases=len(cases) + 2 * len(NARROW),
+                clipped=clipped + len(NARROW), splits=splits)
+
+
+def _branches(fn) -> tuple:
+    """(fn(), calls): per ``crossbar_gemm`` call of the executor in this
+    thread (a worker may run the CPU path meanwhile), (K, rows, adc_bits,
+    whether the exact kernel ran), the last read where the wrapper
+    launches (``_launch``'s ``exact``)."""
+    import threading
+    cg = importlib.import_module("repro_torch.kernels.crossbar_gemm")
+    execute = importlib.import_module("repro_torch.program.execute")
+    launch, gemm = cg._launch, execute.crossbar_gemm
+    calls: list = []
+    me = threading.get_ident()
+
+    def spy_gemm(x8, w8, **kw):
+        if threading.get_ident() == me:
+            calls.append([w8.shape[-2], kw["rows"], kw["adc_bits"], None])
+        return gemm(x8, w8, **kw)
+
+    def spy_launch(*args, **kw):
+        if threading.get_ident() == me:
+            calls[-1][3] = kw["exact"]
+        return launch(*args, **kw)
+
+    cg._launch, execute.crossbar_gemm = spy_launch, spy_gemm
+    try:
+        out = fn()
+    finally:
+        cg._launch, execute.crossbar_gemm = launch, gemm
+    return out, calls
+
+
+def _check_branches(name: str, model, calls) -> dict:
+    """Each stage's ``crossbar_gemm`` launched the branch that
+    ``clip_possible(min(rows, K), adc_bits)`` predicts for it: the static
+    stages' K and rows those of the program (mounted K, ``tile_rows``),
+    the dynamic stages' the runtime head dim or sequence length.  Returns
+    the launches per branch."""
+    from repro_torch.kernels import clip_possible
+    stages = list(zip(model.program.stages(), model.packed.stages))
+    check(len(calls) == len(stages) and all(c[3] is not None for c in calls),
+          f"{name}: {len(calls)} crossbar_gemm calls for {len(stages)} "
+          "stages, or one that launched no kernel")
+    for ((op, _), st), (K, rows, adc, exact) in zip(stages, calls):
+        if op.kind != "dyn_gemm":
+            check((K, rows) == (st.w8.shape[0], op.tile_rows),
+                  f"{name} {op.name}: K, rows {(K, rows)} are not the "
+                  f"program's {(st.w8.shape[0], op.tile_rows)}")
+        check(adc == model.program.cfg.adc_bits
+              and exact == (not clip_possible(min(rows, K), adc)),
+              f"{name} {op.name}: K {K} rows {rows} adc {adc} launched the "
+              f"{'exact' if exact else 'sliced'} branch")
+    n_exact = sum(c[3] for c in calls)
+    return {"exact": n_exact, "sliced": len(calls) - n_exact}
+
+
+def _width_inputs(batch: int):
+    import numpy as np
+    return np.random.default_rng(25).standard_normal(
+        (batch, 32, 32, 3)).astype(np.float32)
+
+
+def width_cpu_refs(api) -> dict:
+    """The CPU plain path's logits on the same weights and inputs, for
+    every (net, width) of (a)."""
+    out = {}
+    for net, batch in WIDTH_NETS:
+        for name, kw in WIDTHS.items():
+            model = api.compile(net, api.HurryConfig(**kw), seed=0,
+                                device="cpu")
+            out[net, name] = model.run(_width_inputs(batch), logits=True)
+    return out
+
+
+def widths_phase(dev, gen, meanwhile=None) -> dict:
+    """Phase 25: (b) the sliced branch at ``NARROW`` on the kernel, then (a)
+    ResNet-18 b16 and AlexNet b4 compiled on the card at every ``WIDTHS``
+    row, run once with both launch counters counted, and held to the CPU
+    plain path on the same weights and inputs (``torch.equal``, computed
+    in a worker thread meanwhile), each stage's branch against
+    ``clip_possible``, and time per batch (``wall_ms``) beside the 8/8/9
+    default's; vit_tiny b16 at ``WIDTH_VIT``: every stage teacher-forced
+    from the CPU path's buffers (int32 GEMM outputs ``torch.equal``, FB
+    outputs within ``FB_CASES``' tolerances), its branches, the free run
+    against the CPU (argmax equal, ``VIT_REL`` / ``VIT_PROB_ATOL``; at 4
+    bits a last-ulp difference that lands on an exact quantization tie
+    moves a value by a seventh of its range, as against JAX on the CPU:
+    ``ROADMAP.md`` section 3), and its time beside the default's.
+    ``meanwhile()``, where given, runs on the card while the CPU side
+    finishes (it must patch nothing of the executor); its result is
+    ``out["meanwhile"]``."""
+    import torch
+    from repro_torch import api
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(width_cpu_refs, api)
+        out = dict(narrow=narrow_sliced_phase(dev, gen), nets={},
+                   launches={"crossbar_gemm": 0, "fb_epilogue": 0},
+                   sliced=0)
+
+        def run(net: str, cfg, x) -> dict:
+            model = api.compile(net, cfg, seed=0, device="cuda")
+            (logits, calls), n = counted(lambda: _branches(
+                lambda: model.run(x, logits=True)))
+            stages = len(model.program.stages())
+            check(n == {"crossbar_gemm": stages, "fb_epilogue": stages},
+                  f"{net} launches {n}, expected {stages} each")
+            for k in n:
+                out["launches"][k] += n[k]
+            branches = _check_branches(net, model, calls)
+            out["sliced"] += branches["sliced"]
+            return dict(model=model, logits=logits.cpu(),
+                        branches=branches, us=wall_ms(lambda: model.run(x))
+                        * 1e3)
+
+        for net, batch in WIDTH_NETS:
+            x = _width_inputs(batch)
+            default = api.compile(net, api.HurryConfig(), seed=0,
+                                  device="cuda")
+            r = dict(default_us=wall_ms(lambda: default.run(x)) * 1e3,
+                     widths={})
+            for name, kw in WIDTHS.items():
+                w = run(net, api.HurryConfig(**kw), x)
+                del w["model"]
+                r["widths"][name] = w
+            out["nets"][net] = r
+        name, batch = WIDTH_VIT
+        x = _width_inputs(batch)
+        vit = run("vit_tiny", api.HurryConfig(**WIDTHS[name]), x)
+        default = api.compile("vit_tiny", api.HurryConfig(), seed=0,
+                              device="cuda")
+        vit["default_us"] = wall_ms(lambda: default.run(x)) * 1e3
+        probs = vit["model"].run(x).cpu()
+        if meanwhile is not None:
+            out["meanwhile"] = meanwhile()
+        cpu = refs.result()
+    # vit_tiny's CPU side records its stages (``record_stages`` patches
+    # the executor), so it runs with no card forward beside it
+    vit_cpu = api.compile("vit_tiny", api.HurryConfig(**WIDTHS[name]),
+                          seed=0, device="cpu")
+    cpu["vit"] = dict(recs=record_stages(vit_cpu, x)[1],
+                      probs=vit_cpu.run(x), logits=vit_cpu.run(x, logits=True))
+    for net, r in out["nets"].items():
+        for name, w in r["widths"].items():
+            check(torch.equal(w["logits"], cpu[net, name]),
+                  f"{net} {name}: logits on the card differ from the CPU "
+                  "plain path's")
+    forced = teacher_forced(vit["model"], cpu["vit"]["recs"])
+    for f in forced:
+        check(f["gemm_equal"] and f["fb_err"] <= f["fb_atol"],
+              f"vit_tiny {name} teacher-forced stage {f['name']}: int32 "
+              f"equal {f['gemm_equal']}, FB off by {f['fb_err']:.2e} "
+              f"(limit {f['fb_atol']})")
+    ref, got = cpu["vit"]["logits"], vit["logits"]
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(probs)
+                                                   .all()),
+          "vit_tiny non-finite on the card")
+    vit.update(rel=((got - ref).abs().max() / ref.abs().max()).item(),
+               prob=(probs - cpu["vit"]["probs"]).abs().max().item(),
+               agree=(got.argmax(1) == ref.argmax(1)).float().mean().item(),
+               forced=len(forced),
+               fb_err=max(f["fb_err"] for f in forced))
+    check(vit["agree"] == 1.0 and vit["rel"] <= VIT_REL
+          and vit["prob"] <= VIT_PROB_ATOL,
+          f"vit_tiny {name} b{batch} card vs CPU: argmax agreement "
+          f"{vit['agree']}, rel {vit['rel']:.2e} (limit {VIT_REL}), probs "
+          f"{vit['prob']:.2e} (limit {VIT_PROB_ATOL})")
+    del vit["model"]
+    out["vit"] = vit
+    out["s"] = (time.perf_counter() - t0
+                - out.get("meanwhile", {}).get("s", 0.0))
+    return out
+
+
+def widths_line(wp: dict, card: str) -> str:
+    """Phase 25's line on standard output."""
+    nb, v = wp["narrow"], wp["vit"]
+    nets = "; ".join(
+        f"{net} b{batch} (default 8/8/9 {wp['nets'][net]['default_us']:.0f} "
+        "us/batch): " + ", ".join(
+            f"{name} exact/sliced {w['branches']['exact']}/"
+            f"{w['branches']['sliced']} {w['us']:.0f} us"
+            for name, w in wp["nets"][net]["widths"].items())
+        for net, batch in WIDTH_NETS)
+    name, batch = WIDTH_VIT
+    return (f"[25 widths] (a) every width's logits torch.equal to the CPU "
+            f"plain path, each stage on the branch clip_possible predicts; "
+            f"{nets}; vit_tiny {name} b{batch}: {v['forced']} stages "
+            f"teacher-forced (int32 torch.equal, FB max err "
+            f"{v['fb_err']:.2e}), exact/sliced {v['branches']['exact']}/"
+            f"{v['branches']['sliced']}, free run vs CPU rel "
+            f"{v['rel']:.2e} probs {v['prob']:.2e} argmax agreement "
+            f"{v['agree']:.4f} (limits VIT_REL {VIT_REL}, VIT_PROB_ATOL "
+            f"{VIT_PROB_ATOL}), {v['us']:.0f} us beside the default's "
+            f"{v['default_us']:.0f}; launches {wp['launches']} "
+            f"({wp['sliced']} sliced); (b) sliced branch at adc/rows "
+            + ", ".join(f"{a}/{r}" for a, r in NARROW)
+            + f": {nb['cases']} cases equal to the plain version (max err "
+            f"{nb['err']}), clips fired in {nb['clipped']}, chunk split "
+            + ", ".join(f"{k} {v_}" for k, v_ in nb["splits"].items())
+            + f" and 1; phase {wp['s']:.1f} s (26 (a) beside it not "
+            f"counted) | {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 26: every LM family at its published width
+# ---------------------------------------------------------------------------
+
+# (a): each arch but Qwen3-8B (phase 21 (b)) at full width, its depth cut
+# to the fewest layers that hold one of every block kind: one Zamba2 group
+# of 6 Mamba2 blocks and the shared attention, one xLSTM group of 7 mLSTM
+# blocks and an sLSTM, Whisper's encoder and decoder 2 each
+WIDE_CUTS = {
+    "internlm2_1_8b": dict(n_layers=2),
+    "phi3_medium_14b": dict(n_layers=2),
+    "granite_34b": dict(n_layers=2),
+    "qwen2_vl_72b": dict(n_layers=2),
+    "mixtral_8x22b": dict(n_layers=2),
+    "granite_moe_3b_a800m": dict(n_layers=2),
+    "zamba2_2_7b": dict(n_layers=6),
+    "xlstm_1_3b": dict(n_layers=8),
+    "whisper_medium": dict(n_layers=2, encoder_layers=2),
+}
+WIDE = dict(batch=2, seq=64, steps=8)
+# (b): the archs whose bfloat16 weights fit one card, at full width and
+# depth: decode against forward over `teacher` tokens (batch 2), prefill at
+# batch 1 (Whisper: `prompt` decoder tokens over its 1500 frames),
+# greedy_generate at `batch` with a `prompt`-token prompt and `new` tokens
+SERVED = ("granite_moe_3b_a800m", "zamba2_2_7b", "xlstm_1_3b",
+          "whisper_medium", "phi3_medium_14b")
+SERVE_WIDE = dict(teacher=32, prefill=2048, batch=4, prompt=64, new=32)
+# tests/test_archs_smoke.py's MoE correlation (capacity drops in the
+# forward, none in a 1-token decode step); its argmax agreement (0.7) is
+# printed, not held: at granite-moe's published routing (40 experts, top
+# 8; capacity 8 a row at 32 tokens) the JAX package's own decode agrees
+# with its forward on 0.578 of positions (reduced width, float32; the
+# port's forward within 6e-7 of JAX's there)
+MOE_CORR = 0.9
+# archs whose bfloat16 decode-against-forward correlation is printed, not
+# held: xLSTM's bfloat16 run drifts from its own float32 run with depth,
+# forward and decode alike (correlation to float32 0.996 at 8 layers,
+# 0.75-0.77 at 48 on an H100), and the JAX package's decode-against-
+# forward falls the same way on the CPU (0.9975 at 8 layers, 0.985 at
+# 16); its float32 compute pins the recurrent steps to the chunked scans
+BF16_DRIFT = ("xlstm_1_3b",)
+# part 3: the int8 KV cache at the served Qwen3-8B cache's shape (batch 8,
+# 8 kv heads of 128) on a ring of `slots` positions, `steps` one-token
+# updates (two wraps) and an `append`-token one at step `at`, whose slot
+# (14) is clipped back so the update fits, as XLA clips it;
+# tests/test_kv_quant.py's rtol / atol for attention over the int8 cache
+KV_RING = dict(batch=8, slots=16, steps=40, append=4, at=30)
+KV_ATTN_TOL = 0.05
+
+
+def _wide_ref(cfg, params, tokens, frames, got) -> dict:
+    """(a)'s CPU side: the same float32 forward and decode steps on the CPU
+    copy of the weights, each part's gap to the card's relative to max
+    |logit|."""
+    import torch
+    want = lm_logits(cfg, params, tokens, frames, WIDE["steps"],
+                     torch.float32)
+    return {part: _rel(g, w) for part, g, w in
+            zip(("forward", "encode", "decode"), got, want)
+            if w is not None}
+
+
+def lm_wide(dev) -> dict:
+    """(a): every ``WIDE_CUTS`` arch at full width, float32 weights drawn
+    on the card: forward at ``WIDE`` batch x seq and ``WIDE['steps']``
+    teacher-forced decode steps on the card against the CPU on a copy of
+    the same weights, to ``LM_TOL``.  Each arch's CPU side runs in a worker
+    thread while the next arch runs on the card (two CPU copies at most)."""
+    import torch
+    from repro_torch.models import lm
+    errs, pending = {}, None
+    b, s, steps = WIDE["batch"], WIDE["seq"], WIDE["steps"]
+    f32 = torch.float32
+
+    def done(arch, fut) -> None:
+        errs[arch] = e = fut.result()
+        check(all(v <= LM_TOL for v in e.values()),
+              f"{arch} full width card vs CPU {e} (limit {LM_TOL})")
+        detail(f"  26a {arch}: " + ", ".join(f"{k} {v:.2e}"
+                                            for k, v in e.items()))
+
+    with ThreadPoolExecutor(1) as pool:
+        for i, (arch, kw) in enumerate(WIDE_CUTS.items()):
+            cfg = _full(arch, **kw)
+            gen = torch.Generator(dev).manual_seed(260 + i)
+            params = lm.init_params(cfg, gen, device=dev)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                   generator=gen)
+            frames = (torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                  device=dev, generator=gen)
+                      if cfg.is_encdec else None)
+            got = [None if t is None else t.cpu() for t in
+                   lm_logits(cfg, params, tokens, frames, steps, f32)]
+            for part, g in zip(("forward", "encode", "decode"), got):
+                check(g is None or bool(torch.isfinite(g).all()),
+                      f"{arch} {part}: non-finite on the card")
+            host = _tree(lambda t: t.cpu(), params)
+            del params
+            torch.cuda.empty_cache()
+            if pending is not None:
+                done(*pending)
+            pending = (arch, pool.submit(
+                _wide_ref, cfg, host, tokens.cpu(),
+                None if frames is None else frames.cpu(), got))
+            del host
+        done(*pending)
+    return errs
+
+
+def _uses(cfg, path: str, S: int, enc_S: int, encoder: bool) -> int:
+    """How many rows go through a matrix leaf at ``path`` in one forward
+    of ``S`` tokens at batch 1 over ``enc_S`` encoder frames (the encoder
+    run too where ``encoder``): what the code computes, so the MoE
+    experts count their capacity slots and Zamba2's shared block each of
+    its applications; 0 for the embedding table (a gather)."""
+    if path == "embed":
+        return S if cfg.tie_embeddings else 0
+    if path.startswith("enc_blocks/"):
+        return enc_S if encoder else 0
+    if path.startswith("dec_blocks/cross_attn/w") and path[-2:] in ("wk",
+                                                                    "wv"):
+        return enc_S
+    if "/moe/w_" in path:
+        return max(1, int(1.25 * S * cfg.experts_per_token / cfg.n_experts))
+    if path.startswith("shared/"):
+        return S * (cfg.n_layers // cfg.shared_attn_every)
+    return S
+
+
+def lm_flop(cfg, params, S: int, enc_S: int = 0, keys: int = 0,
+            encoder: bool = True) -> float:
+    """The products of one forward over ``S`` tokens at batch 1 against
+    ``keys`` keys (``S`` when 0): every matrix leaf times the rows through
+    it (``_uses``), and 4 * hd operations per (query, key) pair of every
+    attention (all keys, as ``mha`` and ``mha_chunked`` compute them);
+    the recurrent scans of Mamba2, mLSTM and sLSTM are not counted (a
+    lower bound)."""
+    from repro_torch.tree import tree_items
+    flop = sum(2 * t.numel() * _uses(cfg, path, S, enc_S, encoder)
+               for path, t in tree_items(params) if t.ndim >= 2)
+    keys = keys or S
+    pairs = 0
+    if cfg.family in ("dense", "moe", "vlm"):
+        pairs = cfg.n_layers * S * keys
+    elif cfg.family == "hybrid":
+        pairs = cfg.n_layers // cfg.shared_attn_every * S * keys
+    elif cfg.family == "audio":
+        pairs = (cfg.encoder_layers * enc_S * enc_S * encoder
+                 + cfg.n_layers * (S * keys + S * enc_S))
+    return flop + 4 * cfg.n_heads * cfg.resolved_head_dim * pairs
+
+
+def lm_served(dev, arch: str, seed: int) -> dict:
+    """(b) for one arch: full width and depth, bfloat16 weights drawn on
+    the card; decode against forward in float32 and bfloat16 compute;
+    ``make_prefill_step``, ``greedy_generate`` and a decode step timed
+    beside their floors, with busy time, idle share and peak memory."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.step import (greedy_generate, make_decode_step,
+                                        make_prefill_step)
+    from repro_torch.tree import tree_items
+    start = time.perf_counter()
+    cfg = _full(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = lm.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nbytes = {path: t.numel() * t.element_size()
+              for path, t in tree_items(params)}
+    weight_b = sum(nbytes.values())
+    # what a forward reads: every weight but the embedding table (a
+    # gather), unless it is also the head; a decode step not the encoder
+    read_b = weight_b - (0 if cfg.tie_embeddings else nbytes["embed"])
+    step_b = read_b - sum(n for path, n in nbytes.items()
+                          if path.startswith("enc_"))
+    enc = cfg.encoder_seq if cfg.is_encdec else 0
+
+    def frames(batch: int):
+        return (torch.randn((batch, enc, cfg.d_model), device=dev,
+                            generator=gen, dtype=torch.bfloat16)
+                if enc else None)
+
+    T = SERVE_WIDE["teacher"]
+    tokens = torch.randint(0, cfg.vocab_size, (2, T), device=dev,
+                           generator=gen)
+    fr = frames(2)
+    out = dict(gb=weight_b / 1e9, init_peak_gb=init_peak)
+    corr_min = MOE_CORR if cfg.n_experts else QWEN_CORR
+    f32_fwd = None
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fwd, _, dec = lm_logits(cfg, params, tokens, fr, T, dtype)
+        agree, corr = _agreement(fwd, dec)
+        finite = bool(torch.isfinite(dec).all() & torch.isfinite(fwd).all())
+        out[name] = dict(agree=agree, corr=corr)
+        if f32_fwd is None:
+            f32_fwd = fwd.float()
+        else:            # the bfloat16 forward against the float32 one
+            out[name]["to_f32"] = _agreement(f32_fwd, fwd)[1]
+        # agreement held in float32 compute and not for MoE (see
+        # MOE_CORR); the correlation in both but for BF16_DRIFT in bf16
+        check(finite and (corr > corr_min or (name == "bf16"
+                                              and arch in BF16_DRIFT))
+              and (agree > QWEN_AGREE or name == "bf16" or cfg.n_experts),
+              f"{arch} {name} compute: decode vs forward agreement "
+              f"{agree:.4f} (> {QWEN_AGREE}), correlation {corr:.5f} "
+              f"(> {corr_min}), finite {finite}")
+        del fwd, dec
+
+    S = SERVE_WIDE["prompt"] if enc else SERVE_WIDE["prefill"]
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
+                           generator=gen)
+    fr1 = frames(1)
+    prefill = make_prefill_step(cfg)
+    last = prefill(params, prompt, fr1)
+    check(last.shape == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()),
+          f"{arch} prefill logits {tuple(last.shape)} not finite")
+    del last
+    out["prefill_tokens"] = S
+    # the call above warmed the prefill, and phase 21 the profiler (the
+    # sLSTM's loop launches some 10^5 kernels a prefill)
+    out["prefill_ms"] = wall_ms(lambda: prefill(params, prompt, fr1), runs=3,
+                                warmup=1)
+    out["prefill_busy"], _ = forward_profile(
+        lambda: prefill(params, prompt, fr1), runs=1, top=None, warm=False)
+    flop = lm_flop(cfg, params, S, enc)
+    out["prefill_tflop"] = flop / 1e12
+    out["prefill_floor"] = max(flop / BF16_OPS_PER_S,
+                               read_b / HBM_BYTES_PER_S) * 1e3
+
+    B, P, N = (SERVE_WIDE[k] for k in ("batch", "prompt", "new"))
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=gen, dtype=torch.int32)
+    states = lm.encode(params, cfg, frames(B)) if enc else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_out = greedy_generate(cfg, params, prompt, N, encoder_states=states)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t0
+    check(gen_out.shape == (B, P + N) and torch.equal(gen_out[:, :P], prompt)
+          and bool(((gen_out >= 0) & (gen_out < cfg.padded_vocab)).all()),
+          f"{arch} greedy_generate output {tuple(gen_out.shape)} wrong")
+    decode = make_decode_step(cfg)
+    caches = lm.init_caches(cfg, B, P + N, params=params)
+    tok = gen_out[:, P:P + 1]
+    pos = torch.tensor(P, dtype=torch.int32, device=dev)
+    step = lambda: decode(params, tok, caches, pos,         # noqa: E731
+                          encoder_states=states)
+    out["step_ms"] = wall_ms(step, runs=5)
+    out["step_busy"], _ = forward_profile(step, runs=3, top=None)
+    cache_b = sum(t.numel() * t.element_size()
+                  for t in _tree_leaves(caches))
+    # a step reads its weights (B rows of the embedding table), reads the
+    # cache and writes its new copy; Whisper's cross K/V come from the
+    # encoder states again at every step
+    step_flop = B * lm_flop(cfg, params, 1, enc, keys=P + 1, encoder=False)
+    out["step_floor"] = max(
+        (step_b + B * cfg.d_model * 2 + 2 * cache_b) / HBM_BYTES_PER_S,
+        step_flop / BF16_OPS_PER_S) * 1e3
+    out["tok_s"] = B / out["step_ms"] * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, caches, states
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - start
+    return out
+
+
+def kv_ring_phase(dev) -> dict:
+    """Part 3: ``update_quant_cache`` on the card and on the CPU over
+    ``KV_RING``'s ring, every field ``torch.equal`` after every update,
+    ``read_quant_cache`` equal, and ``_decode_mha`` over the dequantised
+    int8 cache within ``KV_ATTN_TOL`` of the same attention over a float32
+    ring given the same updates (``dynamic_update_slice``)."""
+    import torch
+    from repro_torch.models.layers import (_decode_mha, dynamic_update_slice,
+                                           init_kv_cache)
+    from repro_torch.serve.kv_quant import (init_quant_kv_cache,
+                                            read_quant_cache,
+                                            update_quant_cache)
+    cfg = _full("qwen3_8b")
+    b, slots = KV_RING["batch"], KV_RING["slots"]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(26)
+    devs = (torch.device("cpu"), dev)
+    q8 = {d: init_quant_kv_cache(b, slots, cfg, device=d) for d in devs}
+    fl = {d: init_kv_cache(b, slots, cfg, torch.float32, device=d)
+          for d in devs}
+    n = 0
+    for i in range(KV_RING["steps"]):
+        s = KV_RING["append"] if i == KV_RING["at"] else 1
+        k = torch.randn((b, s, hkv, hd), generator=gen) * 3
+        v = torch.randn((b, s, hkv, hd), generator=gen)
+        k[0, 0, 0] = 0                                  # a zero row
+        for d in devs:
+            q8[d] = update_quant_cache(q8[d], k.to(d), v.to(d))
+            c = fl[d]
+            slot = c["index"] % slots
+            fl[d] = dict(k=dynamic_update_slice(c["k"], k.to(d), slot),
+                         v=dynamic_update_slice(c["v"], v.to(d), slot),
+                         index=c["index"] + s)
+        for f in q8[devs[0]]:
+            check(torch.equal(q8[dev][f].cpu(), q8[devs[0]][f]),
+                  f"int8 KV cache field {f} differs card vs CPU after "
+                  f"update {i}")
+        n += 1
+    reads = {d: read_quant_cache(q8[d], torch.float32) for d in devs}
+    check(all(torch.equal(a.cpu(), r) for a, r in zip(reads[dev],
+                                                       reads[devs[0]])),
+          "read_quant_cache differs card vs CPU")
+    q = torch.randn((b, 1, h, hd), generator=gen).to(dev)
+    valid = torch.ones(slots, dtype=torch.bool, device=dev)
+    out_q = _decode_mha(q, *reads[dev], valid, hd, h, hkv)
+    out_f = _decode_mha(q, fl[dev]["k"], fl[dev]["v"], valid, hd, h, hkv)
+    gap = (out_q - out_f).abs()
+    check(bool((gap <= KV_ATTN_TOL + KV_ATTN_TOL * out_f.abs()).all()),
+          f"attention over the int8 cache off the float one by "
+          f"{gap.max().item():.3e} (rtol = atol = {KV_ATTN_TOL})")
+    index = int(q8[dev]["index"])
+    return dict(shape=tuple(q8[dev]["k"].shape), updates=n, index=index,
+                wraps=index // slots, attn_gap=gap.max().item())
+
+
+def lm_wide_a(dev) -> dict:
+    """(a) with the five kernel-launch counters read before and after:
+    (errors, launches, seconds)."""
+    t0, before = time.perf_counter(), _launch_counts()
+    errs = lm_wide(dev)
+    after = _launch_counts()
+    return dict(errs=errs, launched={k: after[k] - before[k] for k in after},
+                s=time.perf_counter() - t0)
+
+
+def lm_wide_phase(dev, wide: dict | None = None) -> dict:
+    """Phase 26: (a) (run here unless ``wide``, ``lm_wide_a``'s result,
+    says it ran already), (b) and part 3 above, with (c) the five
+    kernel-launch counters unchanged across all of them."""
+    wide = wide or lm_wide_a(dev)
+    t0 = time.perf_counter()
+    before = _launch_counts()
+    out = dict(wide=wide["errs"], wide_s=wide["s"], served={})
+    for i, arch in enumerate(SERVED):
+        out["served"][arch] = r = lm_served(dev, arch, 2600 + i)
+        detail(f"  26b {arch}: {r}")
+    out["kv"] = kv_ring_phase(dev)
+    after = _launch_counts()
+    out["launched"] = {k: after[k] - before[k] + wide["launched"][k]
+                       for k in after}
+    check(not any(out["launched"].values()), f"phase 26 launched kernels "
+          f"of repro_torch.kernels: {out['launched']}")
+    out["s"] = time.perf_counter() - t0 + wide["s"]
+    return out
+
+
+def lm_wide_line(lp: dict, card: str) -> str:
+    """Phase 26's line on standard output."""
+    busy = (lambda b, ms: "busy not measured" if b is None
+            else f"{b:.1f} ms busy, idle {1 - b / ms:.1%}")
+    served = "; ".join(
+        f"{arch} bf16 {r['gb']:.2f} GB (init peak {r['init_peak_gb']:.1f}):"
+        f" decode vs forward f32 agreement {r['f32']['agree']:.4f} "
+        f"correlation {r['f32']['corr']:.5f}, bf16 {r['bf16']['agree']:.4f}"
+        f"/{r['bf16']['corr']:.5f}"
+        f"{' (printed, not held)' if arch in BF16_DRIFT else ''}, bf16 "
+        f"forward vs f32 correlation {r['bf16']['to_f32']:.5f}; prefill "
+        f"b1x{r['prefill_tokens']} "
+        f"{r['prefill_ms']:.2f} ms (floor {r['prefill_floor']:.2f}: "
+        f"{r['prefill_tflop']:.2f} TFLOP / bf16 peak, weights / HBM; "
+        f"{busy(r['prefill_busy'], r['prefill_ms'])}); decode step b"
+        f"{SERVE_WIDE['batch']} {r['step_ms']:.2f} ms (floor "
+        f"{r['step_floor']:.3f}; {busy(r['step_busy'], r['step_ms'])}) = "
+        f"{r['tok_s']:.1f} tok/s; greedy_generate {r['generate_s']:.2f} s; "
+        f"peak {r['peak_gb']:.1f} GB; {r['s']:.1f} s"
+        for arch, r in lp["served"].items())
+    kv = lp["kv"]
+    return (f"[26 LM full width] (a) card vs CPU float32, b{WIDE['batch']}x"
+            f"{WIDE['seq']} forward + {WIDE['steps']} decode steps, max rel "
+            "to max|logit| (forward/encode/decode): " + ", ".join(
+                f"{a} ({WIDE_CUTS[a]['n_layers']} layers) "
+                + "/".join(f"{v:.1e}" for v in e.values())
+                for a, e in lp["wide"].items())
+            + f" (limit {LM_TOL}), {lp['wide_s']:.1f} s; (b) full depth "
+            "served, "
+            f"{SERVE_WIDE['teacher']} teacher-forced steps (held f32 > "
+            f"{QWEN_AGREE}/{QWEN_CORR}, MoE correlation > {MOE_CORR}; bf16 "
+            f"correlation only, but {'/'.join(BF16_DRIFT)}), "
+            f"greedy_generate b{SERVE_WIDE['batch']} "
+            f"prompt {SERVE_WIDE['prompt']} + {SERVE_WIDE['new']} new: "
+            f"{served} (host clock + synchronize, median of 3 / 5); (c) "
+            f"kernel launches {lp['launched']}; part 3 int8 KV cache "
+            f"{kv['shape']}: {kv['updates']} updates to index {kv['index']}"
+            f" ({kv['wraps']} wraps, a {KV_RING['append']}-token append), "
+            "every field and read_quant_cache torch.equal card vs CPU, "
+            f"_decode_mha int8 vs float32 max gap {kv['attn_gap']:.3e} "
+            f"(rtol = atol = {KV_ATTN_TOL}); phase {lp['s']:.1f} s | {card}")
+
+
 def kernel_times(label: str) -> int:
     """``--kernel-times``: the times of phases 7 and 15 that compare the
     redesigned kernels with another tree, for the ``repro_torch`` on
@@ -3749,9 +4456,15 @@ def main(argv: list[str] | None = None) -> int:
         if ln:
             log(f"[24 quickstart resnet18 simulate] {ln}")
     log(examples_line(ex, card))
+    # -- 25. crossbar programs at other widths ------------------------------
+    # (26 (a) runs on the card while 25's CPU references finish)
+    wp = widths_phase(dev, gen, meanwhile=lambda: lm_wide_a(dev))
+    log(widths_line(wp, card))
+    # -- 26. every LM family at full width ----------------------------------
+    log(lm_wide_line(lm_wide_phase(dev, wp["meanwhile"]), card))
     paths = [main_launches, vit["launches"], vgg["launches"],
              sl_["launches"], srv["launches"], ex["quick"]["launches"],
-             ex["v1"]["launches"], ex["program"]["launches"]]
+             ex["v1"]["launches"], ex["program"]["launches"], wp["launches"]]
     path_launches = {k: sum(p[k] for p in paths)
                      for k in ("crossbar_gemm", "fb_epilogue")}
     path_launches["crossbar_gemm"] += sum(
@@ -3767,7 +4480,8 @@ def main(argv: list[str] | None = None) -> int:
         dict(name="crossbar_gemm (sliced path)", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
              replaces="src/repro/kernels/crossbar_gemm.py:77",
-             launches=sliced_launches, max_abs_err=sliced_err,
+             launches=sliced_launches + wp["sliced"],
+             max_abs_err=max(sliced_err, wp["narrow"]["err"]),
              ms=sl["ms"], plain_ms=sl["plain"], bound_ms=s_bound,
              bound_by=s_by, library_ms=None),
         dict(name="fb_epilogue", route="cuda",

@@ -125,7 +125,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     cannot be reproduced; to compute on the JAX package's weights, carry
     them across with ``convert.tree_from_jax``).  Float leaves are cast to
     ``dtype``; build them in the compute dtype to serve, since the layers
-    cast parameters at every use.  ``device`` defaults to the GPU.
+    cast parameters at every use.  The cast goes leaf by leaf, each
+    float32 leaf dropped as its copy is made, so the peak is the float32
+    tree plus one leaf: the float32 tree and a whole bfloat16 copy of
+    Phi-3-medium's do not fit one 80 GB card together.  ``device``
+    defaults to the GPU.
     """
     dev = resolve_device(device)
     g = generator
@@ -193,8 +197,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         raise ValueError(f"unknown family {fam}")
 
-    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
-                    else t, params)
+    return _cast_leaves(params, dtype)
+
+
+def _cast_leaves(tree: dict, dtype) -> dict:
+    """``tree``'s float32 leaves cast to ``dtype`` one at a time, in
+    place: each float32 leaf is released once its copy replaces it."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _cast_leaves(v, dtype)
+        elif v.dtype == torch.float32:
+            tree[k] = v.to(dtype)
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.program.serve import make_server
 
 from test_torch_functional import _token_graph, _token_params
-from test_torch_program import _graphs, _params, _x
+from test_torch_program import WIDTHS, _graphs, _params, _x
 
 
 def _case(net):
@@ -137,6 +137,19 @@ def test_port_round_trip_and_version_1_repack(tmp_path):
     v1 = str(tmp_path / "v1.npz")
     np.savez(v1, __meta__=np.asarray(json.dumps(meta)), **arrays)
     assert torch.equal(tapi.load(v1, device="cpu").run(x, logits=True), want)
+
+
+def test_port_round_trip_keeps_other_widths(tmp_path):
+    """4-bit operands on a 5-bit ADC survive ``save`` / ``load``: the
+    loaded config is the saved one and ``run`` is unchanged."""
+    _, tgraph, params, x, _ = _case("custom8")
+    cfg = tapi.HurryConfig(**WIDTHS["w4a4_adc5"])
+    tm = tapi.compile(tgraph, cfg, params=params_from_jax(params),
+                      device="cpu")
+    loaded = tapi.load(tm.save(str(tmp_path / "m.npz")), device="cpu")
+    _same_meta(loaded, tm)
+    assert loaded.config == cfg
+    assert torch.equal(loaded.run(x, logits=True), tm.run(x, logits=True))
 
 
 @pytest.mark.parametrize("edit,match", [

@@ -141,6 +141,62 @@ def test_small_net_on_the_gpu_equals_the_cpu_plain_path(cuda):
     assert torch.equal(gpu.run(x, logits=True).cpu(), cpu.run(x, logits=True))
 
 
+# crossbar widths other than the 8/8-bit, 9-bit-ADC default, as
+# HurryConfig kwargs: narrower operands and ADCs on 512-row arrays (every
+# stage with more than 2^adc - 1 rows on the sliced branch), and smaller
+# arrays (128 rows: the isaac-128 baseline's).  The JAX tests take them
+# from here (this file imports no JAX).
+WIDTHS = {
+    "w4a4_adc5": dict(input_bits=4, weight_bits=4, adc_bits=5),
+    "w8a6_adc5": dict(input_bits=6, weight_bits=8, adc_bits=5),
+    "w4a8_adc5": dict(input_bits=8, weight_bits=4, adc_bits=5),
+    "w4a4_adc6": dict(input_bits=4, weight_bits=4, adc_bits=6),
+    "rows256_adc8": dict(array_rows=256, adc_bits=8),
+    "rows128_adc7": dict(array_rows=128, adc_bits=7),
+}
+
+
+def _custom8():
+    """tests/test_torch_program.py's custom8: conv, relu, 1x1 projection,
+    residual, max pool, avg pool, fc, softmax."""
+    nb = api.NetworkBuilder("custom8", input_hw=8, input_ch=4)
+    nb.conv(16, name="c1")
+    r1 = nb.relu(name="r1")
+    proj = nb.conv(24, k=1, padding=0, name="proj", input_from=r1)
+    nb.conv(24, name="c2", input_from=r1)
+    nb.residual(proj, name="res")
+    nb.relu(name="r2")
+    nb.maxpool(name="p1")
+    nb.conv(32, name="c3")
+    nb.relu(name="r3")
+    nb.avgpool(k=4, stride=4, name="gap")
+    nb.fc(10, name="fc")
+    nb.softmax(name="sm")
+    return nb.build()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_custom_net_at_other_widths_on_the_card(cuda, width):
+    """custom8 at each width: ``run`` on the card ``torch.equal`` to the
+    CPU plain path (logits; probabilities to 1e-6), one launch of each
+    kernel per stage."""
+    graph, cfg = _custom8(), api.HurryConfig(**WIDTHS[width])
+    gpu = api.compile(graph, cfg, seed=2, device="cuda")
+    cpu = api.compile(graph, cfg, seed=2, device="cpu")
+    x = np.random.default_rng(0).standard_normal((5, 8, 8, 4)).astype(
+        np.float32)
+    before = crossbar_gemm.launches, fb_epilogue.launches
+    got = gpu.run(x, logits=True)
+    n = len(gpu.program.stages())
+    assert (crossbar_gemm.launches, fb_epilogue.launches) == (
+        before[0] + n, before[1] + n)
+    assert torch.equal(got.cpu(), cpu.run(x, logits=True))
+    # the softmax FB sums its row in another order on the card
+    torch.testing.assert_close(gpu.run(x).cpu(), cpu.run(x), rtol=0,
+                               atol=1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("adc_bits,rows", [(9, 64), (8, 300)])
 def test_batched_crossbar_gemm_is_one_launch_equal_to_per_slice(cuda,
@@ -693,6 +749,35 @@ def test_lm_on_the_card_equals_the_cpu(cuda, arch):
     assert [k.launches for k in kernels] == before
     for g, w in zip(got, want):
         assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_quant_kv_cache_updates_on_the_card(cuda):
+    """The int8 KV cache's ring on the card: after every update (one-token
+    steps past two wraps, and a 3-token append whose slot is clipped back
+    to fit) each field ``torch.equal`` to the CPU's, and
+    ``read_quant_cache`` equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.kv_quant import (init_quant_kv_cache,
+                                            read_quant_cache,
+                                            update_quant_cache)
+    cfg = get_config("qwen3_8b").reduced()
+    gen = torch.Generator().manual_seed(5)
+    caches = {d: init_quant_kv_cache(2, 6, cfg, device=d)
+              for d in ("cpu", "cuda")}
+    for i in range(15):
+        s = 3 if i == 11 else 1
+        k = torch.randn((2, s, cfg.n_kv_heads, cfg.resolved_head_dim),
+                        generator=gen) * 3
+        v = torch.randn(k.shape, generator=gen)
+        for d in caches:
+            caches[d] = update_quant_cache(caches[d], k.to(d), v.to(d))
+        for f, t in caches["cpu"].items():
+            assert torch.equal(caches["cuda"][f].cpu(), t), (i, f)
+    assert int(caches["cuda"]["index"]) == 17
+    for a, b in zip(read_quant_cache(caches["cuda"], torch.float32),
+                    read_quant_cache(caches["cpu"], torch.float32)):
+        assert torch.equal(a.cpu(), b)
 
 
 def _to(tree, device):

@@ -8,11 +8,15 @@ over, so static), once per architecture, shared through a module-scoped
 fixture.  Compute is float32 unless a test says otherwise.
 """
 
+import dataclasses
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
@@ -27,6 +31,21 @@ B, S = 2, 16          # 16 teacher-forced decode steps over S tokens
 LOGIT_TOL = 1e-4
 
 
+# the published group sizes, which reduced() cuts to 2: Zamba2's shared
+# attention once every 6 Mamba2 blocks and xLSTM's one sLSTM in 8
+GROUPS = {"zamba2_2_7b@6": ("zamba2_2_7b", dict(shared_attn_every=6,
+                                                 n_layers=6)),
+          "xlstm_1_3b@8": ("xlstm_1_3b", dict(xlstm_slstm_every=8,
+                                               n_layers=8))}
+
+
+def _config(case, get):
+    """``case``'s reduced config from ``get`` (either package's
+    ``get_config``): an arch id, or a key of ``GROUPS``."""
+    arch, kw = GROUPS.get(case, (case, {}))
+    return dataclasses.replace(get(arch).reduced(), **kw)
+
+
 def _max_rel(got, ref) -> float:
     return float(np.abs(np.asarray(got, np.float32) - ref).max()
                  / np.abs(ref).max())
@@ -34,10 +53,11 @@ def _max_rel(got, ref) -> float:
 
 def _reference(arch):
     """JAX's params, inputs, float32 forward / encoder / 16 decode steps
-    and bfloat16 forward for ``arch``, all jitted."""
-    cfg = jax_get_config(arch).reduced()
+    and bfloat16 forward for ``arch`` (or a ``GROUPS`` case), all
+    jitted."""
+    cfg = _config(arch, jax_get_config)
     params = jlm.init_params(cfg, jax.random.PRNGKey(0))
-    rng = np.random.default_rng(ARCH_IDS.index(arch))
+    rng = np.random.default_rng(ARCH_IDS.index(GROUPS.get(arch, (arch,))[0]))
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     frames = (rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
               .astype(np.float32) if cfg.is_encdec else None)
@@ -140,6 +160,46 @@ def test_init_params_tree_shapes_dtypes_and_scales(arch, refs):
         assert str(bf[name].dtype).removeprefix("torch.") == str(r.dtype)
 
 
+class _LiveBytes(TorchDispatchMode):
+    """The most bytes that the tensors made under it held at once (views
+    of one buffer counted once)."""
+
+    def __init__(self):
+        super().__init__()
+        self.refs, self.peak = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.refs.append(weakref.ref(t))
+        live = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in (r() for r in self.refs) if t is not None}
+        self.peak = max(self.peak, sum(live.values()))
+        return out
+
+
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "xlstm_1_3b"])
+def test_init_params_casts_leaf_by_leaf(arch):
+    """bfloat16 parameters are drawn in float32 and cast one leaf at a
+    time: the peak is the float32 tree plus one leaf's copy, not the tree
+    plus a whole copy (which does not fit one 80 GB card at
+    Phi-3-medium's full size); the values are the float32 draws'."""
+    cfg = get_config(arch).reduced()
+    f32 = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    leaves = [t for _, t in _leaves(f32)]
+    with _LiveBytes() as mode:
+        bf = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16, device="cpu")
+    f32_bytes = sum(t.nbytes for t in leaves)
+    assert mode.peak <= f32_bytes + max(t.nbytes for t in leaves) // 2
+    for (name, a), (_, b) in zip(_leaves(f32), _leaves(bf)):
+        assert b.dtype == (torch.bfloat16 if a.dtype == torch.float32
+                           else a.dtype), name
+        assert torch.equal(b, a.to(b.dtype)), name
+
+
 def test_init_params_without_device_raises_on_a_gpu_less_host():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
@@ -149,23 +209,23 @@ def test_init_params_without_device_raises_on_a_gpu_less_host():
         lm.init_caches(get_config("qwen3_8b").reduced(), 1, 4)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", [*ARCH_IDS, *GROUPS])
 def test_forward_matches_jax(arch, refs):
     ref = refs(arch)
     params, tokens, frames = _port(ref)
-    cfg = get_config(arch).reduced()
+    cfg = _config(arch, get_config)
     got = lm.forward(params, cfg, tokens, encoder_input=frames,
                      compute_dtype=torch.float32)
     assert got.shape == (B, S, cfg.padded_vocab)
     assert _max_rel(got, ref["forward"]) <= LOGIT_TOL
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", [*ARCH_IDS, *GROUPS])
 def test_teacher_forced_decode_matches_jax(arch, refs):
     """16 ``decode_step``s over the same tokens, the caches in float32."""
     ref = refs(arch)
     params, tokens, frames = _port(ref)
-    cfg = get_config(arch).reduced()
+    cfg = _config(arch, get_config)
     states = None
     if frames is not None:
         states = lm.encode(params, cfg, frames, torch.float32)

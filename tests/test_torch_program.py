@@ -19,16 +19,20 @@ import pytest
 import torch
 
 from repro import api as japi
+from repro.program import execute as jax_execute
 from repro.program.execute import _static_stage as jax_static_stage
 from repro.program.execute import execute_program as jax_execute_program
 from repro.program.pack import pack_program as jax_pack_program
 from repro_torch import api as tapi
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import crossbar_gemm, fb_epilogue
+from repro_torch.program import execute as torch_execute
 from repro_torch.program import execute_program
 from repro_torch.program.execute import _static_stage, execute_packed
 from repro_torch.program.pack import pack_program
 from repro_torch.program.serve import bucket_batch, pad_batch
+
+from test_torch_cuda import WIDTHS
 
 # a relative logit tolerance for nets whose last quantized input passed
 # through an average pool: a 1-ulp difference in a window sum can move
@@ -148,10 +152,13 @@ def test_packed_stage_wt_is_w8_transposed_and_padded(net, cfg_kw):
 # stage by stage, each fed the reference's own input buffer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cfg_kw", [dict(), dict(adc_bits=5)])
-def test_static_stage_bit_exact_with_teacher_forcing(cfg_kw):
+@pytest.mark.parametrize("cfg_kw", [dict(), dict(adc_bits=5),
+                                    *WIDTHS.values()])
+def test_static_stage_bit_exact_with_teacher_forcing(cfg_kw, monkeypatch):
     """adc_bits=5 puts every stage with more than 31 rows on the sliced
-    branch."""
+    branch.  Each stage's int8 mount planes and its int32 GEMM output
+    (the epilogue replaced by the identity on both sides) equal JAX's
+    too."""
     jm, tm, _ = _models("custom8", cfg_kw)
     jprog, tprog = jm.packed.program, tm.packed.program
     cfg = jprog.cfg
@@ -160,8 +167,20 @@ def test_static_stage_bit_exact_with_teacher_forcing(cfg_kw):
     for si, ((gemm, posts), jst, tst, (tg, tposts)) in enumerate(zip(
             stages, jm.packed.stages, tm.packed.stages, tprog.stages())):
         assert dataclasses.astuple(tg) == dataclasses.astuple(gemm)
+        np.testing.assert_array_equal(tst.w8.numpy(), np.asarray(jst.w8))
         last = si == len(stages) - 1
         tbufs = {k: torch.from_numpy(np.array(v)) for k, v in bufs.items()}
+        with monkeypatch.context() as m:
+            m.setattr(jax_execute, "fb_epilogue", lambda y, *a, **k: y)
+            m.setattr(torch_execute, "fb_epilogue", lambda y, *a, **k: y)
+            y_ref = np.asarray(jax.jit(lambda st, b: jax_static_stage(
+                gemm, posts, st, b, cfg, block_m=512, block_n=512,
+                interpret=True, drop_softmax=False)[1])(jst, bufs))
+            _, y_int = _static_stage(gemm, posts, tst, tbufs, tprog.cfg,
+                                     drop_softmax=False)
+        assert y_int.dtype == torch.int32
+        np.testing.assert_array_equal(y_int.numpy(), y_ref,
+                                      err_msg=gemm.name)
         for drop in ([False, True] if last else [False]):
             run = jax.jit(lambda st, b, drop=drop: jax_static_stage(
                 gemm, posts, st, b, cfg, block_m=512, block_n=512,
@@ -192,6 +211,7 @@ def test_static_stage_bit_exact_with_teacher_forcing(cfg_kw):
     ("resnet18", dict(), False),                 # avg pool before fc
     ("vgg16", dict(), True),                     # relu/maxpool chains
     ("vgg16", dict(adc_bits=8), True),           # sliced branch
+    *(("custom8", kw, False) for kw in WIDTHS.values()),   # other widths
 ])
 def test_end_to_end_logits_against_jax(net, cfg_kw, exact):
     jm, tm, _ = _models(net, cfg_kw)

@@ -34,10 +34,18 @@ from repro_torch.kernels import crossbar_gemm, flash_attention
 from repro_torch.program.execute import _dyn_stage, dyn_mounts
 from repro_torch.program.sequence import split_qkv_heads
 
+from test_torch_cuda import WIDTHS
+
 # a relative logit tolerance for whole networks: a softmax, GELU or
 # layer norm output 1 ulp off XLA's can move one int8 value of the next
 # stage's quantization by one step
 SEQ_REL = 2e-2
+# 4-bit operands on a 6-bit ADC: the dynamic stages mount K and V at
+# weight_bits 4.  Held stage by stage: run free, the softmax's last-ulp
+# differences (XLA's exp) decide exact ties of the next 4-bit
+# quantization, and whole-network logits part by up to about a tenth
+# (ROADMAP.md, section 3)
+W4A4_ADC6 = WIDTHS["w4a4_adc6"]
 
 
 def _vit_models(cfg_kw, seed=1, **graph_kw):
@@ -98,7 +106,8 @@ def _jax_mounts(gemm, cfg, bufs):
     (dict(depth=1, dim=48, heads=3), dict()),
     (dict(depth=1, dim=48, heads=3), dict(adc_bits=5)),   # sliced branch
     (dict(), dict()),                                      # full width
-], ids=["small", "small-adc5", "full-width"])
+    (dict(), W4A4_ADC6),                                   # 4-bit mounts
+], ids=["small", "small-adc5", "full-width", "full-width-w4a4-adc6"])
 def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
     """Every stage of a vit_tiny forward is fed the reference's own
     buffers; at each dynamic stage the port's mounts and int32 GEMM
