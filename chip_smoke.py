@@ -32,7 +32,9 @@ each on standard output (the per-shape details go to standard error):
 5. the main path: ``repro_torch.api.compile("resnet18", HurryConfig())``
    at full width, serving request batches of 1, 3 and 16, checked
    against the same weights run on the CPU's plain path; both launch
-   counters must grow by one per stage and request;
+   counters must grow by one per stage and request (``run`` captures a
+   CUDA graph at each key's first request and replays it: the counters
+   count the launches of the replays, ``program.serve.Executable``);
 6. the sliced branch end to end: AlexNet under ``HurryConfig(adc_bits=8)``
    at batch 4 against the CPU's plain path;
 7. times: each kernel summed over one batch-16 forward's shapes, and
@@ -43,9 +45,9 @@ each on standard output (the per-shape details go to standard error):
    stages furthest from their bound at each batch, for the GEMM and for
    ``fb_epilogue``; and
    ResNet-18's end-to-end time per batch at 1 and 16 (host clock around
-   ``run`` and a device synchronize, median of 10), with the device's
-   busy time (profiler device events) and idle share of those forwards
-   (``forward_profile``);
+   ``run``, a graph replay, and a device synchronize, median of 10), with
+   the device's busy time (profiler device events) and idle share of
+   those forwards (``forward_profile``);
 8. the batched launches at vit_tiny's dynamic shapes (48 slices of
    64x64x64): ``crossbar_gemm`` on both branches and ``fb_epilogue``
    (scores: softmax + post_scale; context: plain dequant) in one launch
@@ -78,7 +80,8 @@ each on standard output (the per-shape details go to standard error):
     and 16 against the CPU plain path (argmax agreement 1.0, logits to
     a relative 1e-2, probabilities to 1e-3); every
     dynamic stage makes exactly one ``crossbar_gemm`` and one
-    ``fb_epilogue`` launch; time per batch at 1 and 16 and the device's
+    ``fb_epilogue`` launch (read from each key's capture); time per
+    batch at 1 and 16 and the device's
     idle share, as in 7; then batch 16 on three further input draws
     (``VIT_DRAWS``), each draw's max relative logit gap and argmax
     agreement printed, and on the draw with the largest gap every stage
@@ -238,7 +241,8 @@ each on standard output (the per-shape details go to standard error):
     AlexNet b4 compiled on the card at every width, ``torch.equal`` to
     the CPU plain path (computed in a worker thread meanwhile), each
     stage on the branch ``clip_possible(min(rows, K), adc_bits)``
-    predicts, both counters one launch per stage, µs per batch beside the
+    predicts (read from the stage's captured launch, once per model),
+    both counters one launch per stage, µs per batch beside the
     8/8/9 default's; vit_tiny b16 at ``w4a4_adc6``: every stage
     teacher-forced from the CPU path's buffers (held as in 12), its
     branches, the free run against the CPU (12's ``VIT_REL`` /
@@ -257,17 +261,39 @@ each on standard output (the per-shape details go to standard error):
     ``make_prefill_step`` at b1 x 2048 (Whisper: 64 tokens over 1500
     frames), ``greedy_generate`` at b4 (64-token prompt, 32 new) and a
     decode step timed beside floors worked out from the code's work
-    (``lm_flop``), with busy time, idle share, the init and serving
+    (``lm_flop``), with busy time and idle share (xLSTM's prefill
+    profiled at ``PROFILED_PREFILL``'s 256 tokens, beside that length's
+    own wall time: its sLSTM launches some 10^5 kernels at 2048), the
+    init and serving
     peaks; part 3, the int8 KV cache at the served Qwen3-8B cache's shape
     on a 16-slot ring (``KV_RING``): every field of every update and
     ``read_quant_cache`` ``torch.equal`` card against CPU, ``_decode_mha``
     over it within ``KV_ATTN_TOL`` of the float32 ring's; (c) no launch of
     the five kernels across the phase.  To run 25-26 alone, drive
     ``widths_phase`` and ``lm_wide_phase`` from a script under ``build/``
-    after the kernel build.
+    after the kernel build;
+27. the front door's executable per key: ResNet-18, AlexNet at
+    ``adc_bits=8``, VGG-16 and vit_tiny compiled afresh at batches 1, 3
+    and 16 x (probs, logits) through ``run``, a token-input graph at T =
+    16 and 32, ``make_server("resnet18")`` and a saved and loaded
+    ResNet-18: at every key the first request captures and a second draw
+    replays, both answers kept and each ``torch.equal`` to eager
+    ``execute_packed`` on the card on its own draw (no aliasing), one
+    launch of each kernel per stage and request on the counters; one b16
+    replay of each net profiled: exactly one ``crossbar_gemm`` and one
+    ``fb_epilogue`` kernel per stage by name (``KERNEL_NAMES``); time
+    per batch at 1, 4 and 16 through ``run`` (replay) beside eager
+    ``execute_packed``, each with busy time and idle share; the capture
+    seconds of every key (standard error; min/median/max per net on the
+    line).  To run it alone, drive ``executable_phase`` from a script
+    under ``build/`` after the kernel build.
 
-The line before the last is the JSON record of the kernels; the last is
-``{"ok": true, "device": {...}}``.  Any failed check raises before it.
+Phases run in the order 1-20, 27, 21, 22, 24-26, 23: phase 27 profiles
+before the LM phases have traced anything, and phase 23's dry-run
+processes (host cores only) run in the background beside 24-26, so its
+line follows 26.  The line before the last is the JSON record of the
+kernels; the last is ``{"ok": true, "device": {...}}``.  Any failed check
+raises before it.
 
 ``python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]`` only
 times ``fb_epilogue``, ``flash_attention``, ``fused_gemm_epilogue`` and
@@ -1285,7 +1311,10 @@ VIT_PROB_ATOL = 1e-3
 
 def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     """Phase 12: vit_tiny serving batches 1, 3, 16 (probs and logits),
-    the launch counts read just after, against the CPU plain path."""
+    the launch counts read just after, against the CPU plain path.  Each
+    request is its key's first, so ``run`` captures its graph: the
+    per-dynamic-stage launches are read from the capture (what every
+    replay launches), the totals from the counters (replays)."""
     import torch
     from repro_torch.kernels import crossbar_gemm, fb_epilogue
     execute = importlib.import_module("repro_torch.program.execute")
@@ -1299,8 +1328,9 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     def counted(*args, **kw):
         before = crossbar_gemm.launches, fb_epilogue.launches
         out = dyn_stage(*args, **kw)
-        per_dyn.append((crossbar_gemm.launches - before[0],
-                        fb_epilogue.launches - before[1]))
+        if torch.cuda.is_current_stream_capturing():
+            per_dyn.append((crossbar_gemm.launches - before[0],
+                            fb_epilogue.launches - before[1]))
         return out
 
     execute._dyn_stage = counted
@@ -1363,10 +1393,12 @@ def fb_atol(kw: dict) -> float:
 
 
 def record_stages(model, x) -> tuple:
-    """``model.run(x, logits=True)`` with, per stage, the buffers the
-    stage read, its ``crossbar_gemm`` operands and int32 output and its
-    ``fb_epilogue`` output and keyword arguments.  Returns (logits,
-    records)."""
+    """``execute_packed(model.packed, x, return_logits=True)`` run eagerly
+    (what ``model.run``'s graph replays for a batch that fills its
+    bucket) with, per stage, the buffers the stage read, its
+    ``crossbar_gemm`` operands and int32 output and its ``fb_epilogue``
+    output and keyword arguments.  Returns (logits, records)."""
+    import torch
     execute = importlib.import_module("repro_torch.program.execute")
     saved = (execute._static_stage, execute._dyn_stage,
              execute.crossbar_gemm, execute.fb_epilogue)
@@ -1393,7 +1425,9 @@ def record_stages(model, x) -> tuple:
     (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
      execute.fb_epilogue) = static, dyn, gemm, fb
     try:
-        logits = model.run(x, logits=True)
+        logits = execute.execute_packed(
+            model.packed, torch.as_tensor(x).to(model.device),
+            return_logits=True)
     finally:
         (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
          execute.fb_epilogue) = saved
@@ -2052,11 +2086,7 @@ def lm_phase(dev) -> dict:
     """Phase 21: (a)-(e) above, with (f) the five kernel-launch counters
     unchanged across the whole phase (the LM path is plain PyTorch)."""
     import torch
-    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
-                                     flash_attention, fused_gemm_epilogue,
-                                     packed_gemm)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = _five_kernels()
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(reduced=lm_reduced(dev), depth2=qwen_depth2(dev))
@@ -2472,11 +2502,7 @@ def train_cli(dev) -> dict:
 def train_phase(dev) -> dict:
     """Phase 22: (a)-(d) above, with (e) the five kernel-launch counters
     unchanged across it (the training path is plain PyTorch)."""
-    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
-                                     flash_attention, fused_gemm_epilogue,
-                                     packed_gemm)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = _five_kernels()
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(reduced=train_reduced(dev), depth2=train_depth2(dev),
@@ -2779,21 +2805,26 @@ def count_phase() -> dict:
     return out
 
 
-def shard_phase(dev) -> dict:
+def timed_dryrun() -> tuple[dict, float]:
+    """(b) and its seconds, for a background thread (``main`` starts it
+    before phase 24: its three processes use only the host's cores)."""
+    t0 = time.perf_counter()
+    out = dryrun_phase()
+    return out, time.perf_counter() - t0
+
+
+def shard_phase(dev, dryrun=None) -> dict:
     """Phase 23: (a)-(c) above, with the five kernel-launch counters
-    unchanged across (a) and (c) (the sharded paths are plain PyTorch)."""
-    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
-                                     flash_attention, fused_gemm_epilogue,
-                                     packed_gemm)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    unchanged across (a) and (c) (the sharded paths are plain PyTorch).
+    ``dryrun``, where given, is the future of a ``timed_dryrun`` started
+    earlier; (b) is its result."""
+    kernels = _five_kernels()
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(mesh=shard_mesh_phase(dev))
     out["mesh_s"] = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    out["dryrun"] = dryrun_phase()
-    out["dryrun_s"] = time.perf_counter() - t1
+    out["dryrun"], out["dryrun_s"] = (timed_dryrun() if dryrun is None
+                                      else dryrun.result())
     out["count"] = count_phase()
     launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
     check(not any(launched.values()),
@@ -2902,11 +2933,8 @@ def _run(argv: list, timeout: int = 300) -> str:
 
 
 def _five_kernels():
-    from repro_torch.kernels import (crossbar_gemm, fb_epilogue,
-                                     flash_attention, fused_gemm_epilogue,
-                                     packed_gemm)
-    return (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
-            packed_gemm)
+    from repro_torch.kernels import COUNTED
+    return COUNTED
 
 
 def _launch_counts() -> dict:
@@ -3343,24 +3371,32 @@ def narrow_sliced_phase(dev, gen) -> dict:
 
 
 def _branches(fn) -> tuple:
-    """(fn(), calls): per ``crossbar_gemm`` call of the executor in this
-    thread (a worker may run the CPU path meanwhile), (K, rows, adc_bits,
-    whether the exact kernel ran), the last read where the wrapper
-    launches (``_launch``'s ``exact``)."""
+    """(fn(), calls): per ``crossbar_gemm`` call of the executor that a
+    CUDA graph captures in this thread (a worker may run the CPU path
+    meanwhile; the eager warm-up before the capture is not read), (K,
+    rows, adc_bits, whether the exact kernel ran), the last read where
+    the wrapper launches (``_launch``'s ``exact``).  ``fn`` runs a
+    model's first request of a key, so each stage is read once, from the
+    graph every replay of that key runs."""
     import threading
+    import torch
     cg = importlib.import_module("repro_torch.kernels.crossbar_gemm")
     execute = importlib.import_module("repro_torch.program.execute")
     launch, gemm = cg._launch, execute.crossbar_gemm
     calls: list = []
     me = threading.get_ident()
 
+    def captured() -> bool:
+        return (threading.get_ident() == me
+                and torch.cuda.is_current_stream_capturing())
+
     def spy_gemm(x8, w8, **kw):
-        if threading.get_ident() == me:
+        if captured():
             calls.append([w8.shape[-2], kw["rows"], kw["adc_bits"], None])
         return gemm(x8, w8, **kw)
 
     def spy_launch(*args, **kw):
-        if threading.get_ident() == me:
+        if captured():
             calls[-1][3] = kw["exact"]
         return launch(*args, **kw)
 
@@ -3571,6 +3607,10 @@ WIDE = dict(batch=2, seq=64, steps=8)
 SERVED = ("granite_moe_3b_a800m", "zamba2_2_7b", "xlstm_1_3b",
           "whisper_medium", "phi3_medium_14b")
 SERVE_WIDE = dict(teacher=32, prefill=2048, batch=4, prompt=64, new=32)
+# prefill lengths profiled for busy time and idle share where the served
+# prefill launches too much to trace in the phase's time: xLSTM's sLSTM
+# steps token by token (some 10^5 kernels at 2048 tokens)
+PROFILED_PREFILL = {"xlstm_1_3b": 256}
 # tests/test_archs_smoke.py's MoE correlation (capacity drops in the
 # forward, none in a 1-token decode step); its argmax agreement (0.7) is
 # printed, not held: at granite-moe's published routing (40 experts, top
@@ -3771,8 +3811,15 @@ def lm_served(dev, arch: str, seed: int) -> dict:
     # sLSTM's loop launches some 10^5 kernels a prefill)
     out["prefill_ms"] = wall_ms(lambda: prefill(params, prompt, fr1), runs=3,
                                 warmup=1)
+    # busy time and idle share at PROFILED_PREFILL's length where it is
+    # shorter, with that length's own wall time
+    S_prof = PROFILED_PREFILL.get(arch, S)
+    short = prompt[:, :S_prof]
+    out["profiled_tokens"] = S_prof
+    out["profiled_ms"] = out["prefill_ms"] if S_prof == S else wall_ms(
+        lambda: prefill(params, short, fr1), runs=3, warmup=1)
     out["prefill_busy"], _ = forward_profile(
-        lambda: prefill(params, prompt, fr1), runs=1, top=None, warm=False)
+        lambda: prefill(params, short, fr1), runs=1, top=None, warm=False)
     flop = lm_flop(cfg, params, S, enc)
     out["prefill_tflop"] = flop / 1e12
     out["prefill_floor"] = max(flop / BF16_OPS_PER_S,
@@ -3915,7 +3962,11 @@ def lm_wide_line(lp: dict, card: str) -> str:
         f"b1x{r['prefill_tokens']} "
         f"{r['prefill_ms']:.2f} ms (floor {r['prefill_floor']:.2f}: "
         f"{r['prefill_tflop']:.2f} TFLOP / bf16 peak, weights / HBM; "
-        f"{busy(r['prefill_busy'], r['prefill_ms'])}); decode step b"
+        + (f"{busy(r['prefill_busy'], r['prefill_ms'])}"
+           if r["profiled_tokens"] == r["prefill_tokens"] else
+           f"b1x{r['profiled_tokens']} {r['profiled_ms']:.2f} ms, "
+           f"{busy(r['prefill_busy'], r['profiled_ms'])}")
+        + f"); decode step b"
         f"{SERVE_WIDE['batch']} {r['step_ms']:.2f} ms (floor "
         f"{r['step_floor']:.3f}; {busy(r['step_busy'], r['step_ms'])}) = "
         f"{r['tok_s']:.1f} tok/s; greedy_generate {r['generate_s']:.2f} s; "
@@ -3942,6 +3993,217 @@ def lm_wide_line(lp: dict, card: str) -> str:
             "every field and read_quant_cache torch.equal card vs CPU, "
             f"_decode_mha int8 vs float32 max gap {kv['attn_gap']:.3e} "
             f"(rtol = atol = {KV_ATTN_TOL}); phase {lp['s']:.1f} s | {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the front door's one executable per (bucket, flavor, shape)
+# ---------------------------------------------------------------------------
+
+EXEC_NETS = (("resnet18", {}), ("alexnet", dict(adc_bits=8)), ("vgg16", {}),
+             ("vit_tiny", {}))
+EXEC_BATCHES = (1, 3, 16)        # buckets 1, 4, 16
+EXEC_TOKENS = (16, 32)           # the token-input graph's T: a key each
+EXEC_TIMED = (1, 4, 16)          # 4: AlexNet adc8's batch in phases 6-7
+# the kernels each program-path wrapper launches: functions in an
+# anonymous namespace of csrc/<wrapper>.cu, as the profiler names them
+KERNEL_NAMES = {"crossbar_gemm": ("exact_kernel", "sliced_kernel"),
+                "fb_epilogue": ("elementwise_kernel", "pool_kernel",
+                                "rows_warp_kernel", "seqmean_kernel",
+                                "rows_kernel")}
+
+
+def token_graph(api):
+    """A token-input graph (the batch's T is a run-time property):
+    attention, residual, layer norm, MLP with GELU, sequence mean, fc,
+    softmax (``tests/test_torch_cuda.py``'s)."""
+    nb = api.NetworkBuilder("tok", input_seq_dim=32)
+    nb.attention(4, name="attn")
+    nb.residual("input", name="r1")
+    ln = nb.layernorm(name="ln1")
+    nb.linear(64, name="fc1")
+    nb.gelu(name="g1")
+    nb.linear(32, name="fc2")
+    nb.residual(ln, name="r2")
+    nb.layernorm(name="ln2")
+    nb.seqpool(name="pool")
+    nb.fc(10, name="head")
+    nb.softmax(name="sm")
+    return nb.build()
+
+
+def eager_run(model, x, logits: bool = False):
+    """``execute_packed`` itself (no graph) on ``x`` padded to its bucket,
+    sliced back: what a replay of ``model.run`` (or a server's call) must
+    equal."""
+    from repro_torch.program.execute import execute_packed
+    from repro_torch.program.serve import bucket_batch, pad_batch
+    b = x.shape[0]
+    x = pad_batch(x, bucket_batch(b, model.buckets))
+    return execute_packed(model.packed, x, return_logits=logits)[:b]
+
+
+def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
+    """Per input shape and flavor, two draws through ``answer(x, logits)``
+    (``model.run``, a server or a loaded model): the first request
+    captures the key, the second replays it; both answers kept, then each
+    ``torch.equal`` to eager ``execute_packed`` on its own draw (the
+    first read after the second ran: no aliasing), finite, and the
+    counters one launch of each kernel per stage and request.  Returns
+    the launches and the keys' capture seconds."""
+    import torch
+    n = len(model.program.stages())
+    launches = {"crossbar_gemm": 0, "fb_epilogue": 0}
+    for shape in shapes:
+        for logits in flavors:
+            xs = [torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(2)]
+            got, c = counted(lambda: [answer(x, logits) for x in xs])
+            check(c == {"crossbar_gemm": 2 * n, "fb_epilogue": 2 * n},
+                  f"{name} {shape} logits={logits}: launches {c} for two "
+                  f"requests of {n} stages")
+            for i, (x, r) in enumerate(zip(xs, got)):
+                want = eager_run(model, x, logits)
+                check(r.shape == want.shape and torch.equal(r, want)
+                      and bool(torch.isfinite(r).all()),
+                      f"{name} {shape} logits={logits} draw {i}: the replay "
+                      "differs from eager execute_packed")
+            for k in launches:
+                launches[k] += c[k]
+    return dict(launches=launches, capture_s={
+        key: fn.capture_s for key, fn in model._fns.items()})
+
+
+def replay_kernels(fn) -> dict:
+    """The device's kernels in one call of ``fn`` (profiler device
+    events), counted by the wrapper whose source defines them
+    (``KERNEL_NAMES``); the rest (copies, fills, PyTorch's kernels) under
+    ``other``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):          # warms the profiler up
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"\(anonymous namespace\)::(\w+)", e.name)
+        owner = next((k for k, names in KERNEL_NAMES.items()
+                      if m and m.group(1) in names), "other")
+        counts[owner] += 1
+    return counts
+
+
+def executable_phase(api, dev) -> dict:
+    """Phase 27: ``EXEC_NETS`` compiled afresh on the card at every
+    ``EXEC_BATCHES`` x (probs, logits), the token-input graph at
+    ``EXEC_TOKENS``, ``make_server("resnet18")`` and a saved and loaded
+    ResNet-18, each held by ``hold_replays``; one b16 replay of each net
+    profiled (exactly one ``crossbar_gemm`` and one ``fb_epilogue``
+    kernel per stage); time per batch at ``EXEC_TIMED`` through ``run``
+    (replay) beside eager ``execute_packed``, each with device busy time
+    and idle share (``wall_ms``, ``forward_profile``); the capture
+    seconds of every key."""
+    import tempfile
+    import torch
+    from repro_torch.program.serve import make_server
+    t0 = time.perf_counter()
+    for wrapper, names in KERNEL_NAMES.items():
+        with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                               f"{wrapper}.cu")) as f:
+            source = f.read()
+        check(all(re.search(rf"\b{n}\(", source) for n in names),
+              f"KERNEL_NAMES[{wrapper!r}] names a kernel {wrapper}.cu "
+              "does not define")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = dict(nets={}, launches={"crossbar_gemm": 0, "fb_epilogue": 0},
+               keys=0)
+
+    def held(name, model, answer, shapes, flavors=(False, True)):
+        r = hold_replays(name, model, answer, shapes, flavors, gen)
+        for k in out["launches"]:
+            out["launches"][k] += r["launches"][k]
+        out["keys"] += len(r["capture_s"])
+        detail(f"27 {name} capture s per key: " + ", ".join(
+            f"{k[0]}/{'logits' if k[1] else 'probs'}/{k[2]} {s:.3f}"
+            for k, s in r["capture_s"].items()))
+        return r
+
+    models = {}
+    for net, kw in EXEC_NETS:
+        name = net + ("-adc8" if kw else "")
+        model = models[name] = api.compile(net, api.HurryConfig(**kw),
+                                           seed=0, device="cuda")
+        r = held(name, model, lambda x, lg, m=model: m.run(x, logits=lg),
+                 [model.program.input_shape(b) for b in EXEC_BATCHES])
+        n = len(model.program.stages())
+        x16 = torch.randn(model.program.input_shape(16), generator=gen,
+                          device=dev)
+        kern = replay_kernels(lambda: model.run(x16))
+        check(kern["crossbar_gemm"] == n and kern["fb_epilogue"] == n,
+              f"{name} b16: one replay ran {kern} kernels for {n} stages")
+        times = {}
+        for b in EXEC_TIMED:
+            xb = x16[:b].contiguous()
+            times[b] = {}
+            for mode, fn in (("replay", lambda: model.run(xb)),
+                             ("eager", lambda: eager_run(model, xb))):
+                ms = wall_ms(fn)
+                busy, _ = forward_profile(fn)
+                times[b][mode] = dict(ms=ms, busy=busy)
+        caps = sorted(r["capture_s"].values())
+        out["nets"][name] = dict(stages=n, kernels=kern, times=times,
+                                 capture=(caps[0], statistics.median(caps),
+                                          caps[-1]))
+    tok = api.compile(token_graph(api), api.HurryConfig(), seed=0,
+                      device="cuda")
+    r = held("tokens", tok, lambda x, lg: tok.run(x, logits=lg),
+             [tok.program.input_shape(b, seq_len=T) for T in EXEC_TOKENS
+              for b in EXEC_BATCHES])
+    check(len(tok._fns) == 2 * len(EXEC_TOKENS) * len(EXEC_BATCHES),
+          f"token graph: {len(tok._fns)} executables")
+    resnet = models["resnet18"]
+    server = make_server("resnet18", config=api.HurryConfig(), seed=0,
+                         device="cuda")
+    held("server", server, lambda x, lg: server(x),
+         [server.program.input_shape(b) for b in EXEC_BATCHES],
+         flavors=(False,))
+    with tempfile.TemporaryDirectory() as d:
+        loaded = api.load(resnet.save(os.path.join(d, "resnet18.npz")),
+                          device="cuda")
+    check(not loaded._fns, "a loaded model starts with executables")
+    held("loaded", loaded, lambda x, lg: loaded.run(x, logits=lg),
+         [loaded.program.input_shape(b) for b in EXEC_BATCHES])
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def executable_line(xp: dict, card: str) -> str:
+    """Phase 27's line on standard output."""
+    def busy(t):
+        return ("busy not measured" if t["busy"] is None else
+                f"busy {t['busy']:.3f} ms, idle {1 - t['busy'] / t['ms']:.1%}")
+    nets = "; ".join(
+        f"{name} ({r['stages']} stages; one b16 replay's kernels "
+        f"{r['kernels']}; capture s min/median/max {r['capture'][0]:.3f}/"
+        f"{r['capture'][1]:.3f}/{r['capture'][2]:.3f}): " + ", ".join(
+            f"b{b} replay {t['replay']['ms']:.3f} ms ({busy(t['replay'])}) "
+            f"vs eager {t['eager']['ms']:.3f} ms ({busy(t['eager'])})"
+            for b, t in r["times"].items())
+        for name, r in xp["nets"].items())
+    return (f"[27 executable per bucket] {xp['keys']} keys captured "
+            f"({'/'.join(xp['nets'])} at b{','.join(map(str, EXEC_BATCHES))}"
+            f" x (probs, logits) through run, the token graph at T "
+            f"{'/'.join(map(str, EXEC_TOKENS))}, make_server(resnet18), a "
+            "loaded resnet18): every replay torch.equal to eager "
+            "execute_packed on the card on two draws, both answers kept; "
+            f"launches {xp['launches']} = one per stage and request; "
+            f"{nets} (host clock + synchronize, median of 10); phase "
+            f"{xp['s']:.1f} s | {card}")
 
 
 def kernel_times(label: str) -> int:
@@ -4444,27 +4706,37 @@ def main(argv: list[str] | None = None) -> int:
         f"{arch} " + ", ".join(f"{k} {v:.6g}" for k, v in r.items())
         for arch, r in sims.items()))
 
+    # -- 27. the executable per bucket (before the LM phases: the profiler
+    # reads every kernel of a replay in a process that has not traced
+    # them) ------------------------------------------------------------------
+    xp = executable_phase(api, dev)
+    log(executable_line(xp, card))
     # -- 21. the LM serving stack ------------------------------------------
     log(lm_line(lm_phase(dev), card))
     # -- 22. the LM training path ------------------------------------------
     log(train_line(train_phase(dev), card))
-    # -- 23. the LM sharding and the mesh dry-run ---------------------------
-    log(shard_line(shard_phase(dev), card))
-    # -- 24. the examples and the entry points ------------------------------
-    ex = examples_phase(dev)
-    for ln in ex["quick"]["sim"].splitlines():
-        if ln:
-            log(f"[24 quickstart resnet18 simulate] {ln}")
-    log(examples_line(ex, card))
-    # -- 25. crossbar programs at other widths ------------------------------
-    # (26 (a) runs on the card while 25's CPU references finish)
-    wp = widths_phase(dev, gen, meanwhile=lambda: lm_wide_a(dev))
-    log(widths_line(wp, card))
-    # -- 26. every LM family at full width ----------------------------------
-    log(lm_wide_line(lm_wide_phase(dev, wp["meanwhile"]), card))
+    # -- 23 (b). the mesh dry-run's three processes (host cores only) run
+    # in the background beside 24-26; 23's line follows 26
+    with ThreadPoolExecutor(1) as background:
+        dry = background.submit(timed_dryrun)
+        # -- 24. the examples and the entry points --------------------------
+        ex = examples_phase(dev)
+        for ln in ex["quick"]["sim"].splitlines():
+            if ln:
+                log(f"[24 quickstart resnet18 simulate] {ln}")
+        log(examples_line(ex, card))
+        # -- 25. crossbar programs at other widths --------------------------
+        # (26 (a) runs on the card while 25's CPU references finish)
+        wp = widths_phase(dev, gen, meanwhile=lambda: lm_wide_a(dev))
+        log(widths_line(wp, card))
+        # -- 26. every LM family at full width ------------------------------
+        log(lm_wide_line(lm_wide_phase(dev, wp["meanwhile"]), card))
+        # -- 23. the LM sharding and the mesh dry-run -----------------------
+        log(shard_line(shard_phase(dev, dryrun=dry), card))
     paths = [main_launches, vit["launches"], vgg["launches"],
              sl_["launches"], srv["launches"], ex["quick"]["launches"],
-             ex["v1"]["launches"], ex["program"]["launches"], wp["launches"]]
+             ex["v1"]["launches"], ex["program"]["launches"], wp["launches"],
+             xp["launches"]]
     path_launches = {k: sum(p[k] for p in paths)
                      for k in ("crossbar_gemm", "fb_epilogue")}
     path_launches["crossbar_gemm"] += sum(

@@ -133,7 +133,7 @@ def main(argv=None) -> dict:
     print(f"\n=== compiled-program inference ({graph.name}) ===")
     x = torch.randn(graph.input_shape(args.batch),
                     generator=torch.Generator().manual_seed(0)).to(dev)
-    model.warmup(args.batch, logits=True)     # builds the kernels once
+    model.warmup(args.batch, logits=True)     # builds, captures the graph
     launched = crossbar_gemm.launches, fb_epilogue.launches
     t0 = time.perf_counter()
     y_prog = model.run(x, logits=True)

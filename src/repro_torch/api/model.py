@@ -15,10 +15,15 @@ and packs the weights once, on the model's device; ``run`` only
 quantizes activations and launches one ``crossbar_gemm`` and one
 ``fb_epilogue`` per stage, the attention stages' per-(batch, head)
 mounts included.  Batches pad up to the bucket ladder by edge
-replication (slice-exact).  ``simulate`` runs the analytical chip model
-on the same graph; ``save``/``load`` persist the packed planes in the
-JAX package's file format, so a file written by either package loads in
-the other.  The device is ``"cuda"`` unless the caller names another;
+replication (slice-exact).  On a GPU, as the JAX package jits one
+executable per bucket, ``run`` captures ``execute_packed`` as a CUDA
+graph at the first request of each (bucket, flavor, input shape) and
+replays it for every later one (``program.serve.Executable``;
+``warmup`` captures ahead of traffic); the kernels' launch counters
+count the replayed launches.  On the CPU ``run`` is eager.
+``simulate`` runs the analytical chip model on the same graph;
+``save``/``load`` persist the packed planes in the JAX package's file
+format, so a file written by either package loads in the other.  The device is ``"cuda"`` unless the caller names another;
 without a GPU ``compile`` and ``load`` raise rather than carry on on the
 CPU.
 """
@@ -58,21 +63,30 @@ class CompiledModel:
     packed: PackedProgram
     device: torch.device
     buckets: tuple[int, ...] = BUCKETS
+    _fns: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     def run(self, x, *, logits: bool = False) -> torch.Tensor:
         """Execute the packed program on a batch (array or tensor).
 
-        Returns the program's output buffer on the model's device
-        (softmax probabilities when the graph ends in softmax);
-        ``logits=True`` returns the last GEMM output.
+        Returns a new tensor on the model's device: the program's output
+        buffer (softmax probabilities when the graph ends in softmax);
+        ``logits=True`` returns the last GEMM output.  Batches pad up to
+        the model's bucket ladder; on a GPU each (bucket, flavor, input
+        shape) is captured once as a CUDA graph and replayed after
+        (``_fns``, the counterpart of the JAX model's executables).
         """
         return run_bucketed(self.packed, x, device=self.device,
-                            buckets=self.buckets, return_logits=logits)
+                            buckets=self.buckets, fns=self._fns,
+                            return_logits=logits)
 
     def warmup(self, batch: int = 1, *, logits: bool = False,
                seq_len: int = 16) -> None:
-        """Run one dummy batch (builds the kernels on a GPU); ``seq_len``
-        sizes the token axis of sequence-input graphs."""
+        """Pay the set-up of one batch bucket ahead of traffic: on a GPU
+        build the kernels and capture that bucket's graph (the
+        counterpart of JAX's trace + compile); on the CPU run the batch
+        once.  ``seq_len`` sizes the token axis of sequence-input graphs
+        (a key of its own per length)."""
         x = torch.zeros(self.program.input_shape(batch, seq_len=seq_len),
                         device=self.device)
         self.run(x, logits=logits)

@@ -136,7 +136,9 @@ def _stage(gemm: ProgramOp, arrays: dict, cfg: CrossbarConfig,
 def load_model(path: str, *, device: torch.device):
     """Load a ``CompiledModel`` saved by ``save_model`` (or by the JAX
     package) onto ``device`` — no compile step, and (version >= 2) no
-    weight quantization: the packed planes are read back verbatim."""
+    weight quantization: the packed planes are read back verbatim.  The
+    model starts with no executable: on a GPU its first ``run`` of each
+    key captures one, as a freshly compiled model's does."""
     from .model import CompiledModel
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"][()]))

@@ -7,7 +7,9 @@ program's stages (also batched over attention's (batch, head) slices),
 behind the public wrappers in ``ops``.  For a CUDA tensor a wrapper
 launches its kernel (built with ``nvcc`` for ``sm_90a`` at first use,
 see ``_build``) and counts the launch in ``<wrapper>.launches``; for a
-CPU tensor it computes the plain PyTorch version.
+CPU tensor it computes the plain PyTorch version.  ``COUNTED`` lists the
+five counting wrappers (a captured CUDA graph's replays add to the same
+counters, ``program.serve.Executable``).
 """
 
 from .crossbar_gemm import (clip_possible, crossbar_gemm, crossbar_gemm_ref,
@@ -21,7 +23,11 @@ from .fused_gemm_epilogue import fused_gemm_epilogue, fused_gemm_epilogue_ref
 from .packed_gemm import (packed_gemm, packed_gemm_ref, packed_gemm_tiles_ref,
                           pad_groups, tile_group_map)
 
+COUNTED = (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
+           packed_gemm)
+
 __all__ = [
+    "COUNTED",
     "clip_possible", "crossbar_gemm", "crossbar_gemm_ref",
     "crossbar_gemm_exact_ref", "kernel_layout", "mount_weight",
     "LN_EPS", "fb_epilogue", "fb_epilogue_ref",

@@ -48,16 +48,20 @@ from .sequence import merge_heads, split_qkv_heads, tokens
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
     """NHWC -> (N, OH, OW, C*k*k) patches in (C, kh, kw) order.
 
-    ``F.unfold`` on NCHW yields the patch order of JAX's
+    One gather for the whole batch: the padded input is viewed as its
+    windows (``Tensor.unfold`` over H, then W: (N, OH, OW, C, kh, kw))
+    and copied once into rows in the patch order of JAX's
     ``conv_general_dilated_patches``, which ``pack_weight``'s
-    ``permute(2, 0, 1, 3)`` layout matches.
+    ``permute(2, 0, 1, 3)`` layout matches.  Two launches at most (the
+    zero pad, the copy), whatever the batch.
     """
     n, h, w, c = x.shape
     oh = (h + 2 * pad - k) // stride + 1
     ow = (w + 2 * pad - k) // stride + 1
-    cols = F.unfold(x.permute(0, 3, 1, 2), (k, k), padding=pad,
-                    stride=stride)                      # (N, C*k*k, L)
-    return cols.transpose(1, 2).reshape(n, oh, ow, c * k * k)
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    windows = x.unfold(1, k, stride).unfold(2, k, stride)
+    return windows.reshape(n, oh, ow, c * k * k)
 
 
 def _last_reads(stages) -> dict[str, int]:

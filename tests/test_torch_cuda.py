@@ -684,6 +684,129 @@ def test_save_load_and_server_on_the_card(cuda, net, tmp_path):
         assert a.wt is None or torch.equal(a.wt, b.wt)
 
 
+# ---------------------------------------------------------------------------
+# the front door's one executable per (bucket, flavor, input shape)
+# ---------------------------------------------------------------------------
+
+def _token_graph():
+    """A token-input graph (runtime T): attention, residual, layer norm,
+    MLP with GELU, sequence mean, fc, softmax."""
+    nb = api.NetworkBuilder("tok", input_seq_dim=32)
+    nb.attention(4, name="attn")
+    nb.residual("input", name="r1")
+    ln = nb.layernorm(name="ln1")
+    nb.linear(64, name="fc1")
+    nb.gelu(name="g1")
+    nb.linear(32, name="fc2")
+    nb.residual(ln, name="r2")
+    nb.layernorm(name="ln2")
+    nb.seqpool(name="pool")
+    nb.fc(10, name="head")
+    nb.softmax(name="sm")
+    return nb.build()
+
+
+# name -> (graph, HurryConfig kwargs, token lengths: () for image input)
+EXECUTABLE_CASES = {
+    "custom8": (_custom8, {}, ()),
+    "alexnet-adc8": (lambda: api.GRAPHS["alexnet"](), dict(adc_bits=8), ()),
+    "vit": (lambda: api.vit_tiny_graph(depth=1, dim=48, heads=3), {}, ()),
+    "tokens": (_token_graph, {}, (16, 32)),
+}
+
+
+def _eager(model, x, logits):
+    """``execute_packed`` itself on the padded batch, sliced back: what a
+    replay of ``run`` must equal."""
+    from repro_torch.program.execute import execute_packed
+    from repro_torch.program.serve import bucket_batch, pad_batch
+    b = x.shape[0]
+    x = pad_batch(x, bucket_batch(b, model.buckets))
+    return execute_packed(model.packed, x, return_logits=logits)[:b]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logits", [False, True])
+@pytest.mark.parametrize("case", list(EXECUTABLE_CASES))
+def test_run_replays_one_graph_per_key(cuda, case, logits):
+    """Batches 1, 3 and 16 (buckets 1, 4, 16; token graphs at two T):
+    the first request of a key captures, the second replays; both equal
+    eager ``execute_packed`` on their own input (the first still after
+    the second ran: no aliasing), and the counters grow by one launch of
+    each kernel per stage and request."""
+    make, cfg, seqs = EXECUTABLE_CASES[case]
+    graph = make()
+    model = api.compile(graph, api.HurryConfig(**cfg), seed=2, device="cuda")
+    n = len(model.program.stages())
+    g = torch.Generator(device=cuda).manual_seed(7)
+    keys = 0
+    for seq in seqs or (16,):
+        for b in (1, 3, 16):
+            shape = model.program.input_shape(b, seq_len=seq)
+            x1 = torch.randn(shape, generator=g, device=cuda)
+            x2 = torch.randn(shape, generator=g, device=cuda)
+            before = crossbar_gemm.launches, fb_epilogue.launches
+            first = model.run(x1, logits=logits)
+            second = model.run(x2, logits=logits)
+            assert (crossbar_gemm.launches, fb_epilogue.launches) == (
+                before[0] + 2 * n, before[1] + 2 * n)
+            keys += 1
+            assert len(model._fns) == keys
+            assert torch.equal(second, _eager(model, x2, logits))
+            assert torch.equal(first, _eager(model, x1, logits))
+            assert first.shape == (b, 10)
+
+
+# a capture that cannot be made: run in a process of its own, so that
+# whatever the failed capture leaves in the CUDA context stays there
+_FAILED_CAPTURE = """
+import torch
+from repro_torch import api
+from repro_torch.kernels import crossbar_gemm, fb_epilogue
+import repro_torch.program.serve as serve
+nb = api.NetworkBuilder("tiny", input_hw=8, input_ch=3)
+nb.conv(16, name="c1"); nb.relu(name="r1"); nb.fc(10, name="fc")
+model = api.compile(nb.build(), seed=2, device="cuda")
+eager = serve.execute_packed
+def syncs(packed, x, **kw):
+    out = eager(packed, x, **kw)
+    if torch.cuda.is_current_stream_capturing():
+        out.sum().item()              # a host read: not capturable
+    return out
+serve.execute_packed = syncs
+before = crossbar_gemm.launches, fb_epilogue.launches
+try:
+    model.run(torch.randn(2, 8, 8, 3, device="cuda"))
+except RuntimeError:                 # torch.AcceleratorError among them
+    print("raised")
+print("entries", len(model._fns))
+print("counters", (crossbar_gemm.launches, fb_epilogue.launches) == before)
+"""
+
+
+@pytest.mark.cuda
+def test_warmup_captures_and_a_failed_capture_raises(cuda):
+    """``warmup`` captures its key (a later ``run`` of it captures no
+    other); a capture that cannot be made raises, leaves no entry and
+    puts the counters back."""
+    import os
+    import subprocess
+    import sys
+    model = api.compile(_custom8(), seed=2, device="cuda")
+    model.warmup(batch=3, logits=True)
+    assert len(model._fns) == 1
+    x = torch.randn(model.program.input_shape(4), device=cuda)
+    assert torch.equal(model.run(x, logits=True), _eager(model, x, True))
+    assert len(model._fns) == 1
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    out = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=src))
+    assert out.stdout.split("\n")[:3] == [
+        "raised", "entries 0", "counters True"], out.stderr
+
+
 @pytest.mark.cuda
 def test_graph_forward_on_the_card(cuda):
     """The crossbar oracle for AlexNet (ReLU / max pool only) on the card
