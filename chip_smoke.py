@@ -147,7 +147,11 @@ each on standard output (the per-shape details go to standard error):
     ``make_prefill_step`` at batch 1 x 4096 (the chunked attention) and
     ``greedy_generate`` at batch 8 (128-token prompt, 64 new tokens),
     the prefill's and a decode step's times (``wall_ms``, median of 5)
-    and tokens/s beside their floors, with the device's busy time; (e)
+    and tokens/s beside their floors, with the device's busy time; the
+    same greedy loop's 191 steps through ``compile_decode_step`` beside
+    the eager step on the same inputs, ids and logits ``torch.equal``
+    (``decode_replay``), and one replayed step's time, busy time, idle
+    share, tokens/s and capture seconds beside the eager step's; (e)
     ``quantize_kv`` on the card ``torch.equal`` to the CPU; (f) no
     launch of any of the five kernels across the phase;
 22. the LM training path (``repro_torch.train``, ``data``,
@@ -212,12 +216,15 @@ each on standard output (the per-shape details go to standard error):
     within ``NOISE_REL`` of the CPU's, one ``crossbar_gemm`` launch per
     GEMM clean and none noisy, the branch of each GEMM and the forwards'
     times; (c) ``examples/serve_lm_torch.py`` for ``SERVE_ARCHS`` on the
-    card and on the CPU, continuation ids equal up to the first step
+    card (through the compiled decode step: ids and logits
+    ``torch.equal`` to the same loop through the eager step on the card)
+    and on the CPU, continuation ids equal up to the first step
     whose CPU top-two margin is under ``TIE`` of max |logit| (that step
     and margin printed; bfloat16 logits tie exactly at times), and the
     example's loop in float32 likewise with every step's logits within
-    ``LM_TOL``, bfloat16 tokens/s, no launch of the five kernels, then
-    ``python -m repro_torch.launch.serve --rounds 2``; (d)
+    ``LM_TOL``, bfloat16 tokens/s beside the eager step's, no launch of
+    the five kernels, then ``python -m repro_torch.launch.serve --rounds
+    2``: one capture over both rounds; (d)
     ``examples/train_lm_torch.py`` (100M, b8 x 256) ``--steps 60
     --ckpt-every 20`` killed with SIGKILL once step 40 is committed and
     rerun to 60 (it resumes), against an uninterrupted run through
@@ -261,7 +268,11 @@ each on standard output (the per-shape details go to standard error):
     ``make_prefill_step`` at b1 x 2048 (Whisper: 64 tokens over 1500
     frames), ``greedy_generate`` at b4 (64-token prompt, 32 new) and a
     decode step timed beside floors worked out from the code's work
-    (``lm_flop``), with busy time and idle share (xLSTM's prefill
+    (``lm_flop``), with busy time and idle share; the greedy loop through
+    ``compile_decode_step`` beside the eager step as 21 (d) (MoE beside a
+    second eager loop too: where two eager loops differ, the replay is
+    held to ``REPLAY_GAP_FACTOR`` times their gap), its replayed step
+    timed and profiled (xLSTM's prefill
     profiled at ``PROFILED_PREFILL``'s 256 tokens, beside that length's
     own wall time: its sLSTM launches some 10^5 kernels at 2048), the
     init and serving
@@ -286,9 +297,14 @@ each on standard output (the per-shape details go to standard error):
     ``execute_packed``, each with busy time and idle share; the capture
     seconds of every key (standard error; min/median/max per net on the
     line).  To run it alone, drive ``executable_phase`` from a script
-    under ``build/`` after the kernel build.
+    under ``build/`` after the kernel build;
+28. the compiled LM decode step's cases at ``reduced()`` that 21, 24 and
+    26 do not reach (``decode_cases_phase``): sliding-window rings past
+    their window, a second params tree (a key of its own), a foreign
+    cache tree (copied in), a call under a mesh context (raises), each
+    answer ``torch.equal`` to the eager step.
 
-Phases run in the order 1-20, 27, 21, 22, 24-26, 23: phase 27 profiles
+Phases run in the order 1-20, 27, 28, 21, 22, 24-26, 23: phase 27 profiles
 before the LM phases have traced anything, and phase 23's dry-run
 processes (host cores only) run in the background beside 24-26, so its
 line follows 26.  The line before the last is the JSON record of the
@@ -1832,6 +1848,10 @@ QWEN_TEACHER = dict(batch=2, steps=128)   # (c)
 # (c): tests/test_archs_smoke.py's decode-against-forward thresholds
 QWEN_AGREE, QWEN_CORR = 0.95, 0.98
 QWEN_SERVE = dict(prefill=4096, batch=8, prompt=128, new=64)   # (d)
+# where the eager decode step is not repeatable (a second eager loop
+# differs from the first), the replay may differ from the eager step by at
+# most this many times the largest gap of the two eager loops
+REPLAY_GAP_FACTOR = 2.0
 
 
 def _tree(fn, tree):
@@ -1871,6 +1891,111 @@ def lm_logits(cfg, params, tokens, frames, steps: int, compute):
 def _rel(got, ref) -> float:
     got, ref = got.float().cpu(), ref.float().cpu()
     return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def decode_replay(cfg, params, prompt, new: int, states=None,
+                  repeat: bool = False) -> dict:
+    """The greedy loop of ``greedy_generate`` (the prompt teacher-forced,
+    then ``new`` tokens) through the eager ``make_decode_step`` and
+    through ``compile_decode_step`` in lockstep, both fed the eager
+    loop's tokens, each step's ids and logits compared (``torch.equal``;
+    the first step that differs and each step's gap to max |logit|).
+    The compiled step decodes on its own caches, unless ``repeat``: then
+    at every step it and a second eager step both start from the eager
+    loop's caches (the compiled step copies them in), so that the
+    second eager step's gap to the first is the eager step's own
+    repeatability on the same inputs.  Then one replayed step timed
+    (``wall_ms``, median of 5) and profiled on the executable's own
+    caches, the capture seconds and the bytes of the cache tree (the
+    graph copies each new leaf back: twice these bytes a step)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.step import compile_decode_step, make_decode_step
+    B, P = prompt.shape
+    L = P + new
+    eager, compiled = make_decode_step(cfg), compile_decode_step(cfg)
+    init = lm.init_caches(cfg, B, L, params=params)
+    pos = torch.arange(L, dtype=torch.int32, device=prompt.device)
+    caches = dict(eager=init, compiled=init)
+    out = dict(steps=L - 1, first_diff=None, eager_first_diff=None,
+               gaps=[], eager_gaps=[], agree=0.0, eager_agree=0.0)
+
+    def compare(key, nxt, logits, n_x, l_x, i):
+        if not (torch.equal(n_x, nxt) and torch.equal(l_x, logits)):
+            if out[f"{key}first_diff"] is None:
+                out[f"{key}first_diff"] = i
+        out[f"{key}gaps"].append(_rel(l_x, logits))
+        out[f"{key}agree"] += (n_x == nxt).float().mean().item() / (L - 1)
+
+    tok = prompt[:, :1]
+    for i in range(L - 1):
+        before = caches["eager"]
+        nxt, logits, caches["eager"] = eager(params, tok, before, pos[i],
+                                             encoder_states=states)
+        n_c, l_c, caches["compiled"] = compiled(
+            params, tok, before if repeat else caches["compiled"], pos[i],
+            encoder_states=states)
+        compare("", nxt, logits, n_c, l_c, i)
+        if repeat:
+            n_r, l_r, _ = eager(params, tok, before, pos[i],
+                                encoder_states=states)
+            compare("eager_", nxt, logits, n_r, l_r, i)
+        tok = prompt[:, i + 1:i + 2] if i + 1 < P else nxt
+    out["gap"] = max(out["gaps"])
+    out["eager_gap"] = max(out["eager_gaps"], default=0.0)
+    (exe,) = compiled.executables.values()
+    own = caches["compiled"]
+    step = lambda: compiled(params, tok, own, pos[P],      # noqa: E731
+                            encoder_states=states)
+    out["capture_s"] = exe.capture_s
+    out["ms"] = wall_ms(step, runs=5)
+    out["busy"], out["top"] = forward_profile(step, runs=3, top=None)
+    out["launches"] = sum(n for _, n, _ in out["top"])
+    out["tok_s"] = B / out["ms"] * 1e3
+    out["cache_gb"] = sum(t.numel() * t.element_size()
+                          for t in _tree_leaves(own)) / 1e9
+    out["keys"] = len(compiled.executables)
+    del caches, own, exe, compiled
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_held(name: str, r: dict) -> None:
+    """Fails unless the replayed loop equals the eager one; where the
+    eager step itself is not repeatable (``repeat``), each replayed
+    step is held to ``REPLAY_GAP_FACTOR`` times the largest gap of two
+    eager steps on the same inputs over the loop."""
+    if r["eager_first_diff"] is None:
+        check(r["first_diff"] is None,
+              f"{name}: replayed decode step {r['first_diff']} differs from "
+              f"the eager step (max rel {r['gap']:.2e})")
+    else:
+        check(r["gap"] <= REPLAY_GAP_FACTOR * r["eager_gap"],
+              f"{name}: replay vs eager {r['gap']:.2e} over "
+              f"{REPLAY_GAP_FACTOR} x eager vs eager {r['eager_gap']:.2e}")
+    check(r["keys"] == 1, f"{name}: {r['keys']} keys captured, expected 1")
+
+
+def replay_text(r: dict, eager_ms: float, floor: float) -> str:
+    """A replayed step beside the eager one and the floor."""
+    busy = ("busy not measured" if r["busy"] is None
+            else f"{r['busy']:.3f} ms busy, idle {1 - r['busy'] / r['ms']:.1%}"
+            f", {r['launches']} kernels")
+    held = ("ids and logits torch.equal to eager over "
+            f"{r['steps']} steps" if r["first_diff"] is None else
+            f"replay first differs at step {r['first_diff']}, max rel "
+            f"{r['gap']:.2e}, next-token agreement {r['agree']:.4f}; eager "
+            f"vs eager on the same inputs first differs at "
+            f"{r['eager_first_diff']}, max rel {r['eager_gap']:.2e}, "
+            f"agreement {r['eager_agree']:.4f}")
+    # the graph's copy-back reads each new cache leaf and writes it again
+    copy_ms = 2 * r["cache_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
+    return (f"replayed step {r['ms']:.3f} ms ({busy}) = {r['tok_s']:.1f} "
+            f"tok/s, {eager_ms / r['ms']:.1f}x under eager {eager_ms:.3f} ms, "
+            f"{r['ms'] / floor:.1f}x floor {floor:.3f} ("
+            f"{r['ms'] / (floor + copy_ms):.1f}x {floor + copy_ms:.3f} with "
+            f"the copy-back of the {r['cache_gb']:.3f} GB cache tree); "
+            f"capture {r['capture_s']:.3f} s; {held}")
 
 
 def lm_reduced(dev) -> dict:
@@ -2055,15 +2180,23 @@ def qwen_serve(dev) -> dict:
     for name, top in (("prefill", prefill_top), ("decode step", step_top)):
         for ms, n, kname in top:
             detail(f"  21d {name}: {kname}: {ms:.3f} ms in {n} launches")
-    del params, caches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del caches
+    # the same greedy loop through the compiled step beside the eager one
+    replay = decode_replay(cfg, params, prompt, N)
+    for ms, n, kname in replay.pop("top")[:8]:
+        detail(f"  21d replayed step: {kname}: {ms:.3f} ms in {n} launches")
+    replay_held(f"qwen3_8b b{B}", replay)
+    del replay["gaps"], replay["eager_gaps"]
+    del params
     torch.cuda.empty_cache()
-    return dict(weight_gb=weight_b / 1e9, prefill_ms=prefill_ms,
+    return dict(weight_gb=weight_b / 1e9, prefill_ms=prefill_ms, replay=replay,
                 prefill_floor=prefill_floor, prefill_tflop=prefill_flop / 1e12,
                 prefill_busy=prefill_busy, generate_s=generate_s,
                 gen_steps=P + N - 1, step_ms=step_ms, step_floor=step_floor,
                 step_busy=step_busy, tok_s=B / step_ms * 1e3,
                 first_agree=first_agree,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                peak_gb=peak_gb)
 
 
 def kv_quant_phase(dev) -> tuple:
@@ -2139,7 +2272,9 @@ def lm_line(lmp: dict, card: str) -> str:
             f"{QWEN_SERVE['batch']} {sv['step_ms']:.3f} ms (floor "
             f"{sv['step_floor']:.3f} ms = bytes / HBM; "
             f"{busy(sv['step_busy'], sv['step_ms'])}) = "
-            f"{sv['tok_s']:.1f} tok/s; greedy_generate "
+            f"{sv['tok_s']:.1f} tok/s; compiled: "
+            + replay_text(sv["replay"], sv["step_ms"], sv["step_floor"])
+            + "; greedy_generate "
             f"b{QWEN_SERVE['batch']} prompt {QWEN_SERVE['prompt']} + {QWEN_SERVE['new']} new: "
             f"{sv['generate_s']:.2f} s for {sv['gen_steps']} steps, first "
             f"token = prefill argmax on {sv['first_agree']:.3f} of rows; peak "
@@ -3042,17 +3177,39 @@ def _greedy_agreement(card: dict, cpu: dict, prompt: int) -> dict:
                 min_margin=min(margin))
 
 
+def _eager_generate(sv, *args, **kw) -> dict:
+    """The example's ``generate`` with the eager ``make_decode_step`` in
+    place of the compiled step it decodes through."""
+    from repro_torch.serve.step import make_decode_step
+    compiled = sv.compile_decode_step
+    sv.compile_decode_step = make_decode_step
+    try:
+        return sv.generate(*args, **kw)
+    finally:
+        sv.compile_decode_step = compiled
+
+
 def serve_example_phase() -> dict:
     """(c): ``examples/serve_lm_torch.py`` for ``SERVE_ARCHS`` on the card
+    (through the compiled decode step: ids and every step's logits
+    ``torch.equal`` to the same loop through the eager step on the card)
     against the CPU (``_greedy_agreement``), tokens/s, no launch of the
     five kernels; then ``python -m repro_torch.launch.serve --rounds 2``
-    with no ``--device``."""
+    with no ``--device``: one capture over both rounds."""
     import torch
     sv = _example("serve_lm_torch")
     before = _launch_counts()
     archs = {}
     for arch in SERVE_ARCHS:
         card = _main(sv, ["--arch", arch])
+        P = card["prompt_len"]
+        eager = _eager_generate(sv, *sv.inputs(arch, card["batch"], P,
+                                               "cuda"),
+                                card["seqs"].shape[1] - P)
+        check(torch.equal(card["seqs"], eager["seqs"])
+              and torch.equal(card["logits"], eager["logits"]),
+              f"serve_lm {arch}: the compiled step's ids or logits differ "
+              "from the eager step's on the card")
         cpu = _main(sv, ["--arch", arch, "--device", "cpu"])
         ag = _greedy_agreement(card, cpu, card["prompt_len"])
         check(ag["equal"], f"serve_lm {arch}: card ids differ from the "
@@ -3070,15 +3227,20 @@ def serve_example_phase() -> dict:
               f"serve_lm {arch} float32: card against CPU {a32}")
         archs[arch] = dict(ag, f32=a32, tok_s=card["tok_s"],
                            decode_ms=card["decode_ms"],
-                           prefill_ms=card["prefill_ms"])
+                           prefill_ms=card["prefill_ms"],
+                           eager_tok_s=(card["seqs"].shape[1] - P)
+                           * card["batch"] / eager["decode_s"])
     launched = {k: v - before[k] for k, v in _launch_counts().items()}
     check(not any(launched.values()),
           f"serve_lm launched kernels of repro_torch.kernels: {launched}")
     out = _run(["-m", "repro_torch.launch.serve", "--rounds", "2"])
-    tail = out.strip().splitlines()[-1]
-    check("tok/s" in tail and "NVIDIA" in tail,
-          f"launch.serve: last line {tail!r}")
-    return dict(archs=archs, launched=launched, launcher=tail)
+    served, captures = out.strip().splitlines()[-2:]
+    check("tok/s" in served and "NVIDIA" in served,
+          f"launch.serve: served line {served!r}")
+    check(captures == "decode step: 1 CUDA graph capture(s) over 2 rounds",
+          f"launch.serve: {captures!r}")
+    return dict(archs=archs, launched=launched, launcher=served,
+                captures=captures)
 
 
 def _params_gap(a_dir: str, b_dir: str, step: int) -> tuple[float, bool]:
@@ -3309,13 +3471,15 @@ def examples_line(ep: dict, card: str) -> str:
         + f", first differing step {a['diverge']}, logit gap before it "
         f"{a['gap']:.2e}; float32 ids equal through step {a['f32']['stop']}"
         f" (first differing {a['f32']['diverge']}), logit gap "
-        f"{a['f32']['gap']:.2e}; bf16 {a['tok_s']:.0f} tok/s"
-        for arch, a in sv["archs"].items())
+        f"{a['f32']['gap']:.2e}; bf16 {a['tok_s']:.0f} tok/s (ids and "
+        f"logits torch.equal to the eager step's, {a['eager_tok_s']:.0f} "
+        "tok/s)" for arch, a in sv["archs"].items())
     return (f"[24 examples] (a) quickstart: alexnet subprocess bit-exact "
             f"twice, {q['alexnet_us']:.0f} us/batch2; {quick}; launches "
             f"{q['launches']}; (b) "
             f"crossbar_inference b8: {xbar}; (c) serve_lm: {serve}; kernel "
-            f"launches {sv['launched']}; launch.serve: {sv['launcher']}; "
+            f"launches {sv['launched']}; launch.serve: {sv['launcher']}, "
+            f"{sv['captures']}; "
             f"(d) train_lm 100M b8x256: killed after step "
             f"{TRAIN_EX['kill']}, resumed to {TRAIN_EX['steps']}: "
             f"{tr['gap']:.2e} of max |param| (torch.equal {tr['equal']}), "
@@ -3856,7 +4020,18 @@ def lm_served(dev, arch: str, seed: int) -> dict:
         step_flop / BF16_OPS_PER_S) * 1e3
     out["tok_s"] = B / out["step_ms"] * 1e3
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del params, caches, states
+    del caches
+    # the same greedy loop through the compiled step beside the eager one
+    # (and, for MoE, beside a second eager loop: top-k index_add_ atomics)
+    out["replay"] = decode_replay(cfg, params, prompt, N, states,
+                                  repeat=bool(cfg.n_experts))
+    for ms, n, kname in out["replay"].pop("top")[:8]:
+        detail(f"  26b {arch} replayed step: {kname}: {ms:.3f} ms in {n} "
+               "launches")
+    for k in ("gaps", "eager_gaps"):
+        detail(f"  26b {arch} {k} per step: {out['replay'].pop(k)}")
+    replay_held(arch, out["replay"])
+    del params, states
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - start
     return out
@@ -3969,7 +4144,9 @@ def lm_wide_line(lp: dict, card: str) -> str:
         + f"); decode step b"
         f"{SERVE_WIDE['batch']} {r['step_ms']:.2f} ms (floor "
         f"{r['step_floor']:.3f}; {busy(r['step_busy'], r['step_ms'])}) = "
-        f"{r['tok_s']:.1f} tok/s; greedy_generate {r['generate_s']:.2f} s; "
+        f"{r['tok_s']:.1f} tok/s; compiled: "
+        + replay_text(r["replay"], r["step_ms"], r["step_floor"])
+        + f"; greedy_generate {r['generate_s']:.2f} s; "
         f"peak {r['peak_gb']:.1f} GB; {r['s']:.1f} s"
         for arch, r in lp["served"].items())
     kv = lp["kv"]
@@ -4252,6 +4429,148 @@ def kernel_times(label: str) -> int:
         f"packed_gemm 4 groups float32 {pk['ms']:.4f} ms")
     print(json.dumps(rec))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the compiled decode step's cases that 21, 24 and 26 do not reach
+# ---------------------------------------------------------------------------
+
+DECODE_RINGS = ("mixtral_8x22b", "zamba2_2_7b")   # (a), window cut to 8
+DECODE_CASES = dict(batch=2, window=8, steps=24, mid=5)
+
+
+def decode_cases_phase(dev) -> dict:
+    """Phase 28: ``compile_decode_step`` at ``reduced()`` on the card,
+    bfloat16 weights, batch 2, positions alternately ints and 0-d
+    tensors: (a) ``DECODE_RINGS`` with the window cut to 8, decoded 24
+    steps (three times round the ring) beside the eager step, every
+    step's ids and logits and the last caches ``torch.equal``; (b) a
+    second params tree of the same shapes (another draw) gets a key of
+    its own, each answer ``torch.equal`` to the eager step on its own
+    tree, the first key replays on; (c) a foreign cache tree (an eager
+    loop's after ``mid`` steps) is copied in, and the replays go on from
+    it equal to the eager step; (d) a call under a sharding context with
+    a mesh raises and captures nothing.  No launch of the five kernels."""
+    import dataclasses
+    import types
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.step import compile_decode_step, make_decode_step
+    from repro_torch.sharding import context as shctx
+    t0, before = time.perf_counter(), _launch_counts()
+    B, steps = DECODE_CASES["batch"], DECODE_CASES["steps"]
+
+    def setup(arch, seed, **kw):
+        cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+        gen = torch.Generator(dev).manual_seed(seed)
+        params = lm.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen,
+                               device=dev, dtype=torch.int32)
+        return cfg, params, tokens
+
+    def position(i):
+        return i if i % 2 else torch.tensor(i, dtype=torch.int32, device=dev)
+
+    def lockstep(cfg, params, tokens, compiled, caches, start=0, stop=steps,
+                 eager_caches=None):
+        """Teacher-forced steps ``start``..``stop`` through both steps;
+        True when every answer and the last caches are equal."""
+        eager = make_decode_step(cfg)
+        ce, same = caches if eager_caches is None else eager_caches, True
+        for i in range(start, stop):
+            tok = tokens[:, i:i + 1]
+            n_e, l_e, ce = eager(params, tok, ce, position(i))
+            n_c, l_c, caches = compiled(params, tok, caches, position(i))
+            same &= torch.equal(n_e, n_c) and torch.equal(l_e, l_c)
+        return same and all(torch.equal(a, b) for a, b in zip(
+            _tree_leaves(ce), _tree_leaves(caches))), ce, caches
+
+    out = dict(rings={}, capture_s=[])
+    for i, arch in enumerate(DECODE_RINGS):
+        cfg, params, tokens = setup(arch, 280 + i,
+                                    sliding_window=DECODE_CASES["window"])
+        compiled = compile_decode_step(cfg)
+        init = lm.init_caches(cfg, B, steps, params=params)
+        same, _, caches = lockstep(cfg, params, tokens, compiled, init)
+        (exe,) = compiled.executables.values()
+        out["capture_s"].append(exe.capture_s)
+        index = int(caches["kv"]["index"][0])
+        check(same and index == steps
+              and caches["kv"]["k"].shape[2] == DECODE_CASES["window"],
+              f"28a {arch}: ring of {DECODE_CASES['window']} over {steps} "
+              f"steps: replay equal to eager {same}, index {index}")
+        out["rings"][arch] = dict(index=index,
+                                  wraps=index // DECODE_CASES["window"])
+
+    # (b) two params trees of the same shapes
+    cfg, params, tokens = setup("qwen3_8b", 290)
+    _, other, _ = setup("qwen3_8b", 291)
+    compiled, eager = compile_decode_step(cfg), make_decode_step(cfg)
+    init = lm.init_caches(cfg, B, steps, params=params)
+    answers = []
+    for p in (params, other, params):
+        _, logits, _ = compiled(p, tokens[:, :1], init, 0)
+        answers.append(torch.equal(logits, eager(p, tokens[:, :1], init,
+                                                 0)[1]))
+    check(all(answers) and len(compiled.executables) == 2,
+          f"28b: answers equal to eager {answers}, "
+          f"{len(compiled.executables)} keys (expected 2)")
+    out["capture_s"] += [e.capture_s for e in compiled.executables.values()]
+    out["params_keys"] = len(compiled.executables)
+
+    # (c) a foreign cache tree copied in
+    mid = DECODE_CASES["mid"]
+    compiled = compile_decode_step(cfg)
+    compiled(params, tokens[:, :1], init, 0)          # captures the key
+    _, mid_caches, _ = lockstep(cfg, params, tokens, make_decode_step(cfg),
+                                init, stop=mid)
+    same, _, caches = lockstep(cfg, params, tokens, compiled, mid_caches,
+                               start=mid, eager_caches=mid_caches)
+    check(same and len(compiled.executables) == 1
+          and int(caches["kv"]["index"][0]) == steps,
+          f"28c: replays from a foreign cache tree equal to eager {same}")
+    out["foreign"] = same
+
+    # (d) a mesh context
+    compiled = compile_decode_step(cfg)
+    try:
+        with shctx.use_rules(types.SimpleNamespace(mesh="mesh")):
+            compiled(params, tokens[:, :1], init, 0)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "mesh" in raised
+          and not compiled.executables,
+          f"28d: a call under a mesh context did not raise ({raised})")
+    out["mesh_error"] = raised
+    after = _launch_counts()
+    out["launched"] = {k: after[k] - before[k] for k in after}
+    check(not any(out["launched"].values()),
+          f"phase 28 launched kernels of repro_torch.kernels: "
+          f"{out['launched']}")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def decode_cases_line(dc: dict, card: str) -> str:
+    """Phase 28's line on standard output."""
+    caps = sorted(dc["capture_s"])
+    return ("[28 compiled decode cases] reduced(), bf16, b"
+            f"{DECODE_CASES['batch']}: (a) "
+            + ", ".join(f"{a} window {DECODE_CASES['window']} to index "
+                        f"{r['index']} ({r['wraps']} times round)"
+                        for a, r in dc["rings"].items())
+            + ": every step's ids and logits and the caches torch.equal to "
+            f"the eager step; (b) a second params tree: "
+            f"{dc['params_keys']} keys, each answer torch.equal to eager on "
+            f"its own tree; (c) a foreign cache tree copied in after "
+            f"{DECODE_CASES['mid']} eager steps, replays torch.equal to eager "
+            f"{dc['foreign']}; (d) under a mesh context: raised "
+            f"RuntimeError, nothing captured; capture s min/median/max "
+            f"{caps[0]:.3f}/{statistics.median(caps):.3f}/{caps[-1]:.3f}; "
+            f"kernel launches {dc['launched']}; phase {dc['s']:.1f} s | "
+            f"{card}")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4711,6 +5030,8 @@ def main(argv: list[str] | None = None) -> int:
     # them) ------------------------------------------------------------------
     xp = executable_phase(api, dev)
     log(executable_line(xp, card))
+    # -- 28. the compiled decode step's cases -------------------------------
+    log(decode_cases_line(decode_cases_phase(dev), card))
     # -- 21. the LM serving stack ------------------------------------------
     log(lm_line(lm_phase(dev), card))
     # -- 22. the LM training path ------------------------------------------

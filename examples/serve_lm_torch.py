@@ -7,8 +7,10 @@ The PyTorch port's counterpart of ``examples/serve_lm.py``.  Loads a
 reduced config of the chosen architecture (``inputs``: drawn on the
 CPU, so that every device serves the same numbers), runs
 the prompts through prefill token by token, then decodes greedily with
-the per-family O(1) state / KV-cache step (``serve.step.make_decode_step``,
-bfloat16 compute as in the JAX package).  The LM stack is plain PyTorch
+the per-family O(1) state / KV-cache step, compiled as the JAX example
+jits it (``serve.step.compile_decode_step``: one CUDA graph per key on
+the GPU, replayed for every token; bfloat16 compute as in the JAX
+package).  The LM stack is plain PyTorch
 and launches none of the port's CUDA kernels.  ``main(argv)`` returns
 the numbers it prints; ``generate`` is the loop itself.
 """
@@ -21,7 +23,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve.step import make_decode_step
+from repro_torch.serve.step import compile_decode_step
 from repro_torch.tree import tree_map
 
 
@@ -45,7 +47,7 @@ def generate(cfg, params, prompts: torch.Tensor, enc, new_tokens: int, *,
     max_len = P + new_tokens
     caches = lm.init_caches(cfg, B, max_len, dtype=compute_dtype,
                             params=params)
-    decode = make_decode_step(cfg, compute_dtype)
+    decode = compile_decode_step(cfg, compute_dtype)
     if enc is not None:
         enc = enc.to(compute_dtype)
     positions = torch.arange(max_len, dtype=torch.int32, device=dev)

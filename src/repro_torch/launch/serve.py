@@ -5,11 +5,13 @@
         --device cpu
 
 The port of ``repro.launch.serve``, with the same flags plus
-``--device`` (default: the GPU).  It builds the decode step
-(``repro_torch.serve.step``), runs a continuous-batching loop over
-synthetic request traffic, and reports tokens/s.  As in the JAX
-launcher, ``--reduced`` is on by default and cannot be switched off
-here: full-width serving goes through the library, ``lm.init_params(cfg,
+``--device`` (default: the GPU).  It compiles the decode step
+(``repro_torch.serve.step.compile_decode_step``, as the JAX launcher
+jits it: on the GPU one CUDA graph per key, captured in the first round
+and replayed in every later one), runs a continuous-batching loop over
+synthetic request traffic, and reports tokens/s and the captures.  As in
+the JAX launcher, ``--reduced`` is on by default and cannot be switched
+off here: full-width serving goes through the library, ``lm.init_params(cfg,
 generator, dtype=torch.bfloat16, device="cuda")`` and
 ``serve.step.greedy_generate`` (``chip_smoke.py`` serves Qwen3-8B so).
 """
@@ -24,10 +26,12 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve.step import make_decode_step
+from repro_torch.serve.step import compile_decode_step
 
 
-def main(argv: list[str] | None = None):
+def main(argv: list[str] | None = None) -> dict:
+    """Serve ``--rounds`` rounds; returns the tokens served, the seconds
+    and the number of decode executables captured."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2_1_8b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -44,7 +48,7 @@ def main(argv: list[str] | None = None):
         cfg = cfg.reduced()
     gen = torch.Generator(dev).manual_seed(0)
     params = lm.init_params(cfg, gen, device=dev)
-    decode = make_decode_step(cfg)
+    decode = compile_decode_step(cfg)
     enc = None
     if cfg.is_encdec:
         enc = torch.randn((args.batch, cfg.encoder_seq, cfg.d_model),
@@ -68,6 +72,11 @@ def main(argv: list[str] | None = None):
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     print(f"served {total_tok} tokens in {dt:.1f}s "
           f"({total_tok/dt:.0f} tok/s, {args.arch} reduced, {where})")
+    captures = len(decode.executables)
+    print(f"decode step: {captures} CUDA graph capture(s) over "
+          f"{args.rounds} rounds" if dev.type == "cuda"
+          else "decode step: eager (no capture on the CPU)")
+    return dict(tokens=total_tok, seconds=dt, captures=captures)
 
 
 if __name__ == "__main__":

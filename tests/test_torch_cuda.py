@@ -874,6 +874,73 @@ def test_lm_on_the_card_equals_the_cpu(cuda, arch):
         assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
 
 
+# (arch, config fields replaced, steps): one reduced arch per family, and
+# Mixtral with its window cut to 8 decoding past it through the ring
+DECODE_REPLAY_CASES = {a: (a, {}, 16) for a in (
+    "qwen3_8b", "mixtral_8x22b", "zamba2_2_7b", "xlstm_1_3b",
+    "whisper_medium")}
+DECODE_REPLAY_CASES["mixtral ring"] = ("mixtral_8x22b",
+                                       dict(sliding_window=8), 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_REPLAY_CASES))
+def test_compiled_decode_step_replays_equal_the_eager_step(cuda, case):
+    """``compile_decode_step`` on the card: a teacher-forced loop (bfloat16
+    compute, float32 weights cast in the graph) captures one executable
+    and replays it; every step's ids and logits and the last caches
+    ``torch.equal`` to the eager step's, each kept answer unmoved by the
+    later replays, the first caches left as they were."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.step import compile_decode_step, make_decode_step
+    from repro_torch.tree import tree_leaves
+    arch, replace, steps = DECODE_REPLAY_CASES[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    gen = torch.Generator(cuda).manual_seed(11)
+    params = lm.init_params(cfg, gen, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    enc = (torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+           if cfg.is_encdec else None)
+    init = lm.init_caches(cfg, 2, steps, params=params)
+    kept = _to(init, "cpu")
+    eager, compiled = make_decode_step(cfg), compile_decode_step(cfg)
+    want, got = [], []
+    caches = {"eager": init, "compiled": init}
+    for i in range(steps):
+        for name, step, out in (("eager", eager, want),
+                                ("compiled", compiled, got)):
+            nxt, logits, caches[name] = step(
+                params, tokens[:, i:i + 1], caches[name],
+                torch.tensor(i, dtype=torch.int32, device=cuda),
+                encoder_states=enc)
+            out.append((nxt, logits))
+    assert len(compiled.executables) == 1
+    for i, ((gn, gl), (wn, wl)) in enumerate(zip(got, want)):
+        assert torch.equal(gn, wn) and torch.equal(gl, wl), i
+    for a, b in zip(tree_leaves(caches["compiled"]),
+                    tree_leaves(caches["eager"])):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(init), tree_leaves(kept)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "whisper_medium"])
+def test_launch_serve_captures_once_per_key(cuda, arch, capsys):
+    """``launch.serve`` on the card by default: two rounds of fresh caches
+    share one key, so one capture serves both."""
+    from repro_torch.launch import serve
+    r = serve.main(["--arch", arch, "--batch", "2", "--rounds", "2",
+                    "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert r["captures"] == 1 and r["tokens"] == 16
+    assert "decode step: 1 CUDA graph capture(s) over 2 rounds" in out
+
+
 @pytest.mark.cuda
 def test_quant_kv_cache_updates_on_the_card(cuda):
     """The int8 KV cache's ring on the card: after every update (one-token
