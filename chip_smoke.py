@@ -159,11 +159,19 @@ each on standard output (the per-shape details go to standard error):
     weights, batch 2 x 16, on the card against the CPU: the float32-
     compute loss within 1e-5 relative and every gradient leaf within 1e-4
     of that leaf's max |grad|, and one ``make_train_step`` step (bfloat16
-    compute, remat) whose gradients correlate at 0.99 or more; (b)
-    InternLM2-1.8B at full width, depth 2, b1 x 256, loss and gradients
-    against the CPU at (a)'s tolerances, ``remat=True`` against
-    ``remat=False`` on the card to 1e-6 of max |grad| (``torch.equal``
-    printed), ``microbatches=2`` against 1 at b2 (correlation 0.99); (c)
+    compute, remat) whose gradients correlate at 0.99 or more; then
+    ``TRAIN_REPLAY['steps']`` steps through ``compile_train_step`` (one
+    CUDA graph per key: the first step eager, the second captured and
+    replayed, the third replayed) beside the eager ``make_train_step``
+    from the same state (and InternLM2 with ``microbatches=2``): the
+    final parameters, ``m``, ``v``, ``step`` and every step's metrics
+    ``torch.equal`` to the eager run's, or, where they are not, within
+    ``REPLAY_GAP_FACTOR`` times the gap of a second eager run to the
+    first (both printed); (b) InternLM2-1.8B at full width, depth 2, b1 x
+    256, loss and gradients against the CPU at (a)'s tolerances,
+    ``remat=True`` against ``remat=False`` on the card to 1e-6 of max
+    |grad| (``torch.equal`` printed), ``microbatches=2`` against 1 at b2
+    (correlation 0.99); (c)
     InternLM2-1.8B at full width and its 24 layers, 1.89 B float32
     parameters with AdamW state, trained 8 remat steps at b1 x 4096 from
     ``TokenPipeline(seed=11)`` with ``OptimizerConfig(lr=1e-3)``: finite
@@ -174,11 +182,17 @@ each on standard output (the per-shape details go to standard error):
     over HBM), peak memory, one step's device busy time, idle share and
     largest kernels, the optimizer's time alone and one layer's attention
     core (``mha_chunked`` as remat runs it) for its elementwise share;
-    (d) ``python -m repro_torch.launch.train --reduced`` 20 steps, then
+    then the same 8 steps from the same state through
+    ``compile_train_step`` (the eager run's final state on the host
+    meanwhile), held as (a) holds it (a second eager run only where the
+    replay differs), the replayed step's time, busy time, idle share,
+    tokens/s, capture seconds and peak memory beside eager's; (d)
+    ``python -m repro_torch.launch.train --reduced`` 20 steps, then
     relaunched to 30 in the same temporary directory (it resumes),
     against a fresh 30-step run through ``main`` here, to 1e-4 of max
-    |param| (``torch.equal`` printed); (e) no launch of any of the five
-    kernels across (a)-(c) and (d)'s fresh run;
+    |param| (``torch.equal`` printed), each process one capture of the
+    compiled step; (e) no launch of any of the five kernels across
+    (a)-(c) and (d)'s fresh run;
 23. the LM framework's sharding (``repro_torch.sharding``) and mesh
     dry-run (``launch.{mesh,cost,dryrun,roofline}``): (a) a 1-rank NCCL
     group and ``make_local_mesh("cuda")``, Qwen3-8B at full width and
@@ -229,8 +243,9 @@ each on standard output (the per-shape details go to standard error):
     --ckpt-every 20`` killed with SIGKILL once step 40 is committed and
     rerun to 60 (it resumes), against an uninterrupted run through
     ``main`` to ``TRAIN_RESUME_TOL`` of max |param| (``torch.equal``
-    printed, not held: a backward with atomics may reorder sums),
-    ms per step, tokens/s and peak memory; (e) ``python -m
+    printed, not held: a backward with atomics may reorder sums), both
+    through the compiled train step (one capture per process), ms per
+    step, tokens/s and peak memory; (e) ``python -m
     repro_torch.launch.train --reduced`` sent SIGTERM after its first
     step line: it saves the step it reached and exits 0; relaunched, it
     resumes to ``SIGTERM_STEPS``, against an uninterrupted run at (d)'s
@@ -2300,6 +2315,12 @@ TRAIN_DEPTH2 = dict(batch=1, seq=256)                       # (b)
 # and learning rate
 TRAIN_FULL = dict(batch=1, seq=4096, steps=8, timed=5, seed=11, lr=1e-3)
 TRAIN_CLI = dict(first=20, total=30, every=10)             # (d)
+# (a): steps of each arch through compile_train_step beside the eager step
+TRAIN_REPLAY = dict(batch=2, seq=16, steps=3)
+# (c), 24 (d): the eager step's recorded figures on this card (PERF.md
+# §5: InternLM2-1.8B's step and peak, train_lm's step), printed beside the
+# compiled step's
+EAGER_TRAIN = dict(full_ms=806.7, full_gb=61.0, example_ms=67.9)
 # (d): the resumed run's final parameters against a fresh run's, relative
 # to max |param|
 TRAIN_RESUME_TOL = 1e-4
@@ -2338,18 +2359,6 @@ def f32_value_and_grad(cfg, params, batch, remat: bool = False):
                            for (k, v), g in zip(leaves.items(), grads)}
 
 
-def _grad_gap(got: dict, want: dict) -> float:
-    """Largest leaf gap over that leaf's max |grad| (want's device)."""
-    worst = 0.0
-    for k, w in want.items():
-        g = got[k].to(w.device).float()
-        scale = w.abs().max().item()
-        gap = (g - w.float()).abs().max().item()
-        worst = max(worst, gap / scale if scale else
-                    (0.0 if gap == 0 else math.inf))
-    return worst
-
-
 def _grad_corr(got: dict, want: dict) -> float:
     """Correlation of two gradient trees, leaf sums in float64."""
     tot = [0.0] * 5
@@ -2363,6 +2372,86 @@ def _grad_corr(got: dict, want: dict) -> float:
     sx, sy, sxx, syy, sxy = tot
     return (sxy - sx * sy / n) / math.sqrt((sxx - sx * sx / n)
                                            * (syy - sy * sy / n))
+
+
+def _tree_gap(got, want) -> float:
+    """Largest leaf gap over that leaf's max |value| (0 where every leaf
+    is equal) of two trees (nested, or flat dicts keyed by path), on
+    ``got``'s device one leaf at a time: ``want`` may be a copy on the
+    host."""
+    import torch
+    from repro_torch.tree import tree_items
+    g_items, w_items = tree_items(got), tree_items(want)
+    check([k for k, _ in g_items] == [k for k, _ in w_items],
+          "two trees of different paths compared")
+    worst = 0.0
+    for (k, g), (_, w) in zip(g_items, w_items):
+        w = w.to(g.device)
+        if torch.equal(g, w):
+            continue
+        gap = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        worst = max(worst, gap / scale if scale else math.inf)
+    return worst
+
+
+def _run_gap(a: dict, b: dict) -> float:
+    """Two training runs' gap: final state and every step's metrics."""
+    return max([_tree_gap(a["state"], b["state"])]
+               + [_tree_gap(x, y) for x, y in zip(a["metrics"],
+                                                   b["metrics"])])
+
+
+def _train_run(step, params, batches) -> dict:
+    """``step`` over ``batches`` from ``params`` and a fresh optimizer
+    state: each step's metrics and the final state."""
+    from repro_torch.train.optimizer import init_opt_state
+    p, o, ms = params, init_opt_state(params), []
+    for b in batches:
+        p, o, m = step(p, o, b)
+        ms.append(m)
+    return dict(state=dict(params=p, opt=o), metrics=ms)
+
+
+def train_replay(cfg, params, batches, microbatches: int = 1) -> dict:
+    """``compile_train_step`` over ``batches`` beside the eager
+    ``make_train_step`` from the same state (bfloat16 compute, remat):
+    the replayed run's gap to the eager run and, only where it is not 0,
+    a second eager run's (the eager step's own repeatability), the keys
+    captured and the capture seconds."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import compile_train_step, make_train_step
+    ocfg = OptimizerConfig(lr=TRAIN_FULL["lr"], warmup_steps=2)
+    eager = make_train_step(cfg, ocfg, microbatches)
+    compiled = compile_train_step(cfg, ocfg, microbatches)
+    first = _train_run(eager, params, batches)
+    replayed = _train_run(compiled, params, batches)
+    (exe,) = compiled.executables.values()
+    gap = _run_gap(replayed, first)
+    # the eager step's own repeatability, needed where the replay differs
+    eager_gap = (_run_gap(_train_run(eager, params, batches), first)
+                 if gap else 0.0)
+    return dict(gap=gap, eager_gap=eager_gap,
+                keys=len(compiled.executables), capture_s=exe.capture_s)
+
+
+def train_replay_held(name: str, r: dict) -> None:
+    """Fails unless the replayed run equals the eager one, or, where two
+    eager runs differ, is within ``REPLAY_GAP_FACTOR`` times their gap;
+    one key captured."""
+    if r["eager_gap"] == 0:
+        check(r["gap"] == 0, f"{name}: replayed train step differs from "
+              f"the eager step by {r['gap']:.2e} of a leaf's max")
+    else:
+        check(r["gap"] <= REPLAY_GAP_FACTOR * r["eager_gap"],
+              f"{name}: replayed train step vs eager {r['gap']:.2e} over "
+              f"{REPLAY_GAP_FACTOR} x eager vs eager {r['eager_gap']:.2e}")
+    check(r["keys"] == 1, f"{name}: {r['keys']} keys captured, expected 1")
+
+
+def _replay_text(r: dict) -> str:
+    return ("torch.equal" if r["gap"] == 0 else
+            f"{r['gap']:.1e} (eager vs eager {r['eager_gap']:.1e})")
 
 
 def train_reduced(dev) -> dict:
@@ -2390,17 +2479,26 @@ def train_reduced(dev) -> dict:
         loss_c, grads_c = f32_value_and_grad(cfg, params, batch)
         loss_d, grads_d = f32_value_and_grad(cfg, params_d, batch_d)
         loss_rel = abs(loss_d.item() / loss_c.item() - 1)
-        grad_gap = _grad_gap(grads_d, grads_c)
+        grad_gap = _tree_gap(grads_d, grads_c)
         step = make_train_step(cfg)
         _, st_c, m_c = step(params, init_opt_state(params), batch)
         _, st_d, m_d = step(params_d, init_opt_state(params_d), batch_d)
         corr = _grad_corr(dict(tree_items(make_grad_fn(cfg)(
             params_d, batch_d)[1])), dict(tree_items(make_grad_fn(cfg)(
                 params, batch)[1])))
+        gen_d = torch.Generator(dev).manual_seed(22 + i)
+        batches = [_train_batch(cfg, gen_d, TRAIN_REPLAY["batch"])
+                   for _ in range(TRAIN_REPLAY["steps"])]
+        replay = train_replay(cfg, params_d, batches)
+        train_replay_held(f"22a {arch}", replay)
         r = dict(loss_rel=loss_rel, grad_gap=grad_gap, corr=corr,
                  loss=(m_d["loss"].item(), m_c["loss"].item()),
                  grad_norm=(m_d["grad_norm"].item(),
-                            m_c["grad_norm"].item()))
+                            m_c["grad_norm"].item()), replay=replay)
+        detail(f"  22a {arch}: {TRAIN_REPLAY['steps']} compiled steps vs "
+               f"eager: {replay['gap']:.2e}, eager vs eager "
+               f"{replay['eager_gap']:.2e}, capture "
+               f"{replay['capture_s']:.3f} s")
         detail(f"  22a {arch}: f32 loss {loss_d.item():.6f} (CPU "
                f"{loss_c.item():.6f}, rel {loss_rel:.1e}), worst gradient "
                f"leaf {grad_gap:.1e} of its max; bf16 step loss "
@@ -2417,6 +2515,36 @@ def train_reduced(dev) -> dict:
               f"{arch} bf16 train step card vs CPU: gradient correlation "
               f"{corr:.5f} (limit {TRAIN_BF16_CORR})")
         out[arch] = r
+    return out
+
+
+def train_micro(dev) -> dict:
+    """(a)'s case with ``microbatches=2``: InternLM2 at ``reduced()``, the
+    two microbatches unrolled into the captured step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("internlm2_1_8b").reduced()
+    gen = torch.Generator(dev).manual_seed(21)
+    params = lm.init_params(cfg, gen, device=dev)
+    batches = [_train_batch(cfg, gen, TRAIN_REPLAY["batch"])
+               for _ in range(TRAIN_REPLAY["steps"])]
+    r = train_replay(cfg, params, batches, 2)
+    train_replay_held("22a internlm2_1_8b microbatches 2", r)
+    return r
+
+
+def _train_batch(cfg, gen, batch: int) -> dict:
+    """A random batch of ``TRAIN_REPLAY['seq']`` tokens (and frames for
+    Whisper) on ``gen``'s device."""
+    import torch
+    out = {"tokens": torch.randint(0, cfg.vocab_size,
+                                   (batch, TRAIN_REPLAY["seq"]),
+                                   generator=gen, device=gen.device,
+                                   dtype=torch.int32)}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                    generator=gen, device=gen.device)
     return out
 
 
@@ -2437,7 +2565,7 @@ def train_depth2(dev) -> dict:
                           device=dev).batch_at(0)
     loss_d, grads_d = f32_value_and_grad(cfg, params, batch)
     loss_r, grads_r = f32_value_and_grad(cfg, params, batch, remat=True)
-    remat_gap = _grad_gap(grads_r, grads_d)
+    remat_gap = _tree_gap(grads_r, grads_d)
     remat_equal = torch.equal(loss_r, loss_d) and all(
         torch.equal(grads_r[k], grads_d[k]) for k in grads_d)
     del grads_r
@@ -2448,7 +2576,7 @@ def train_depth2(dev) -> dict:
         cfg, params_c, _tree(lambda t: t.cpu(), batch))
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(loss_d.item() / loss_c.item() - 1)
-    grad_gap = _grad_gap(grads_d, grads_c)
+    grad_gap = _tree_gap(grads_d, grads_c)
     del grads_c, grads_d, params_c
     batch2 = TokenPipeline(cfg.vocab_size, 2, s, seed=11,
                            device=dev).batch_at(0)
@@ -2489,44 +2617,67 @@ def train_step_flop(cfg, params, tokens: int, seq: int) -> float:
     return tokens * (6 * (layer_mat + head) + 2 * layer_mat) + 4 * attn
 
 
+def _full_loop(step, state: dict, pipe, tag: str) -> dict:
+    """``TRAIN_FULL['steps']`` steps of ``step`` on ``state`` ({params,
+    opt}: the loop replaces both, so no earlier tree outlives its step)
+    from ``pipe``'s first batches: each step's metrics, loss, grad_norm
+    and time (host clock + synchronize)."""
+    import torch
+    out = dict(losses=[], norms=[], times=[], metrics=[])
+    for i in range(TRAIN_FULL["steps"]):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["params"], state["opt"], m = step(state["params"],
+                                                state["opt"], batch)
+        torch.cuda.synchronize()
+        out["times"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append(m)
+        out["losses"].append(m["loss"].item())
+        out["norms"].append(m["grad_norm"].item())
+        detail(f"  22c {tag} step {i + 1}: loss {out['losses'][-1]:.5f} "
+               f"grad_norm {out['norms'][-1]:.5f} {out['times'][-1]:.1f} ms")
+    out["step_ms"] = statistics.median(out["times"][-TRAIN_FULL["timed"]:])
+    return out
+
+
 def train_full(dev) -> dict:
     """(c): InternLM2-1.8B at full width and its 24 layers, float32
     parameters with AdamW state, ``TRAIN_FULL['steps']`` remat steps at
-    b1 x 4096 from ``TokenPipeline(seed=11)``, timed and profiled."""
+    b1 x 4096 from ``TokenPipeline(seed=11)``, timed and profiled, through
+    the eager ``make_train_step`` and then, from the same state, through
+    ``compile_train_step`` (the eager run's final state kept on the host
+    meanwhile: the card holds no two runs' trees at once), held as (a)
+    holds it (a second eager run only where the replayed one differs)."""
     import torch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                              init_opt_state)
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import compile_train_step, make_train_step
     from repro_torch.tree import tree_items, tree_leaves
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     cfg = _full("internlm2_1_8b")
-    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
-                            device=dev)
-    opt = init_opt_state(params)
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    sums0 = {k: t.double().sum().item() for k, t in tree_items(params)}
+
+    def fresh() -> dict:
+        p = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        return dict(params=p, opt=init_opt_state(p))
+    state = fresh()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    sums0 = {k: t.double().sum().item()
+             for k, t in tree_items(state["params"])}
     b, s = TRAIN_FULL["batch"], TRAIN_FULL["seq"]
     pipe = TokenPipeline(cfg.vocab_size, b, s, seed=TRAIN_FULL["seed"],
                          device=dev)
     ocfg = OptimizerConfig(lr=TRAIN_FULL["lr"])
     step = make_train_step(cfg, ocfg, remat=True)
-    losses, norms, times = [], [], []
-    for i in range(TRAIN_FULL["steps"]):
-        batch = pipe.batch_at(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(m["loss"].item())
-        norms.append(m["grad_norm"].item())
-        detail(f"  22c step {i + 1}: loss {losses[-1]:.5f} grad_norm "
-               f"{norms[-1]:.5f} {times[-1]:.1f} ms")
+    run = _full_loop(step, state, pipe, "eager")
+    params, opt = state["params"], state["opt"]
+    losses, norms = run["losses"], run["norms"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moved = [k for k, t in tree_items(params)
              if t.double().sum().item() != sums0[k]]
@@ -2535,7 +2686,7 @@ def train_full(dev) -> dict:
           and len(moved) == len(sums0),
           f"internlm2 full training: losses {losses}, step "
           f"{int(opt['step'])}, {len(moved)} of {len(sums0)} leaves moved")
-    step_ms = statistics.median(times[-TRAIN_FULL["timed"]:])
+    step_ms = run["step_ms"]
     flop = train_step_flop(cfg, params, b * s, s)
     state_b = 4 * n_params
     opt_bytes = 7 * state_b      # read p, g, m, v; write p, m, v
@@ -2560,7 +2711,9 @@ def train_full(dev) -> dict:
         out = L.mha_chunked(*qkv, causal=True, window=cfg.sliding_window)
         torch.autograd.grad(out, qkv, g_out)
     _, attn_kernels = forward_profile(attn_layer, runs=1, top=None)
-    del params, opt, m, qkv
+    eager = dict(state=_tree(lambda t: t.cpu(), state),
+                 metrics=run["metrics"])
+    del state, params, opt, qkv
     torch.cuda.empty_cache()
     out = dict(losses=losses, norms=norms, step_ms=step_ms,
                tok_s=b * s / step_ms * 1e3, floor=floor, tflop=flop / 1e12,
@@ -2578,6 +2731,48 @@ def train_full(dev) -> dict:
         for ms, n, name in kernels[:10]:
             detail(f"  22c step profile: {name[:100]}: {ms:.3f} ms in {n} "
                    "launches")
+    out["compiled"] = _full_compiled(cfg, fresh, pipe, ocfg, eager)
+    out["compiled"]["tok_s"] = b * s / out["compiled"]["step_ms"] * 1e3
+    return out
+
+
+def _full_compiled(cfg, fresh, pipe, ocfg, eager: dict) -> dict:
+    """(c)'s compiled run: ``compile_train_step`` from ``fresh()``'s state
+    over the eager run's batches, its gap to the eager run (``eager``:
+    the final state on the host and each step's metrics), the replayed
+    step's time, profile, capture seconds and peak memory."""
+    import torch
+    from repro_torch.train.step import compile_train_step, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    compiled = compile_train_step(cfg, ocfg, remat=True)
+    state = fresh()
+    run = _full_loop(compiled, state, pipe, "compiled")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (exe,) = compiled.executables.values()
+    got = dict(state=state, metrics=run["metrics"])
+    gap = _run_gap(got, eager)
+    check(all(math.isfinite(x) for x in run["losses"] + run["norms"])
+          and int(got["state"]["opt"]["step"]) == TRAIN_FULL["steps"],
+          f"internlm2 full compiled training: losses {run['losses']}")
+    p, o = got["state"]["params"], got["state"]["opt"]
+    batch = pipe.batch_at(TRAIN_FULL["steps"])
+    busy, kernels = forward_profile(lambda: compiled(p, o, batch), runs=1,
+                                    top=None)
+    out = dict(run, gap=gap, eager_gap=0.0, keys=len(compiled.executables),
+               capture_s=exe.capture_s, peak_gb=peak_gb, busy=busy,
+               launches=sum(n for _, n, _ in kernels))
+    del got, state, p, o, exe, compiled
+    torch.cuda.empty_cache()
+    if gap:
+        # the eager step's own repeatability: a second eager run
+        state = fresh()
+        again = _full_loop(make_train_step(cfg, ocfg, remat=True), state,
+                           pipe, "eager again")
+        out["eager_gap"] = _run_gap(dict(state=state,
+                                         metrics=again["metrics"]), eager)
+        del again, state
+        torch.cuda.empty_cache()
+    train_replay_held("22c internlm2_1_8b full size", out)
     return out
 
 
@@ -2613,10 +2808,17 @@ def train_cli(dev) -> dict:
               f"the relaunch did not resume: {outs[1][-500:]}")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            launch_train.main([*args, "--steps", str(TRAIN_CLI["total"]),
-                               "--ckpt-dir", fresh])
+            r = launch_train.main([*args, "--steps", str(TRAIN_CLI["total"]),
+                                   "--ckpt-dir", fresh])
         for ln in outs[1].splitlines() + buf.getvalue().splitlines():
             detail(f"  22d {ln}")
+        captures = [_capture_line(o) for o in outs]
+        check(captures == [
+            f"train step: 1 CUDA graph capture(s) over {n} steps"
+            for n in (TRAIN_CLI["first"],
+                      TRAIN_CLI["total"] - TRAIN_CLI["first"])]
+              and r["captures"] == 1,
+              f"launch.train captures: {captures}, fresh run {r}")
         gap, equal = 0.0, True
         for name in ("params", "opt_state"):
             path = f"step_{TRAIN_CLI['total']}/{name}.npz"
@@ -2631,7 +2833,13 @@ def train_cli(dev) -> dict:
     check(gap <= TRAIN_RESUME_TOL,
           f"resumed launch.train vs a fresh run: {gap:.2e} of max |param| "
           f"(limit {TRAIN_RESUME_TOL})")
-    return dict(gap=gap, equal=equal, cli_s=cli_s)
+    return dict(gap=gap, equal=equal, cli_s=cli_s, captures=captures)
+
+
+def _capture_line(text: str) -> str | None:
+    """The ``train step: ...`` line an entry point prints at its end."""
+    return next((ln for ln in text.splitlines()
+                 if ln.startswith("train step: ")), None)
 
 
 def train_phase(dev) -> dict:
@@ -2640,8 +2848,9 @@ def train_phase(dev) -> dict:
     kernels = _five_kernels()
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
-    out = dict(reduced=train_reduced(dev), depth2=train_depth2(dev),
-               full=train_full(dev), cli=train_cli(dev))
+    out = dict(reduced=train_reduced(dev), micro=train_micro(dev),
+               depth2=train_depth2(dev), full=train_full(dev),
+               cli=train_cli(dev))
     launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
     check(not any(launched.values()),
           f"the training path launched kernels of repro_torch.kernels: "
@@ -2654,7 +2863,11 @@ def train_phase(dev) -> dict:
 def train_line(tp: dict, card: str) -> str:
     """Phase 22's line on standard output."""
     d2, fu, cli = tp["depth2"], tp["full"], tp["cli"]
-    red = tp["reduced"]
+    red, co = tp["reduced"], tp["full"]["compiled"]
+    cbusy = ("busy not measured" if co["busy"] is None else
+             f"busy {co['busy']:.1f} ms, idle "
+             f"{1 - co['busy'] / co['step_ms']:.1%}, {co['launches']} "
+             "kernels")
     if fu["busy"] is None:
         prof = "device busy not measured (no profiler device events)"
     else:
@@ -2673,7 +2886,14 @@ def train_line(tp: dict, card: str) -> str:
                 f"{a} {r['loss_rel']:.0e}/{r['grad_gap']:.0e}/"
                 f"{r['corr']:.5f}" for a, r in red.items())
             + f" (limits {TRAIN_LOSS_TOL}/{TRAIN_GRAD_TOL}/"
-            f"{TRAIN_BF16_CORR}); (b) internlm2_1_8b full width depth 2 "
+            f"{TRAIN_BF16_CORR}); compile_train_step vs eager over "
+            f"{TRAIN_REPLAY['steps']} steps (params, m, v, step, metrics): "
+            + ", ".join(f"{a} {_replay_text(r['replay'])}"
+                        for a, r in red.items())
+            + f", internlm2 microbatches 2 {_replay_text(tp['micro'])}; "
+            "capture " + "/".join(f"{r['replay']['capture_s']:.2f}"
+                                  for r in red.values())
+            + " s; (b) internlm2_1_8b full width depth 2 "
             f"float32 b{TRAIN_DEPTH2['batch']}x{TRAIN_DEPTH2['seq']}: card vs "
             f"CPU loss rel {d2['loss_rel']:.1e}, gradient "
             f"{d2['grad_gap']:.1e}; remat vs none {d2['remat_gap']:.1e} "
@@ -2694,10 +2914,21 @@ def train_line(tp: dict, card: str) -> str:
             f"{fu['opt_ms']:.1f} ms ({fu['opt_ms'] / fu['step_ms']:.1%} of "
             f"the step; floor {fu['opt_floor']:.1f} ms); peak "
             f"{fu['peak_gb']:.1f} GB ({fu['held_gb']:.1f} GB held before); "
+            f"compile_train_step from the same state: loss "
+            + "/".join(f"{x:.4f}" for x in co["losses"])
+            + f", vs eager {_replay_text(co)}; replayed step "
+            f"{co['step_ms']:.1f} ms ({cbusy}) = {co['tok_s']:.0f} tokens/s, "
+            f"{co['step_ms'] / fu['floor']:.1f}x the floor, beside eager "
+            f"{fu['step_ms']:.1f} ms here and {EAGER_TRAIN['full_ms']} ms "
+            f"recorded; capture {co['capture_s']:.2f} s (at step 2: the "
+            f"first call of a key is the eager step); peak "
+            f"{co['peak_gb']:.1f} GB (eager {fu['peak_gb']:.1f} here, "
+            f"{EAGER_TRAIN['full_gb']} recorded); "
             f"(d) launch.train --reduced {TRAIN_CLI['first']} steps + resume "
             f"to {TRAIN_CLI['total']} ({cli['cli_s']:.1f} s) vs a fresh "
             f"{TRAIN_CLI['total']}-step run: {cli['gap']:.1e} of max |param| "
-            f"(limit {TRAIN_RESUME_TOL}), torch.equal {cli['equal']}; (e) "
+            f"(limit {TRAIN_RESUME_TOL}), torch.equal {cli['equal']}, "
+            + "; ".join(cli["captures"]) + "; (e) "
             f"kernel launches from the training path {tp['launched']}; phase "
             f"{tp['s']:.1f} s | {card}")
 
@@ -2825,7 +3056,7 @@ def shard_mesh_phase(dev) -> dict:
         with shctx.use_rules(rules):
             dloss, dgrads = f32_value_and_grad(cfg, dparams, dbatch)
         out["loss_rel"] = abs(dloss.full_tensor().item() / loss.item() - 1)
-        out["grad_gap"] = _grad_gap(_full_tensors(dgrads), grads)
+        out["grad_gap"] = _tree_gap(_full_tensors(dgrads), grads)
         del grads, dgrads
         step = make_train_step(cfg, remat=True)
         opt = init_opt_state(params)
@@ -3306,9 +3537,15 @@ def train_example_phase(tmp: str, wait=lambda: None) -> dict:
     gap, equal = _params_gap(killed, fresh, TRAIN_EX["steps"])
     check(gap <= TRAIN_RESUME_TOL, f"train_lm resumed vs uninterrupted: "
           f"{gap:.2e} of max |param| (limit {TRAIN_RESUME_TOL})")
+    resumed = TRAIN_EX["steps"] - TRAIN_EX["kill"]
+    captures = _capture_line(out)
+    check(captures == f"train step: 1 CUDA graph capture(s) over {resumed} "
+          "steps" and r["captures"] == 1,
+          f"train_lm captures: resumed run {captures!r}, fresh run "
+          f"{r['captures']}")
     return dict(gap=gap, equal=equal, ms=r["ms_per_step"], tok_s=r["tok_s"],
                 peak_gb=r["peak_gb"], loss=r["losses"][-1],
-                s=time.perf_counter() - t0)
+                captures=captures, s=time.perf_counter() - t0)
 
 
 def sigterm_phase(tmp: str) -> dict:
@@ -3483,9 +3720,12 @@ def examples_line(ep: dict, card: str) -> str:
             f"(d) train_lm 100M b8x256: killed after step "
             f"{TRAIN_EX['kill']}, resumed to {TRAIN_EX['steps']}: "
             f"{tr['gap']:.2e} of max |param| (torch.equal {tr['equal']}), "
-            f"{tr['ms']:.1f} ms/step, {tr['tok_s']:.0f} tokens/s, peak "
-            f"{tr['peak_gb']:.2f} GB; (e) launch.train SIGTERM: saved step "
-            f"{st['saved']}, resumed to {SIGTERM_STEPS}: {st['gap']:.2e} "
+            f"resumed run {tr['captures']}, fresh run 1 capture; "
+            f"{tr['ms']:.1f} ms/step through compile_train_step (eager "
+            f"{EAGER_TRAIN['example_ms']} recorded), {tr['tok_s']:.0f} "
+            f"tokens/s, peak {tr['peak_gb']:.2f} GB; (e) launch.train "
+            f"SIGTERM: saved step {st['saved']}, resumed to "
+            f"{SIGTERM_STEPS}: {st['gap']:.2e} "
             f"(torch.equal {st['equal']}); (f) v1 load on the card "
             f"{ep['v1']['load_s']:.3f} s, b16 torch.equal; (g) "
             f"execute_program b16 torch.equal to execute_packed, launches "

@@ -10,8 +10,11 @@ the last committed step and regenerates exactly the batches it needs).
 Checkpoints are the JAX package's format, so ``--ckpt-dir`` defaults to
 a directory of its own under the temporary directory (``TMPDIR``): a
 shared one would resume the other package's run.  Each step is saved at
-most once.  The LM stack is plain PyTorch and launches none of the
-port's CUDA kernels.  ``main(argv)`` returns the numbers it prints;
+most once.  The step is compiled as the JAX example jits it
+(``repro_torch.train.step.compile_train_step``: on the GPU one CUDA
+graph, captured at the second step of the run, the first running
+eagerly; on the CPU the eager step).  The LM stack is plain PyTorch and launches none of the port's
+CUDA kernels.  ``main(argv)`` returns the numbers it prints;
 ``train`` is the loop itself.
 """
 
@@ -31,7 +34,7 @@ from repro_torch.models import lm
 from repro_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                           save_checkpoint)
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import compile_train_step
 from repro_torch.tree import tree_leaves
 
 
@@ -48,8 +51,11 @@ def train(cfg, params: dict, *, steps: int, batch: int, seq: int,
     newest checkpoint in ``ckpt_dir`` if there is one.
 
     Returns the final parameters and optimizer state, the step it
-    started from, each step's loss, and the median step time (host clock
-    around each step, ending in a device synchronize).
+    started from, each step's loss, the median step time (host clock
+    around each step, ending in a device synchronize) and the number of
+    CUDA graph captures.  On the GPU the parameters and optimizer state
+    returned are the compiled step's own buffers, which its next replay
+    would overwrite; none follows the loop.
     """
     dev = tree_leaves(params)[0].device
     opt = init_opt_state(params)
@@ -63,7 +69,8 @@ def train(cfg, params: dict, *, steps: int, batch: int, seq: int,
         print(f"resumed from step {start}")
     start = start or 0
 
-    step_fn = make_train_step(cfg, OptimizerConfig(lr=1e-3), remat=False)
+    step_fn = compile_train_step(cfg, OptimizerConfig(lr=1e-3),
+                                 remat=False)
     losses, durations = [], []
     for i in range(start, steps):
         t0 = time.perf_counter()
@@ -73,16 +80,21 @@ def train(cfg, params: dict, *, steps: int, batch: int, seq: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         durations.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"])
+        losses.append(metrics["loss"])    # a fresh tensor every step
         if (i + 1) % 10 == 0:
             print(f"step {i+1:4d}  loss {float(metrics['loss']):.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"{durations[-1]*1e3:.0f} ms/step")
         if (i + 1) % ckpt_every == 0 or i + 1 == steps:
             save_checkpoint(ckpt_dir, i + 1, params, opt, pipe.state())
+    captures = len(step_fn.executables)
+    if dev.type == "cuda":
+        print(f"train step: {captures} CUDA graph capture(s) over "
+              f"{steps - start} steps")
     return dict(params=params, opt=opt, start=start,
                 losses=[float(v) for v in losses],
-                step_s=statistics.median(durations) if durations else None)
+                step_s=statistics.median(durations) if durations else None,
+                captures=captures)
 
 
 def main(argv=None) -> dict:

@@ -17,7 +17,11 @@ The port of ``repro.launch.train``, with the same flags plus ``--device``
     ``--straggler-factor`` x the trailing median are flagged so the
     cluster scheduler can evict slow hosts.
 
-The full-size model trains with ``remat`` on, as in the JAX launcher;
+The step is compiled as the JAX launcher jits it
+(``repro_torch.train.step.compile_train_step``: on the GPU one CUDA graph
+per key, captured at the second step of each process, the first running
+eagerly; on the CPU the eager step), and the number of captures is printed at the end.  The
+full-size model trains with ``remat`` on, as in the JAX launcher;
 ``--reduced`` turns it off.  ``--ckpt-dir`` defaults to a directory
 under the temporary directory (``TMPDIR``).
 """
@@ -40,7 +44,7 @@ from repro_torch.models import lm
 from repro_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                           save_checkpoint)
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import compile_train_step
 
 _PREEMPTED = False
 
@@ -71,12 +75,13 @@ def main(argv: list[str] | None = None):
     dev = resolve_device(args.device)
     previous = signal.signal(signal.SIGTERM, _on_sigterm)
     try:
-        _train(args, dev)
+        return _train(args, dev)
     finally:
         signal.signal(signal.SIGTERM, previous)
 
 
-def _train(args, dev: torch.device):
+def _train(args, dev: torch.device) -> dict:
+    """The loop; returns the number of steps run and of captures."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -95,7 +100,7 @@ def _train(args, dev: torch.device):
         print(f"[resume] step {start}")
     start = start or 0
 
-    step_fn = make_train_step(
+    step_fn = compile_train_step(
         cfg, OptimizerConfig(lr=args.lr), remat=not args.reduced,
         microbatches=args.microbatches)
 
@@ -122,7 +127,7 @@ def _train(args, dev: torch.device):
             saved = i + 1
             if _PREEMPTED:
                 print(f"[preempt] checkpointed at {i+1}, exiting cleanly")
-                return
+                return _captures(step_fn, dev, i + 1 - start)
     # the JAX launcher saves the last step a second time when
     # --ckpt-every divides --steps, and its rename onto the existing
     # step_N then fails; the port saves each step once
@@ -130,6 +135,15 @@ def _train(args, dev: torch.device):
         save_checkpoint(args.ckpt_dir, args.steps, params, opt,
                         pipe.state())
     print("training complete")
+    return _captures(step_fn, dev, args.steps - start)
+
+
+def _captures(step_fn, dev: torch.device, steps: int) -> dict:
+    captures = len(step_fn.executables)
+    print(f"train step: {captures} CUDA graph capture(s) over {steps} "
+          "steps" if dev.type == "cuda"
+          else "train step: eager (no capture on the CPU)")
+    return dict(steps=steps, captures=captures)
 
 
 if __name__ == "__main__":

@@ -50,13 +50,9 @@ def _schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def adamw_update(cfg: OptimizerConfig, params: Any, grads: Any,
-                 state: dict) -> tuple[Any, dict, dict]:
-    """One AdamW step -> (new params, new state, {grad_norm, lr}).
-
-    The inputs are left as they are; every value stays on the device
-    (no host sync).  ``grad_norm`` is the norm before clipping.
-    """
+def _prelude(cfg: OptimizerConfig, grads: Any, state: dict) -> tuple:
+    """The step's scalars: the new ``step``, the global norm, the clip
+    scale, ``lr`` and the two bias corrections, all on the device."""
     step = state["step"] + 1
     # global-norm clip
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
@@ -64,26 +60,56 @@ def adamw_update(cfg: OptimizerConfig, params: Any, grads: Any,
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)
                         / torch.clamp_min(gnorm, 1e-9), max=1.0)
     lr = _schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
     step_f = step.float()
-    bc1 = 1 - torch.full_like(step_f, b1) ** step_f
-    bc2 = 1 - torch.full_like(step_f, b2) ** step_f
+    bc1 = 1 - torch.full_like(step_f, cfg.beta1) ** step_f
+    bc2 = 1 - torch.full_like(step_f, cfg.beta2) ** step_f
+    return step, gnorm, scale, lr, bc1, bc2
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        mh = m / bc1
-        vh = v / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay \
-            * p.float()
-        return p - (lr * delta).to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
+def _leaf(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc1, bc2) -> tuple:
+    """One leaf's new (p, m, v)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * scale
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    mh = m / bc1
+    vh = v / bc2
+    delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
+    return p - (lr * delta).to(p.dtype), m, v
+
+
+def adamw_update(cfg: OptimizerConfig, params: Any, grads: Any,
+                 state: dict) -> tuple[Any, dict, dict]:
+    """One AdamW step -> (new params, new state, {grad_norm, lr}).
+
+    The inputs are left as they are; every value stays on the device
+    (no host sync).  ``grad_norm`` is the norm before clipping.
+    """
+    step, gnorm, scale, lr, bc1, bc2 = _prelude(cfg, grads, state)
+    out = tree_map(lambda p, g, m, v: _leaf(cfg, p, g, m, v, scale, lr,
+                                            bc1, bc2),
+                   params, grads, state["m"], state["v"])
     new_params, new_m, new_v = (tree_map(lambda t: t[i], out)
                                 for i in range(3))
     return (new_params, {"m": new_m, "v": new_v, "step": step},
             {"grad_norm": gnorm, "lr": lr})
+
+
+def adamw_update_(cfg: OptimizerConfig, params: Any, grads: Any,
+                  state: dict) -> dict:
+    """``adamw_update`` in place: each leaf's new ``p``, ``m`` and ``v``
+    (the same arithmetic, ``_leaf``) are copied into ``params`` and
+    ``state`` before the next leaf is computed, so a second tree of
+    parameters and moments never exists whole; ``state["step"]`` is
+    advanced on the device.  Returns {grad_norm, lr}."""
+    step, gnorm, scale, lr, bc1, bc2 = _prelude(cfg, grads, state)
+    for p, g, m, v in zip(*map(tree_leaves, (params, grads, state["m"],
+                                             state["v"]))):
+        for dst, src in zip((p, m, v),
+                            _leaf(cfg, p, g, m, v, scale, lr, bc1, bc2)):
+            dst.copy_(src)
+    state["step"].copy_(step)
+    return {"grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------

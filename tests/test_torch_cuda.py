@@ -1037,6 +1037,145 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert [k.launches for k in kernels] == before
 
 
+def _tree_gap(got, want) -> float:
+    """Largest leaf gap over that leaf's max |value| (0 where equal)."""
+    from repro_torch.tree import tree_items
+    worst = 0.0
+    for (k, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        gap = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def _train_runs(cfg, params, batches, compiled, microbatches=1):
+    """The eager step over ``batches`` and ``compiled`` (a
+    ``compile_train_step``) from the same state: each run's metrics per
+    step and final (params, opt_state)."""
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    eager = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2),
+                            microbatches)
+    out = {}
+    for name, step in (("eager", eager), ("again", eager),
+                       ("compiled", compiled)):
+        p, o, ms = params, init_opt_state(params), []
+        for b in batches:
+            p, o, m = step(p, o, b)
+            ms.append(m)
+        out[name] = dict(metrics=ms, state={"params": p, "opt": o})
+    return out
+
+
+# (arch, microbatches): two dense archs, an MoE arch (top-2 combine by
+# index_add_ atomics), and two microbatches unrolled into the graph
+TRAIN_REPLAY_CASES = {"internlm2_1_8b": ("internlm2_1_8b", 1),
+                      "qwen3_8b": ("qwen3_8b", 1),
+                      "mixtral_8x22b": ("mixtral_8x22b", 1),
+                      "internlm2 microbatches 2": ("internlm2_1_8b", 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRAIN_REPLAY_CASES))
+def test_compiled_train_step_replays_equal_the_eager_step(cuda, case):
+    """``compile_train_step`` on the card (bfloat16 compute, remat): three
+    steps from the same state as two eager runs: one capture, every
+    step's metrics and the final parameters, ``m``, ``v`` and ``step``
+    ``torch.equal`` to the eager step's, or, where the two eager runs
+    differ (atomics), within twice their gap; the state first given is
+    left as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import compile_train_step
+    from repro_torch.tree import tree_leaves
+    arch, micro = TRAIN_REPLAY_CASES[case]
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(cuda).manual_seed(12)
+    params = lm.init_params(cfg, gen, device=cuda)
+    kept = _to(params, "cpu")
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                        generator=gen, device=cuda,
+                                        dtype=torch.int32)}
+               for _ in range(3)]
+    compiled = compile_train_step(
+        cfg, OptimizerConfig(lr=1e-3, warmup_steps=2), micro)
+    runs = _train_runs(cfg, params, batches, compiled, micro)
+    assert len(compiled.executables) == 1
+    gaps = {}
+    for name in ("again", "compiled"):
+        got, want = runs[name], runs["eager"]
+        gaps[name] = max([_tree_gap(got["state"], want["state"])]
+                         + [_tree_gap(g, w) for g, w in
+                            zip(got["metrics"], want["metrics"])])
+    assert gaps["compiled"] <= 2 * gaps["again"], gaps
+    assert int(runs["compiled"]["state"]["opt"]["step"]) == 3
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(params), tree_leaves(kept)))
+
+
+@pytest.mark.cuda
+def test_compiled_train_step_copies_a_foreign_state_in(cuda, tmp_path):
+    """A state the executable does not own (restored from a checkpoint,
+    as ``launch.train`` resumes) is copied in without a new capture and
+    the replay continues from it, ``torch.equal`` to the eager step; the
+    trees returned are the executable's own (the next call overwrites
+    them) and each step's metrics are its own tensors; a call under a
+    mesh context raises."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.sharding import context as shctx
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import compile_train_step, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen3_8b").reduced()
+    gen = torch.Generator(cuda).manual_seed(13)
+    params = lm.init_params(cfg, gen, device=cuda)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                        generator=gen, device=cuda,
+                                        dtype=torch.int32)}
+               for _ in range(4)]
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2)
+    eager, compiled = make_train_step(cfg, ocfg), compile_train_step(cfg,
+                                                                     ocfg)
+    p, o, m0 = compiled(params, init_opt_state(params), batches[0])
+    kept = m0["loss"].clone()
+    p1, o1, m1 = compiled(p, o, batches[1])
+    assert p1 is p and o1 is o and torch.equal(m0["loss"], kept)
+    ep, eo, _ = eager(params, init_opt_state(params), batches[0])
+    ep, eo, _ = eager(ep, eo, batches[1])
+    save_checkpoint(str(tmp_path), 2, ep, eo, {"seed": 0, "step": 2})
+    rp, ro, _ = restore_checkpoint(str(tmp_path), 2, ep, eo)
+    got_p, got_o, got_m = compiled(rp, ro, batches[2])
+    want_p, want_o, want_m = eager(ep, eo, batches[2])
+    assert len(compiled.executables) == 1 and got_p is p
+    for a, b in zip(tree_leaves(dict(p=got_p, o=got_o, m=got_m)),
+                    tree_leaves(dict(p=want_p, o=want_o, m=want_m))):
+        assert torch.equal(a, b)
+    with shctx.use_rules(types.SimpleNamespace(mesh="mesh")):
+        with pytest.raises(RuntimeError, match="mesh"):
+            compiled(got_p, got_o, batches[3])
+
+
+@pytest.mark.cuda
+def test_launch_train_captures_once_per_process(cuda, tmp_path, capsys):
+    """``launch.train --reduced`` on the card by default: one capture for
+    its steps, and one again when a relaunch resumes from the checkpoint
+    it left."""
+    from repro_torch.launch import train as launch_train
+    args = ["--reduced", "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+            "--ckpt-dir", str(tmp_path)]
+    r = launch_train.main([*args, "--steps", "2"])
+    assert r == dict(steps=2, captures=1)
+    r = launch_train.main([*args, "--steps", "4"])
+    out = capsys.readouterr().out
+    assert r == dict(steps=2, captures=1) and "[resume] step 2" in out
+    assert "train step: 1 CUDA graph capture(s) over 2 steps" in out
+
+
 # ---------------------------------------------------------------------------
 # the examples (examples/*_torch.py) on the card, at a small size
 # ---------------------------------------------------------------------------
@@ -1116,8 +1255,9 @@ def test_serve_lm_example_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
-    """Two steps of a 2-layer reduced InternLM2 by default on the card:
-    finite losses, both steps saved, no kernel launch."""
+    """Two steps of a 2-layer reduced InternLM2 by default on the card,
+    through one capture of the compiled step: finite losses, both steps
+    saved, no kernel launch."""
     import dataclasses
     from repro_torch.configs import get_config
     tl, quiet = _example("train_lm_torch")
@@ -1130,5 +1270,6 @@ def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
                         "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
     assert [k.launches for k in kernels] == before
     assert r["device"].startswith("cuda") and len(r["losses"]) == 2
+    assert r["captures"] == 1
     assert all(np.isfinite(r["losses"]))
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1", "step_2"]
