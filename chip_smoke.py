@@ -10,7 +10,7 @@ and exits nonzero (printing no result) without them.  Phases, one line
 each on standard output (the per-shape details go to standard error):
 
 1. device: name and power limit (``nvidia-smi``), torch/CUDA versions,
-   and the seconds to build the kernels (one ``nvcc`` each, in
+   and the seconds to build the six kernels (one ``nvcc`` each, in
    parallel); ``crossbar_gemm``'s SASS must hold int8 tensor-core
    (``IGMMA``) instructions and no ``IDP.4A`` or ``POPC``, and
    ``fused_gemm_epilogue``'s and ``packed_gemm``'s float tensor-core ones
@@ -31,10 +31,12 @@ each on standard output (the per-shape details go to standard error):
    row) and 1025 (a block per row);
 5. the main path: ``repro_torch.api.compile("resnet18", HurryConfig())``
    at full width, serving request batches of 1, 3 and 16, checked
-   against the same weights run on the CPU's plain path; both launch
-   counters must grow by one per stage and request (``run`` captures a
-   CUDA graph at each key's first request and replays it: the counters
-   count the launches of the replays, ``program.serve.Executable``);
+   against the same weights run on the CPU's plain path; the three
+   program kernels' launch counters (``quantize_layout``,
+   ``crossbar_gemm``, ``fb_epilogue``: ``PROGRAM_KERNELS``) must each grow
+   by one per stage and request (``run`` captures a CUDA graph at each
+   key's first request and replays it: the counters count the launches
+   of the replays, ``program.serve.Executable``);
 6. the sliced branch end to end: AlexNet under ``HurryConfig(adc_bits=8)``
    at batch 4 against the CPU's plain path;
 7. times: each kernel summed over one batch-16 forward's shapes, and
@@ -79,8 +81,9 @@ each on standard output (the per-shape details go to standard error):
     width (dim 192, 3 heads, depth 2, 64 tokens) serving batches 1, 3
     and 16 against the CPU plain path (argmax agreement 1.0, logits to
     a relative 1e-2, probabilities to 1e-3); every
-    dynamic stage makes exactly one ``crossbar_gemm`` and one
-    ``fb_epilogue`` launch (read from each key's capture); time per
+    dynamic stage makes exactly one ``quantize_layout``, one
+    ``crossbar_gemm`` and one ``fb_epilogue`` launch (read from each
+    key's capture); time per
     batch at 1 and 16 and the device's
     idle share, as in 7; then batch 16 on three further input draws
     (``VIT_DRAWS``), each draw's max relative logit gap and argmax
@@ -110,7 +113,7 @@ each on standard output (the per-shape details go to standard error):
     the case;
 16. VGG-16: ``api.compile("vgg16", HurryConfig())`` at full width
     serving batches 1 and 16 (probabilities and logits), logits
-    ``torch.equal`` to the CPU plain path's, both counters one launch per
+    ``torch.equal`` to the CPU plain path's, the three counters one launch per
     stage and request, and its time per batch;
 17. save/load: ResNet-18 and vit_tiny (compiled on the card) saved to a
     temporary file and ``api.load``-ed onto the card, batch 16 equal to
@@ -153,7 +156,7 @@ each on standard output (the per-shape details go to standard error):
     (``decode_replay``), and one replayed step's time, busy time, idle
     share, tokens/s and capture seconds beside the eager step's; (e)
     ``quantize_kv`` on the card ``torch.equal`` to the CPU; (f) no
-    launch of any of the five kernels across the phase;
+    launch of any of the six kernels across the phase;
 22. the LM training path (``repro_torch.train``, ``data``,
     ``launch.train``): (a) all ten archs at ``reduced()``, float32
     weights, batch 2 x 16, on the card against the CPU: the float32-
@@ -191,7 +194,7 @@ each on standard output (the per-shape details go to standard error):
     relaunched to 30 in the same temporary directory (it resumes),
     against a fresh 30-step run through ``main`` here, to 1e-4 of max
     |param| (``torch.equal`` printed), each process one capture of the
-    compiled step; (e) no launch of any of the five kernels across
+    compiled step; (e) no launch of any of the six kernels across
     (a)-(c) and (d)'s fresh run;
 23. the LM framework's sharding (``repro_torch.sharding``) and mesh
     dry-run (``launch.{mesh,cost,dryrun,roofline}``): (a) a 1-rank NCCL
@@ -212,7 +215,7 @@ each on standard output (the per-shape details go to standard error):
     ``FakeTensorMode`` over InternLM2-1.8B's remat train step and
     Qwen3-8B's prefill at b1 x 4096, within 5% of phases 22 (c)'s and 21
     (d)'s hand counts, their roofline times printed beside the measured
-    step and prefill; no launch of any of the five kernels across (a) and
+    step and prefill; no launch of any of the six kernels across (a) and
     (c);
 24. the examples and the entry points a user starts, each with no
     ``--device`` (the card is the default): (a)
@@ -237,7 +240,7 @@ each on standard output (the per-shape details go to standard error):
     and margin printed; bfloat16 logits tie exactly at times), and the
     example's loop in float32 likewise with every step's logits within
     ``LM_TOL``, bfloat16 tokens/s beside the eager step's, no launch of
-    the five kernels, then ``python -m repro_torch.launch.serve --rounds
+    the six kernels, then ``python -m repro_torch.launch.serve --rounds
     2``: one capture over both rounds; (d)
     ``examples/train_lm_torch.py`` (100M, b8 x 256) ``--steps 60
     --ckpt-every 20`` killed with SIGKILL once step 40 is committed and
@@ -264,7 +267,7 @@ each on standard output (the per-shape details go to standard error):
     the CPU plain path (computed in a worker thread meanwhile), each
     stage on the branch ``clip_possible(min(rows, K), adc_bits)``
     predicts (read from the stage's captured launch, once per model),
-    both counters one launch per stage, µs per batch beside the
+    the three counters one launch per stage, µs per batch beside the
     8/8/9 default's; vit_tiny b16 at ``w4a4_adc6``: every stage
     teacher-forced from the CPU path's buffers (held as in 12), its
     branches, the free run against the CPU (12's ``VIT_REL`` /
@@ -295,7 +298,7 @@ each on standard output (the per-shape details go to standard error):
     on a 16-slot ring (``KV_RING``): every field of every update and
     ``read_quant_cache`` ``torch.equal`` card against CPU, ``_decode_mha``
     over it within ``KV_ATTN_TOL`` of the float32 ring's; (c) no launch of
-    the five kernels across the phase.  To run 25-26 alone, drive
+    the six kernels across the phase.  To run 25-26 alone, drive
     ``widths_phase`` and ``lm_wide_phase`` from a script under ``build/``
     after the kernel build;
 27. the front door's executable per key: ResNet-18, AlexNet at
@@ -305,22 +308,34 @@ each on standard output (the per-shape details go to standard error):
     ResNet-18: at every key the first request captures and a second draw
     replays, both answers kept and each ``torch.equal`` to eager
     ``execute_packed`` on the card on its own draw (no aliasing), one
-    launch of each kernel per stage and request on the counters; one b16
-    replay of each net profiled: exactly one ``crossbar_gemm`` and one
-    ``fb_epilogue`` kernel per stage by name (``KERNEL_NAMES``); time
-    per batch at 1, 4 and 16 through ``run`` (replay) beside eager
-    ``execute_packed``, each with busy time and idle share; the capture
-    seconds of every key (standard error; min/median/max per net on the
-    line).  To run it alone, drive ``executable_phase`` from a script
-    under ``build/`` after the kernel build;
+    launch of each program kernel per stage and request on the counters;
+    one b16 replay of each net profiled: exactly one ``crossbar_gemm``
+    and one ``fb_epilogue`` kernel and two ``quantize_layout`` passes per
+    stage by name (``KERNEL_NAMES``); time per batch at 1, 4 and 16
+    through ``run`` (replay) beside eager ``execute_packed``, each with
+    busy time and idle share, the replay's busy time by wrapper; the
+    capture seconds of every key and each profile's largest kernels
+    (standard error; min/median/max per net on the line).  To run it
+    alone, drive ``executable_phase`` from a script under ``build/``
+    after the kernel build;
 28. the compiled LM decode step's cases at ``reduced()`` that 21, 24 and
     26 do not reach (``decode_cases_phase``): sliding-window rings past
     their window, a second params tree (a key of its own), a foreign
     cache tree (copied in), a call under a mesh context (raises), each
-    answer ``torch.equal`` to the eager step.
+    answer ``torch.equal`` to the eager step;
+29. ``quantize_layout``, the executor's left operands
+    (``quantize_phase``): ResNet-18, AlexNet at ``adc_bits=8``, VGG-16
+    and vit_tiny at batches 1, 3 and 16, and ResNet-18 b16, AlexNet b4
+    and vit_tiny b16 at every ``WIDTHS`` row, driven eagerly
+    (``record_stages``): one launch per stage (static and dynamic), every
+    call's (x8, amax) ``torch.equal`` to the plain version on the same
+    card tensors, no card tensor reaching the plain version; per
+    ResNet-18 forward at b16 and b1 the kernel's device time beside its
+    bound, the plain version and the PyTorch chain it replaced
+    (``old_chain``, held equal too).
 
-Phases run in the order 1-20, 27, 28, 21, 22, 24-26, 23: phase 27 profiles
-before the LM phases have traced anything, and phase 23's dry-run
+Phases run in the order 1-20, 27, 29, 28, 21, 22, 24-26, 23: phase 27
+profiles before the LM phases have traced anything, and phase 23's dry-run
 processes (host cores only) run in the background beside 24-26, so its
 line follows 26.  The line before the last is the JSON record of the
 kernels; the last is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1347,8 +1362,8 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     per-dynamic-stage launches are read from the capture (what every
     replay launches), the totals from the counters (replays)."""
     import torch
-    from repro_torch.kernels import crossbar_gemm, fb_epilogue
     execute = importlib.import_module("repro_torch.program.execute")
+    wrappers = _program_wrappers()
     stages = vit_dev.program.stages()
     n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
     requests = [rng.standard_normal((b, 32, 32, 3)).astype("float32")
@@ -1356,32 +1371,29 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     per_dyn = []
     dyn_stage = execute._dyn_stage
 
-    def counted(*args, **kw):
-        before = crossbar_gemm.launches, fb_epilogue.launches
+    def count_dyn(*args, **kw):
+        before = [w.launches for w in wrappers]
         out = dyn_stage(*args, **kw)
         if torch.cuda.is_current_stream_capturing():
-            per_dyn.append((crossbar_gemm.launches - before[0],
-                            fb_epilogue.launches - before[1]))
+            per_dyn.append(tuple(w.launches - b
+                                 for w, b in zip(wrappers, before)))
         return out
 
-    execute._dyn_stage = counted
+    execute._dyn_stage = count_dyn
     try:
-        torch.cuda.synchronize()
-        crossbar_gemm.launches = fb_epilogue.launches = 0
-        served = [(vit_dev.run(x), vit_dev.run(x, logits=True))
-                  for x in requests]
-        torch.cuda.synchronize()
-        launches = {"crossbar_gemm": crossbar_gemm.launches,
-                    "fb_epilogue": fb_epilogue.launches}
+        served, launches = counted(
+            lambda: [(vit_dev.run(x), vit_dev.run(x, logits=True))
+                     for x in requests])
     finally:
         execute._dyn_stage = dyn_stage
     runs = 2 * len(requests)
     want = len(stages) * runs
-    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+    check(launches == each(want),
           f"vit_tiny launch counts {launches}, expected {want} each")
-    check(len(per_dyn) == n_dyn * runs and all(d == (1, 1) for d in per_dyn),
+    check(len(per_dyn) == n_dyn * runs
+          and all(d == (1,) * len(wrappers) for d in per_dyn),
         f"vit_tiny dynamic stages launched {per_dyn}, expected one "
-        "crossbar_gemm and one fb_epilogue each")
+        f"launch of each of {PROGRAM_KERNELS}")
     agree, worst_rel, worst_prob = [], 0.0, 0.0
     for x, (probs, logits) in zip(requests, served):
         ref = vit_cpu.run(x, logits=True)
@@ -1427,13 +1439,21 @@ def record_stages(model, x) -> tuple:
     """``execute_packed(model.packed, x, return_logits=True)`` run eagerly
     (what ``model.run``'s graph replays for a batch that fills its
     bucket) with, per stage, the buffers the stage read, its
-    ``crossbar_gemm`` operands and int32 output and its ``fb_epilogue``
-    output and keyword arguments.  Returns (logits, records)."""
+    ``quantize_layout`` call (input, K, keyword arguments and result),
+    its ``crossbar_gemm`` operands and int32 output and its
+    ``fb_epilogue`` output and keyword arguments.  Returns (logits,
+    records)."""
     import torch
     execute = importlib.import_module("repro_torch.program.execute")
     saved = (execute._static_stage, execute._dyn_stage,
-             execute.crossbar_gemm, execute.fb_epilogue)
+             execute.crossbar_gemm, execute.fb_epilogue,
+             execute.quantize_layout)
     recs: list[dict] = []
+
+    def quant(xin, K, **kw):
+        out = saved[4](xin, K, **kw)
+        recs[-1]["quant"] = (xin, K, kw, out)
+        return out
 
     def gemm(x8, w8, **kw):
         y = saved[2](x8, w8, **kw)
@@ -1454,14 +1474,15 @@ def record_stages(model, x) -> tuple:
         return saved[1](*args)
 
     (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
-     execute.fb_epilogue) = static, dyn, gemm, fb
+     execute.fb_epilogue, execute.quantize_layout) = (static, dyn, gemm, fb,
+                                                      quant)
     try:
         logits = execute.execute_packed(
             model.packed, torch.as_tensor(x).to(model.device),
             return_logits=True)
     finally:
         (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
-         execute.fb_epilogue) = saved
+         execute.fb_epilogue, execute.quantize_layout) = saved
     return logits, recs
 
 
@@ -1646,17 +1667,32 @@ def ops_phase(dev, gen) -> dict:
 # phases 16-20: the rest of repro_torch.api on the card
 # ---------------------------------------------------------------------------
 
+# the program path's kernels: every stage launches one of each
+PROGRAM_KERNELS = ("crossbar_gemm", "fb_epilogue", "quantize_layout")
+
+
+def each(n: int) -> dict:
+    """``n`` launches of each of ``PROGRAM_KERNELS``."""
+    return dict.fromkeys(PROGRAM_KERNELS, n)
+
+
+def _program_wrappers() -> list:
+    from repro_torch.kernels import COUNTED
+    return [fn for fn in COUNTED if fn.__name__ in PROGRAM_KERNELS]
+
+
 def counted(fn) -> tuple:
-    """(fn(), launches): both launch counters set to 0 just before ``fn``
-    and read just after (device synchronized on both sides)."""
+    """(fn(), launches): the program kernels' launch counters set to 0
+    just before ``fn`` and read just after (device synchronized on both
+    sides)."""
     import torch
-    from repro_torch.kernels import crossbar_gemm, fb_epilogue
+    wrappers = _program_wrappers()
     torch.cuda.synchronize()
-    crossbar_gemm.launches = fb_epilogue.launches = 0
+    for w in wrappers:
+        w.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {"crossbar_gemm": crossbar_gemm.launches,
-                 "fb_epilogue": fb_epilogue.launches}
+    return out, {w.__name__: w.launches for w in wrappers}
 
 
 def vgg_phase(api, rng) -> dict:
@@ -1672,7 +1708,7 @@ def vgg_phase(api, rng) -> dict:
     served, launches = counted(lambda: [(gpu.run(x), gpu.run(x, logits=True))
                                         for x in requests])
     want = n_stages * 2 * len(requests)
-    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+    check(launches == each(want),
           f"VGG-16 launch counts {launches}, expected {want} each")
     for x, (probs, logits) in zip(requests, served):
         ref = cpu.run(x, logits=True)
@@ -1698,7 +1734,7 @@ def save_load_phase(api, models: dict, gen) -> dict:
     ``compile`` beside ``load``, and the file's size."""
     import tempfile
     import torch
-    out, launches = {}, {"crossbar_gemm": 0, "fb_epilogue": 0}
+    out, launches = {}, each(0)
     with tempfile.TemporaryDirectory() as d:
         for name, model in models.items():
             torch.cuda.synchronize()
@@ -1716,7 +1752,7 @@ def save_load_phase(api, models: dict, gen) -> dict:
             got, n = counted(lambda: (loaded.run(x), loaded.run(
                 x, logits=True)))
             want = 2 * len(model.program.stages())
-            check(n == {"crossbar_gemm": want, "fb_epilogue": want},
+            check(n == each(want),
                   f"loaded {name}: launch counts {n}, expected {want} each")
             check(torch.equal(got[0], model.run(x))
                   and torch.equal(got[1], model.run(x, logits=True)),
@@ -1731,7 +1767,7 @@ def save_load_phase(api, models: dict, gen) -> dict:
 def server_phase(api, model, rng) -> dict:
     """Phase 18: ``make_server("resnet18")`` (the zoo init from seed 0,
     the weights of ``model``) at batches 1, 3 and 16, ``torch.equal`` to
-    ``CompiledModel.run``; both counters grow by one per stage and
+    ``CompiledModel.run``; the three counters grow by one per stage and
     request.  Time per batch at 16 beside ``run``'s."""
     import torch
     from repro_torch.program.serve import make_server
@@ -1741,7 +1777,7 @@ def server_phase(api, model, rng) -> dict:
         (b, 32, 32, 3)).astype("float32")).cuda() for b in (1, 3, 16)]
     answers, launches = counted(lambda: [server(x) for x in requests])
     want = len(server.program.stages()) * len(requests)
-    check(launches == {"crossbar_gemm": want, "fb_epilogue": want},
+    check(launches == each(want),
           f"server launch counts {launches}, expected {want} each")
     for x, a in zip(requests, answers):
         check(torch.equal(a, model.run(x)),
@@ -1821,7 +1857,7 @@ def functional_phase(api, pairs: dict, rng) -> dict:
             gpu.graph.forward(gpu.params, xg, mm=mm, logits=True),
             gpu.graph.forward(gpu.params, xg, mm=mm)))
         want = 2 * len(gpu.program.stages())
-        check(n == {"crossbar_gemm": want, "fb_epilogue": 0},
+        check(n == dict(each(0), crossbar_gemm=want),
               f"{name} forward launches {n}, expected {want} crossbar_gemm")
         ref = cpu.graph.forward(cpu.params, xc, mm=mm, logits=True)
         ref_p = softmax_rows(ref)        # the graph's last layer, on ref
@@ -2231,10 +2267,10 @@ def kv_quant_phase(dev) -> tuple:
 
 
 def lm_phase(dev) -> dict:
-    """Phase 21: (a)-(e) above, with (f) the five kernel-launch counters
+    """Phase 21: (a)-(e) above, with (f) the six kernel-launch counters
     unchanged across the whole phase (the LM path is plain PyTorch)."""
     import torch
-    kernels = _five_kernels()
+    from repro_torch.kernels import COUNTED as kernels
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(reduced=lm_reduced(dev), depth2=qwen_depth2(dev))
@@ -2843,9 +2879,9 @@ def _capture_line(text: str) -> str | None:
 
 
 def train_phase(dev) -> dict:
-    """Phase 22: (a)-(d) above, with (e) the five kernel-launch counters
+    """Phase 22: (a)-(d) above, with (e) the six kernel-launch counters
     unchanged across it (the training path is plain PyTorch)."""
-    kernels = _five_kernels()
+    from repro_torch.kernels import COUNTED as kernels
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(reduced=train_reduced(dev), micro=train_micro(dev),
@@ -3180,11 +3216,11 @@ def timed_dryrun() -> tuple[dict, float]:
 
 
 def shard_phase(dev, dryrun=None) -> dict:
-    """Phase 23: (a)-(c) above, with the five kernel-launch counters
+    """Phase 23: (a)-(c) above, with the six kernel-launch counters
     unchanged across (a) and (c) (the sharded paths are plain PyTorch).
     ``dryrun``, where given, is the future of a ``timed_dryrun`` started
     earlier; (b) is its result."""
-    kernels = _five_kernels()
+    from repro_torch.kernels import COUNTED as kernels
     before = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     out = dict(mesh=shard_mesh_phase(dev))
@@ -3298,13 +3334,9 @@ def _run(argv: list, timeout: int = 300) -> str:
     return p.stdout
 
 
-def _five_kernels():
-    from repro_torch.kernels import COUNTED
-    return COUNTED
-
-
 def _launch_counts() -> dict:
-    return {k.__name__: k.launches for k in _five_kernels()}
+    from repro_torch.kernels import COUNTED
+    return {k.__name__: k.launches for k in COUNTED}
 
 
 def quickstart_phase() -> dict:
@@ -3323,7 +3355,7 @@ def quickstart_phase() -> dict:
           f"{out.count('bit-exact=True')} times (want 2)")
     alex_us = float(re.search(r"steady-state (\d+) us", out).group(1))
     quick = _example("quickstart_torch")
-    nets, launches = {}, {"crossbar_gemm": 0, "fb_epilogue": 0}
+    nets, launches = {}, each(0)
     for net in QUICK_NETS:
         r, n = counted(lambda: _main(quick, ["--net", net]))
         want = {"crossbar_gemm": r["stages"], "fb_epilogue": r["stages"]}
@@ -3425,7 +3457,7 @@ def serve_example_phase() -> dict:
     (through the compiled decode step: ids and every step's logits
     ``torch.equal`` to the same loop through the eager step on the card)
     against the CPU (``_greedy_agreement``), tokens/s, no launch of the
-    five kernels; then ``python -m repro_torch.launch.serve --rounds 2``
+    six kernels; then ``python -m repro_torch.launch.serve --rounds 2``
     with no ``--device``: one capture over both rounds."""
     import torch
     sv = _example("serve_lm_torch")
@@ -3637,7 +3669,7 @@ def execute_program_phase(model, gen) -> dict:
     got, n = counted(lambda: execute_program(model.program, model.params, x,
                                              return_logits=True))
     stages = len(model.program.stages())
-    check(n == {"crossbar_gemm": stages, "fb_epilogue": stages},
+    check(n == each(stages),
           f"execute_program launches {n}, expected {stages} each")
     check(torch.equal(got, execute_packed(model.packed, x,
                                           return_logits=True)),
@@ -3857,7 +3889,7 @@ def width_cpu_refs(api) -> dict:
 def widths_phase(dev, gen, meanwhile=None) -> dict:
     """Phase 25: (b) the sliced branch at ``NARROW`` on the kernel, then (a)
     ResNet-18 b16 and AlexNet b4 compiled on the card at every ``WIDTHS``
-    row, run once with both launch counters counted, and held to the CPU
+    row, run once with the three launch counters counted, and held to the CPU
     plain path on the same weights and inputs (``torch.equal``, computed
     in a worker thread meanwhile), each stage's branch against
     ``clip_possible``, and time per batch (``wall_ms``) beside the 8/8/9
@@ -3877,15 +3909,14 @@ def widths_phase(dev, gen, meanwhile=None) -> dict:
     with ThreadPoolExecutor(1) as pool:
         refs = pool.submit(width_cpu_refs, api)
         out = dict(narrow=narrow_sliced_phase(dev, gen), nets={},
-                   launches={"crossbar_gemm": 0, "fb_epilogue": 0},
-                   sliced=0)
+                   launches=each(0), sliced=0)
 
         def run(net: str, cfg, x) -> dict:
             model = api.compile(net, cfg, seed=0, device="cuda")
             (logits, calls), n = counted(lambda: _branches(
                 lambda: model.run(x, logits=True)))
             stages = len(model.program.stages())
-            check(n == {"crossbar_gemm": stages, "fb_epilogue": stages},
+            check(n == each(stages),
                   f"{net} launches {n}, expected {stages} each")
             for k in n:
                 out["launches"][k] += n[k]
@@ -4333,7 +4364,7 @@ def kv_ring_phase(dev) -> dict:
 
 
 def lm_wide_a(dev) -> dict:
-    """(a) with the five kernel-launch counters read before and after:
+    """(a) with the six kernel-launch counters read before and after:
     (errors, launches, seconds)."""
     t0, before = time.perf_counter(), _launch_counts()
     errs = lm_wide(dev)
@@ -4344,7 +4375,7 @@ def lm_wide_a(dev) -> dict:
 
 def lm_wide_phase(dev, wide: dict | None = None) -> dict:
     """Phase 26: (a) (run here unless ``wide``, ``lm_wide_a``'s result,
-    says it ran already), (b) and part 3 above, with (c) the five
+    says it ran already), (b) and part 3 above, with (c) the six
     kernel-launch counters unchanged across all of them."""
     wide = wide or lm_wide_a(dev)
     t0 = time.perf_counter()
@@ -4426,7 +4457,10 @@ EXEC_TIMED = (1, 4, 16)          # 4: AlexNet adc8's batch in phases 6-7
 KERNEL_NAMES = {"crossbar_gemm": ("exact_kernel", "sliced_kernel"),
                 "fb_epilogue": ("elementwise_kernel", "pool_kernel",
                                 "rows_warp_kernel", "seqmean_kernel",
-                                "rows_kernel")}
+                                "rows_kernel"),
+                "quantize_layout": ("amax_conv_kernel", "amax_strided_kernel",
+                                    "quantize_conv_kernel",
+                                    "quantize_strided_kernel")}
 
 
 def token_graph(api):
@@ -4469,13 +4503,13 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
     the launches and the keys' capture seconds."""
     import torch
     n = len(model.program.stages())
-    launches = {"crossbar_gemm": 0, "fb_epilogue": 0}
+    launches = each(0)
     for shape in shapes:
         for logits in flavors:
             xs = [torch.randn(shape, generator=gen, device="cuda")
                   for _ in range(2)]
             got, c = counted(lambda: [answer(x, logits) for x in xs])
-            check(c == {"crossbar_gemm": 2 * n, "fb_epilogue": 2 * n},
+            check(c == each(2 * n),
                   f"{name} {shape} logits={logits}: launches {c} for two "
                   f"requests of {n} stages")
             for i, (x, r) in enumerate(zip(xs, got)):
@@ -4490,28 +4524,46 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
         key: fn.capture_s for key, fn in model._fns.items()})
 
 
+def busy_by_wrapper(top: list) -> dict:
+    """``forward_profile``'s kernels (ms, launches, name) summed by the
+    wrapper whose source defines them (``KERNEL_NAMES``), the rest under
+    ``other``: device ms per call."""
+    out = dict.fromkeys([*KERNEL_NAMES, "other"], 0.0)
+    for ms, _, name in top:
+        m = re.search(r"\(anonymous namespace\)::(\w+)", name)
+        owner = next((k for k, names in KERNEL_NAMES.items()
+                      if m and m.group(1) in names), "other")
+        out[owner] += ms
+    return out
+
+
 def replay_kernels(fn) -> dict:
     """The device's kernels in one call of ``fn`` (profiler device
     events), counted by the wrapper whose source defines them
     (``KERNEL_NAMES``); the rest (copies, fills, PyTorch's kernels) under
-    ``other``."""
+    ``other``.  A session in which the profiler saw no device event at
+    all (it loses them at times late in a long process) is taken again,
+    twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):          # warms the profiler up
         fn()
         torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"\(anonymous namespace\)::(\w+)", e.name)
-        owner = next((k for k, names in KERNEL_NAMES.items()
-                      if m and m.group(1) in names), "other")
-        counts[owner] += 1
+    for _ in range(3):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"\(anonymous namespace\)::(\w+)", e.name)
+            owner = next((k for k, names in KERNEL_NAMES.items()
+                          if m and m.group(1) in names), "other")
+            counts[owner] += 1
+        if any(counts.values()):
+            break
     return counts
 
 
@@ -4537,8 +4589,7 @@ def executable_phase(api, dev) -> dict:
               f"KERNEL_NAMES[{wrapper!r}] names a kernel {wrapper}.cu "
               "does not define")
     gen = torch.Generator(device=dev).manual_seed(27)
-    out = dict(nets={}, launches={"crossbar_gemm": 0, "fb_epilogue": 0},
-               keys=0)
+    out = dict(nets={}, launches=each(0), keys=0)
 
     def held(name, model, answer, shapes, flavors=(False, True)):
         r = hold_replays(name, model, answer, shapes, flavors, gen)
@@ -4561,8 +4612,11 @@ def executable_phase(api, dev) -> dict:
         x16 = torch.randn(model.program.input_shape(16), generator=gen,
                           device=dev)
         kern = replay_kernels(lambda: model.run(x16))
-        check(kern["crossbar_gemm"] == n and kern["fb_epilogue"] == n,
-              f"{name} b16: one replay ran {kern} kernels for {n} stages")
+        check(kern["crossbar_gemm"] == n and kern["fb_epilogue"] == n
+              and kern["quantize_layout"] == 2 * n,
+              f"{name} b16: one replay ran {kern} kernels for {n} stages "
+              "(one crossbar_gemm and fb_epilogue kernel, two "
+              "quantize_layout passes per stage)")
         times = {}
         for b in EXEC_TIMED:
             xb = x16[:b].contiguous()
@@ -4570,8 +4624,12 @@ def executable_phase(api, dev) -> dict:
             for mode, fn in (("replay", lambda: model.run(xb)),
                              ("eager", lambda: eager_run(model, xb))):
                 ms = wall_ms(fn)
-                busy, _ = forward_profile(fn)
-                times[b][mode] = dict(ms=ms, busy=busy)
+                busy, top = forward_profile(fn, top=None)
+                times[b][mode] = dict(ms=ms, busy=busy,
+                                      by_wrapper=busy_by_wrapper(top))
+                for k_ms, k_n, k_name in top[:12]:
+                    detail(f"27 {name} b{b} {mode} kernel {k_name}: "
+                           f"{k_ms:.4f} ms in {k_n} launches")
         caps = sorted(r["capture_s"].values())
         out["nets"][name] = dict(stages=n, kernels=kern, times=times,
                                  capture=(caps[0], statistics.median(caps),
@@ -4604,12 +4662,16 @@ def executable_line(xp: dict, card: str) -> str:
     def busy(t):
         return ("busy not measured" if t["busy"] is None else
                 f"busy {t['busy']:.3f} ms, idle {1 - t['busy'] / t['ms']:.1%}")
+    def by(t):
+        return "/".join(f"{v:.3f}" for v in t["by_wrapper"].values())
+
     nets = "; ".join(
         f"{name} ({r['stages']} stages; one b16 replay's kernels "
         f"{r['kernels']}; capture s min/median/max {r['capture'][0]:.3f}/"
         f"{r['capture'][1]:.3f}/{r['capture'][2]:.3f}): " + ", ".join(
-            f"b{b} replay {t['replay']['ms']:.3f} ms ({busy(t['replay'])}) "
-            f"vs eager {t['eager']['ms']:.3f} ms ({busy(t['eager'])})"
+            f"b{b} replay {t['replay']['ms']:.3f} ms ({busy(t['replay'])}; "
+            f"{'/'.join(KERNEL_NAMES)}/other {by(t['replay'])} ms) vs eager "
+            f"{t['eager']['ms']:.3f} ms ({busy(t['eager'])})"
             for b, t in r["times"].items())
         for name, r in xp["nets"].items())
     return (f"[27 executable per bucket] {xp['keys']} keys captured "
@@ -4621,6 +4683,190 @@ def executable_line(xp: dict, card: str) -> str:
             f"launches {xp['launches']} = one per stage and request; "
             f"{nets} (host clock + synchronize, median of 10); phase "
             f"{xp['s']:.1f} s | {card}")
+
+
+# phase 29: the nets driven eagerly at QUANT_BATCHES (default widths), and
+# at every WIDTHS row the nets of phase 25 at their batches
+QUANT_BATCHES = (1, 3, 16)
+QUANT_WIDTH_NETS = (("resnet18", 16), ("alexnet", 4), ("vit_tiny", 16))
+
+
+def quant_covered(xin, kw) -> int:
+    """Elements of ``xin`` that a ``quantize_layout`` call must read: the
+    pixels some patch reads (a conv), or all of them."""
+    from repro_torch.kernels.quantize_layout import covered
+    if kw.get("conv") is None:
+        return xin.numel()
+    n, h, w, c = xin.shape
+
+    def count(size):
+        return sum(len(range(size)[sl]) for sl in covered(size, *kw["conv"]))
+    return n * count(h) * count(w) * c
+
+
+def quant_bound(xin, kw, x8, amax) -> float:
+    """The least time of one call on the card, in ms: the covered input
+    read once (float32), the int8 operand and the amax written once, over
+    the memory rate (its few operations an element are far below the
+    float32 rate)."""
+    moved = 4 * quant_covered(xin, kw) + x8.numel() + 4 * amax.numel()
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def old_chain(xin, K: int, kw: dict):
+    """The executor's left operand as the port made it before the kernel:
+    ``im2col``, ``abs``, ``amax``, the scale, the division, ``round``,
+    the clamp, the int8 cast and ``kernel_layout``'s pad, each a PyTorch
+    kernel (one tensor-wide amax: the static stages' form)."""
+    import torch
+    from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
+    from repro_torch.kernels import kernel_layout
+    from repro_torch.program.execute import im2col
+    if kw.get("conv") is not None:
+        cols = im2col(xin, *kw["conv"])
+        xin = cols.reshape(-1, cols.shape[-1])
+    amax = xin.abs().amax()
+    q = quantize_with_scale(xin, quantize_scale(amax, kw["bits"]),
+                            kw["bits"]).to(torch.int8)
+    return kernel_layout(q, K, rows=kw["rows"],
+                         adc_bits=kw["adc_bits"]).contiguous(), amax
+
+
+def near_ties(shape, gen, bits: int = 8, amax: float = 3.0):
+    """Values (k + 1/2) * scale on the card for integers -qmax <= k < qmax,
+    and one of |x| = ``amax`` (so that scale is ``quantize_scale(amax)``):
+    each x / scale within an ulp or so of a half-integer, where the
+    kernel's multiply by 1/scale leaves the decision to the true
+    division."""
+    import torch
+    from repro_torch.kernels.quantize_layout import qmax, quantize_scale
+    s = quantize_scale(torch.tensor(amax), bits).item()
+    k = torch.randint(-qmax(bits), qmax(bits), shape, generator=gen,
+                      device=gen.device)
+    x = ((k + 0.5) * s).float()
+    x.view(-1)[0] = amax
+    return x
+
+
+# phase 29's near-tie inputs: (shape, quantize_layout kwargs, K)
+QUANT_TIES = (((64, 1000), dict(rows=494), 1482),
+              ((2, 16, 16, 8), dict(conv=(3, 1, 1)), 494),
+              ((48, 64, 64), dict(rows=64, per_slice=True, bits=4), 64))
+
+
+def quantize_phase(api, dev) -> dict:
+    """Phase 29: ``quantize_layout`` on the executor's path.  ``EXEC_NETS``
+    at ``QUANT_BATCHES`` and ``QUANT_WIDTH_NETS`` at every ``WIDTHS`` row,
+    each compiled on the card and driven eagerly through ``execute_packed``
+    (``record_stages``): one ``quantize_layout`` launch per stage, static
+    and dynamic, each call's (x8, amax) ``torch.equal`` to the plain
+    version on the same card tensors, and no card tensor reaching the
+    plain version (a spy on ``quantize_layout_ref``).  Then per ResNet-18
+    forward at b16 and b1, summed over its stages: the kernel's device
+    time beside the chain it replaced (``old_chain``, also held equal),
+    the plain version and the bound.  Also ``QUANT_TIES``: inputs whose
+    every x / scale lies within an ulp of a half-integer."""
+    import torch
+    from repro_torch.kernels import quantize_layout
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
+    ref = qmod.quantize_layout_ref
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    ref_devices: list = []
+
+    def ref_spy(x, *args, **kw):
+        ref_devices.append(x.device.type)
+        return ref(x, *args, **kw)
+
+    runs = [(net + ("-adc8" if kw else ""), net, kw, b)
+            for net, kw in EXEC_NETS for b in QUANT_BATCHES]
+    runs += [(f"{net}-{w}", net, WIDTHS[w], b)
+             for net, b in QUANT_WIDTH_NETS for w in WIDTHS]
+    out = dict(calls=0, err=0, runs=len(runs), recs={}, static=0, dyn=0)
+    qmod.quantize_layout_ref = ref_spy
+    try:
+        for label, net, kw, b in runs:
+            model = api.compile(net, api.HurryConfig(**kw), seed=0,
+                                device="cuda")
+            stages = model.program.stages()
+            x = torch.randn(model.program.input_shape(b), generator=gen,
+                            device=dev)
+            (_, recs), n = counted(lambda: record_stages(model, x))
+            check(n["quantize_layout"] == len(stages)
+                  and all("quant" in r for r in recs),
+                  f"29 {label} b{b}: {n['quantize_layout']} quantize_layout "
+                  f"launches for {len(stages)} stages")
+            check("cuda" not in ref_devices, f"29 {label}: the plain "
+                  "version ran on a card tensor from execute_packed")
+            for r in recs:
+                xin, K, qkw, (x8, amax) = r["quant"]
+                w8, wamax = ref(xin, K, **qkw)
+                check(x8.shape == w8.shape and amax.shape == wamax.shape,
+                      f"29 {label} b{b}: a quantize_layout call {qkw} "
+                      f"returned shapes {x8.shape} {amax.shape}, the plain "
+                      f"version {w8.shape} {wamax.shape}")
+                out["err"] = max(out["err"],
+                                 int((x8.int() - w8.int()).abs().max()))
+                check(torch.equal(x8, w8) and torch.equal(amax, wamax),
+                      f"29 {label} b{b}: a quantize_layout call {qkw} "
+                      f"differs from the plain version")
+            out["calls"] += len(recs)
+            n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+            out["static"] += len(stages) - n_dyn
+            out["dyn"] += n_dyn
+            if label == "resnet18" and b in (1, 16):
+                out["recs"][b] = [r["quant"] for r in recs]
+    finally:
+        qmod.quantize_layout_ref = ref
+    tie_gen = torch.Generator(device=dev).manual_seed(30)
+    for shape, kw, K in QUANT_TIES:
+        x = near_ties(shape, tie_gen, bits=kw.get("bits", 8))
+        (x8, amax), (w8, wamax) = quantize_layout(x, K, **kw), ref(x, K, **kw)
+        check(torch.equal(x8, w8) and torch.equal(amax, wamax),
+              f"29 near ties {shape} {kw}: the kernel differs from the plain "
+              "version")
+    times = {}
+    for b, calls in out.pop("recs").items():
+        t = dict(ms=0.0, plain=0.0, chain=0.0, bound=0.0)
+        for xin, K, qkw, (x8, amax) in calls:
+            o8, oamax = old_chain(xin, K, qkw)
+            check(torch.equal(o8, x8) and torch.equal(oamax, amax),
+                  f"29 resnet18 b{b}: the kernel differs from the chain it "
+                  "replaced")
+            c = dict(ms=device_ms(lambda: quantize_layout(xin, K, **qkw)),
+                     plain=device_ms(lambda: ref(xin, K, **qkw)),
+                     chain=device_ms(lambda: old_chain(xin, K, qkw)),
+                     bound=quant_bound(xin, qkw, x8, amax))
+            detail(f"time 29 resnet18 b{b} quantize_layout "
+                   f"{tuple(xin.shape)} K={K} {qkw}: kernel {c['ms']:.4f} "
+                   f"ms (bound {c['bound']:.5f}, plain {c['plain']:.4f}, "
+                   f"old chain {c['chain']:.4f})")
+            for k in t:
+                t[k] += c[k]
+        t["launches"] = len(calls)
+        times[b] = t
+    out["times"] = times
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def quantize_line(qp: dict, card: str) -> str:
+    """Phase 29's line on standard output."""
+    t = "; ".join(
+        f"per ResNet-18 b{b} forward ({r['launches']} launches): kernel "
+        f"{r['ms']:.4f} ms (bound {r['bound']:.5f} by bytes, plain "
+        f"{r['plain']:.4f}, the replaced chain {r['chain']:.4f})"
+        for b, r in sorted(qp["times"].items(), reverse=True))
+    return (f"[29 quantize_layout] {qp['runs']} eager forwards "
+            f"({'/'.join(n + ('-adc8' if kw else '') for n, kw in EXEC_NETS)}"
+            f" at b{','.join(map(str, QUANT_BATCHES))}; "
+            f"{'/'.join(n for n, _ in QUANT_WIDTH_NETS)} at "
+            f"{'/'.join(WIDTHS)}): one launch per stage, {qp['calls']} "
+            f"calls ({qp['static']} static, {qp['dyn']} dynamic stages) "
+            "each torch.equal to the plain version (x8 and amax), none "
+            "of the plain version on a card tensor from execute_packed, "
+            f"{len(QUANT_TIES)} near-tie inputs equal too; "
+            f"{t}; phase {qp['s']:.1f} s | {card}")
 
 
 def kernel_times(label: str) -> int:
@@ -4690,7 +4936,7 @@ def decode_cases_phase(dev) -> dict:
     tree, the first key replays on; (c) a foreign cache tree (an eager
     loop's after ``mid`` steps) is copied in, and the replays go on from
     it equal to the eager step; (d) a call under a sharding context with
-    a mesh raises and captures nothing.  No launch of the five kernels."""
+    a mesh raises and captures nothing.  No launch of the six kernels."""
     import dataclasses
     import types
     import torch
@@ -4917,15 +5163,11 @@ def main(argv: list[str] | None = None) -> int:
     rng = np.random.default_rng(0)
     requests = [rng.standard_normal((b, 32, 32, 3)).astype(np.float32)
                 for b in (1, 3, 16)]
-    torch.cuda.synchronize()
-    crossbar_gemm.launches = fb_epilogue.launches = 0
-    served = [(resnet_gpu.run(x), resnet_gpu.run(x, logits=True))
-              for x in requests]
-    torch.cuda.synchronize()
-    main_launches = {"crossbar_gemm": crossbar_gemm.launches,
-                     "fb_epilogue": fb_epilogue.launches}
+    served, main_launches = counted(
+        lambda: [(resnet_gpu.run(x), resnet_gpu.run(x, logits=True))
+                 for x in requests])
     want = n_stages * 2 * len(requests)
-    check(main_launches == {"crossbar_gemm": want, "fb_epilogue": want},
+    check(main_launches == each(want),
           f"launch counts {main_launches}, expected {want} each "
           f"({n_stages} stages x {2 * len(requests)} runs)")
     worst_rel, agree, exact = 0.0, [], True
@@ -4961,15 +5203,11 @@ def main(argv: list[str] | None = None) -> int:
                         for (g, _), st in zip(alex_gpu.program.stages(),
                                               alex_gpu.packed.stages))
     x4 = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
-    torch.cuda.synchronize()
-    crossbar_gemm.launches = fb_epilogue.launches = 0
-    got = alex_gpu.run(x4, logits=True)
-    torch.cuda.synchronize()
-    sliced_launches = crossbar_gemm.launches
+    got, alex_launches = counted(lambda: alex_gpu.run(x4, logits=True))
+    sliced_launches = alex_launches["crossbar_gemm"]
     n_alex = len(alex_gpu.program.stages())
-    check(sliced_launches == n_alex and fb_epilogue.launches == n_alex,
-          f"AlexNet launches {sliced_launches}/{fb_epilogue.launches}, "
-          f"expected {n_alex}")
+    check(alex_launches == each(n_alex),
+          f"AlexNet launches {alex_launches}, expected {n_alex} each")
     ref = alex_cpu.run(x4, logits=True)
     got = got.cpu()
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
@@ -5122,8 +5360,9 @@ def main(argv: list[str] | None = None) -> int:
             detail(f"  {name}: {ms:.4f} ms in {n} launches")
     log(f"[12 vit_tiny main path] batches 1,3,16 x (probs, logits): launches "
         f"{vit['launches']} = {vit['n_stages']} stages each run, "
-        f"{vit['n_dyn']} dynamic stages per run with one crossbar_gemm and "
-        f"one fb_epilogue each ({vit['dyn_runs']} dynamic-stage calls); vs "
+        f"{vit['n_dyn']} dynamic stages per run with one quantize_layout, "
+        f"crossbar_gemm and fb_epilogue each ({vit['dyn_runs']} dynamic-stage "
+        "calls); vs "
         f"CPU plain path argmax agreement {vit['agree']}, max rel logit "
         f"error {vit['rel']:.2e} (limit {VIT_REL}), max |probs diff| "
         f"{vit['prob']:.2e} (limit {VIT_PROB_ATOL}); end to end {vit_e2e[1]:.3f} ms at b=1, "
@@ -5270,6 +5509,9 @@ def main(argv: list[str] | None = None) -> int:
     # them) ------------------------------------------------------------------
     xp = executable_phase(api, dev)
     log(executable_line(xp, card))
+    # -- 29. quantize_layout on the executor's path -------------------------
+    qp = quantize_phase(api, dev)
+    log(quantize_line(qp, card))
     # -- 28. the compiled decode step's cases -------------------------------
     log(decode_cases_line(decode_cases_phase(dev), card))
     # -- 21. the LM serving stack ------------------------------------------
@@ -5298,8 +5540,7 @@ def main(argv: list[str] | None = None) -> int:
              sl_["launches"], srv["launches"], ex["quick"]["launches"],
              ex["v1"]["launches"], ex["program"]["launches"], wp["launches"],
              xp["launches"]]
-    path_launches = {k: sum(p[k] for p in paths)
-                     for k in ("crossbar_gemm", "fb_epilogue")}
+    path_launches = {k: sum(p[k] for p in paths) for k in PROGRAM_KERNELS}
     path_launches["crossbar_gemm"] += sum(
         f["total"] for f in fn["forward"].values()) + ex["xbar"]["launches"]
 
@@ -5343,6 +5584,15 @@ def main(argv: list[str] | None = None) -> int:
              ms=pk["ms"], plain_ms=pk["plain_ms"], bound_ms=pk["bound_ms"],
              bound_by=pk["bound_by"],
              library_ms=pk["library_ms"]["matmul loop"]),
+        dict(name="quantize_layout", route="cuda",
+             source="src/repro_torch/kernels/csrc/quantize_layout.cu",
+             replaces="src/repro/program/execute.py:148-164 (XLA's fusion "
+             "under jax.jit; no Pallas kernel)",
+             launches=path_launches["quantize_layout"],
+             max_abs_err=qp["err"], ms=qp["times"][16]["ms"],
+             plain_ms=qp["times"][16]["plain"],
+             bound_ms=qp["times"][16]["bound"], bound_by="bytes",
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

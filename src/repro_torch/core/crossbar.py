@@ -56,8 +56,12 @@ import torch
 
 from repro_torch.kernels.crossbar_gemm import crossbar_gemm
 from repro_torch.kernels.fb_epilogue import dequant
-
-_AMAX_FLOOR = 1e-8
+# the quantizer's constants and scale live beside the kernel that
+# quantizes the executor's activations, so both share one definition
+from repro_torch.kernels.quantize_layout import AMAX_FLOOR as _AMAX_FLOOR
+from repro_torch.kernels.quantize_layout import inv_qmax as _inv_qmax
+from repro_torch.kernels.quantize_layout import qmax as _qmax
+from repro_torch.kernels.quantize_layout import quantize_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,24 +217,6 @@ def crossbar_matmul(x: torch.Tensor, w: torch.Tensor,
         y = _sliced(x2.reshape(-1, *x2.shape[-2:]),
                     w.reshape(-1, K, N), cfg, noise_generator)
     return y.reshape(*lead, N)
-
-
-def _qmax(bits: int) -> int:
-    return (1 << (bits - 1)) - 1
-
-
-def _inv_qmax(bits: int) -> float:
-    """``f32(1 / qmax)``: the constant XLA multiplies by for ``/ qmax``."""
-    return float(np.float32(1.0 / _qmax(bits)))
-
-
-def quantize_scale(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """Symmetric quantization scale from a per-tensor ``max(|x|)``.
-
-    ``max(amax, 1e-8) * f32(1/qmax)``: the reciprocal form jitted XLA
-    compiles ``max(amax, 1e-8) / qmax`` into (module docstring).
-    """
-    return torch.clamp_min(amax, _AMAX_FLOOR) * _inv_qmax(bits)
 
 
 def dequant_scale(x_amax: torch.Tensor, w_amax: torch.Tensor,

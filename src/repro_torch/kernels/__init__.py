@@ -4,12 +4,15 @@ One CUDA C++ kernel for each of the JAX package's five Pallas kernels,
 under ``csrc/``: ``crossbar_gemm`` and ``fb_epilogue`` carry the
 program's stages (also batched over attention's (batch, head) slices),
 ``flash_attention``, ``fused_gemm_epilogue`` and ``packed_gemm`` sit
-behind the public wrappers in ``ops``.  For a CUDA tensor a wrapper
-launches its kernel (built with ``nvcc`` for ``sm_90a`` at first use,
-see ``_build``) and counts the launch in ``<wrapper>.launches``; for a
-CPU tensor it computes the plain PyTorch version.  ``COUNTED`` lists the
-five counting wrappers (a captured CUDA graph's replays add to the same
-counters, ``program.serve.Executable``).
+behind the public wrappers in ``ops``.  A sixth, ``quantize_layout``,
+ports no Pallas kernel but XLA's fusion of the JAX executor's im2col,
+quantize and pad: it makes each stage's left operand for
+``crossbar_gemm``.  For a CUDA tensor a wrapper launches its kernel
+(built with ``nvcc`` for ``sm_90a`` at first use, see ``_build``) and
+counts the launch in ``<wrapper>.launches``; for a CPU tensor it
+computes the plain PyTorch version.  ``COUNTED`` lists the six counting
+wrappers (a captured CUDA graph's replays add to the same counters,
+``program.serve.Executable``).
 """
 
 from .crossbar_gemm import (clip_possible, crossbar_gemm, crossbar_gemm_ref,
@@ -22,9 +25,10 @@ from .flash_attention import (flash_attention, flash_attention_ref,
 from .fused_gemm_epilogue import fused_gemm_epilogue, fused_gemm_epilogue_ref
 from .packed_gemm import (packed_gemm, packed_gemm_ref, packed_gemm_tiles_ref,
                           pad_groups, tile_group_map)
+from .quantize_layout import quantize_layout, quantize_layout_ref
 
 COUNTED = (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
-           packed_gemm)
+           packed_gemm, quantize_layout)
 
 __all__ = [
     "COUNTED",
@@ -35,5 +39,5 @@ __all__ = [
     "flash_attention_ref", "flash_attention_split_ref",
     "fused_gemm_epilogue", "fused_gemm_epilogue_ref",
     "packed_gemm", "packed_gemm_ref", "packed_gemm_tiles_ref", "pad_groups",
-    "tile_group_map",
+    "quantize_layout", "quantize_layout_ref", "tile_group_map",
 ]

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("crossbar_gemm", "fb_epilogue", "flash_attention",
-           "fused_gemm_epilogue", "packed_gemm")
+           "fused_gemm_epilogue", "packed_gemm", "quantize_layout")
 
 
 def _nvcc() -> str:

@@ -3,13 +3,14 @@
 The port of ``repro.program.execute``'s weight-mounted path.  Per GEMM
 stage (``_static_stage``):
 
-* the stage input becomes the GEMM's left operand (``im2col`` for convs,
-  an NHWC flatten for a spatial buffer entering an fc);
-* it is quantized to symmetric int8 (the only quantization in the hot
-  loop: weights were mounted by ``pack.pack_program``) and zero-padded
-  into the kernel layout of the mounts' K (``kernels.crossbar_gemm.
-  kernel_layout``: to a multiple of 32 bytes, or chunk by chunk where
-  the ADC can clip), which the stage's mounted ``wt`` shares;
+* one ``quantize_layout`` call makes the GEMM's left operand from the
+  stage input: the patches of a conv (``im2col``'s), an NHWC flatten for
+  a spatial buffer entering an fc, or the tokens, quantized to symmetric
+  int8 (the only quantization in the hot loop: weights were mounted by
+  ``pack.pack_program``) straight into the kernel layout of the mounts'
+  K (``kernels.crossbar_gemm.kernel_layout``: to a multiple of 32
+  bytes, or chunk by chunk where the ADC can clip), which the stage's
+  mounted ``wt`` shares;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read);
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -18,14 +19,15 @@ stage (``_static_stage``):
 Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
 activations instead of weights: per (batch, head) slice, the Q·Kᵀ or
 P·V right-hand operand is quantized and mounted with ``plane_pack``,
-the left-hand one quantized with its own scale, and all slices run in
-one batched ``crossbar_gemm`` launch and one batched ``fb_epilogue``
-launch (the counterpart of the JAX executor's ``jax.vmap``), with the
-contraction sized to the runtime head dim or sequence length.
+the left-hand one quantized with its own scale (one ``quantize_layout``
+call for all slices), and all slices run in one batched
+``crossbar_gemm`` launch and one batched ``fb_epilogue`` launch (the
+counterpart of the JAX executor's ``jax.vmap``), with the contraction
+sized to the runtime head dim or sequence length.
 
 Buffers are dropped as soon as no later stage reads them.  On a CUDA
-device both calls launch the hand-written kernels; on the CPU they take
-their plain PyTorch versions.  ``execute_program`` is the
+device the three calls launch the hand-written kernels; on the CPU they
+take their plain PyTorch versions.  ``execute_program`` is the
 params-consuming entry: it packs under the call, then runs
 ``execute_packed``.
 """
@@ -35,14 +37,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.crossbar import (dequant_scale, quantize_scale,
-                                       quantize_with_scale)
+from repro_torch.core.crossbar import dequant_scale, quantize_scale
 from repro_torch.kernels.crossbar_gemm import crossbar_gemm, kernel_layout
 from repro_torch.kernels.fb_epilogue import fb_epilogue
+from repro_torch.kernels.quantize_layout import quantize_layout
 
 from .compile import CrossbarProgram, ProgramOp
 from .pack import PackedProgram, PackedStage, pack_program, plane_pack
-from .sequence import merge_heads, split_qkv_heads, tokens
+from .sequence import merge_heads, qkv_head_views, tokens
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -53,7 +55,9 @@ def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
     and copied once into rows in the patch order of JAX's
     ``conv_general_dilated_patches``, which ``pack_weight``'s
     ``permute(2, 0, 1, 3)`` layout matches.  Two launches at most (the
-    zero pad, the copy), whatever the batch.
+    zero pad, the copy), whatever the batch.  The executor no longer
+    calls it (``quantize_layout`` gathers the patches itself); the
+    functional CNN model does.
     """
     n, h, w, c = x.shape
     oh = (h + 2 * pad - k) // stride + 1
@@ -81,37 +85,38 @@ def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """A dynamic stage's operands, mounted slice by slice.
 
-    Returns ``(a8 (S, M, K_pad) int8, w8 (S, K_pad, N) int8, scale
-    (S, 1, 1) f32, rows)``: per (batch, head) slice the left operand is
-    quantized with its own scale and the right one mounted with
-    ``plane_pack``, as ``jax.vmap`` over the JAX executor's per-slice
-    function computes.  The right operand is mounted K-major, the form
+    Returns ``(a8 (S, M, Kk) int8, w8 (S, K_pad, N) int8, scale (S, 1, 1)
+    f32, rows)``: per (batch, head) slice the left operand is quantized
+    with its own scale and the right one mounted with ``plane_pack``, as
+    ``jax.vmap`` over the JAX executor's per-slice function computes.
+    ``a8`` comes from one ``quantize_layout`` call, already in the kernel
+    layout of K_pad (Kk: ``kernel_layout(a8_padded, K_pad, rows=rows,
+    adc_bits=...)``); for Q·Kᵀ it reads the Q heads as they lie in the
+    fused projection.  The right operand is mounted K-major, the form
     the kernel takes: ``w8`` is the transposed view of a contiguous (S, N,
     K_pad) tensor (for Q·Kᵀ the key block itself, for P·V it is Vᵀ).
     """
     if gemm.dyn == "qk":
-        q, k, _ = split_qkv_heads(tokens(bufs[gemm.src]), gemm.heads)
-        a, wk = q, k                             # (BH, T, hd), Kᵀ K-major
+        q, k, _ = qkv_head_views(tokens(bufs[gemm.src]), gemm.heads)
+        a, wk = q, k.flatten(0, 1)               # (B, H, T, hd), Kᵀ K-major
     elif gemm.dyn == "pv":
         a = bufs[gemm.src]                       # (BH, T, T) probabilities
-        _, _, v = split_qkv_heads(tokens(bufs[gemm.dyn_src]), gemm.heads)
-        wk = v.transpose(1, 2)                   # (BH, hd, T): V K-major
+        _, _, v = qkv_head_views(tokens(bufs[gemm.dyn_src]), gemm.heads)
+        wk = v.flatten(0, 1).transpose(1, 2)     # (BH, hd, T): V K-major
     else:  # pragma: no cover - compile_network emits only qk/pv
         raise ValueError(gemm.dyn)
     rows = min(gemm.tile_rows, a.shape[-1])      # dynamic mount height
-    a_amax = a.abs().amax(dim=(1, 2))
-    a_scale = quantize_scale(a_amax, cfg.input_bits)
-    a8 = quantize_with_scale(a, a_scale[:, None, None],
-                             cfg.input_bits).to(torch.int8)
     w8t, w_amax = plane_pack(wk, tile_rows=rows,
                              weight_bits=cfg.weight_bits, k_major=True)
-    kp = w8t.shape[2] - a8.shape[2]
-    if kp:   # mirror the mount padding on the streaming side
-        a8 = F.pad(a8, (0, kp))
+    a8, a_amax = quantize_layout(a, w8t.shape[2], bits=cfg.input_bits,
+                                 rows=rows, adc_bits=cfg.adc_bits,
+                                 per_slice=True)
+    a8, a_amax = a8.flatten(0, -3), a_amax.flatten()
     # under jax.vmap XLA keeps ``ascale * ws`` a plain product of the two
     # quantize scales, not ``dequant_scale``'s reassociated form
-    scale = a_scale * quantize_scale(w_amax, cfg.weight_bits)
-    return a8.contiguous(), w8t.mT, scale.reshape(-1, 1, 1), rows
+    scale = (quantize_scale(a_amax, cfg.input_bits)
+             * quantize_scale(w_amax, cfg.weight_bits))
+    return a8, w8t.mT, scale.reshape(-1, 1, 1), rows
 
 
 def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
@@ -137,9 +142,9 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     src = bufs[gemm.src]
     b = src.shape[0]
     t = 0
+    conv = None
     if gemm.is_conv:
-        cols = im2col(src, gemm.ksize, gemm.stride, gemm.padding)
-        xin = cols.reshape(-1, cols.shape[-1])
+        xin, conv = src, (gemm.ksize, gemm.stride, gemm.padding)
     elif gemm.seq:
         src = tokens(src)
         t = src.shape[1]
@@ -147,14 +152,13 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     else:
         xin = src.reshape(b, -1) if src.dim() == 4 else src   # NHWC flatten
 
-    x_amax = xin.abs().amax()
-    xq = quantize_with_scale(xin, quantize_scale(x_amax, cfg.input_bits),
-                             cfg.input_bits).to(torch.int8)
     # K was padded to full mounts at pack time and laid out for the
-    # kernel (``st.wt``); pad the activations straight into that layout
-    xq = kernel_layout(xq, st.w8.shape[0], rows=gemm.tile_rows,
-                       adc_bits=cfg.adc_bits)
-    y_int = crossbar_gemm(xq.contiguous(), st.w8, adc_bits=cfg.adc_bits,
+    # kernel (``st.wt``); quantize the activations straight into that
+    # layout (the patches of a conv gathered on the way)
+    xq, x_amax = quantize_layout(xin, st.w8.shape[0], bits=cfg.input_bits,
+                                 rows=gemm.tile_rows, adc_bits=cfg.adc_bits,
+                                 conv=conv)
+    y_int = crossbar_gemm(xq, st.w8, adc_bits=cfg.adc_bits,
                           rows=gemm.tile_rows, wt=st.wt)
     scale = dequant_scale(x_amax, st.w_amax, cfg.input_bits,
                           cfg.weight_bits).reshape(1, 1)

@@ -29,6 +29,15 @@ def tokens(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def qkv_head_views(qkv: torch.Tensor, heads: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, T, 3D) fused-projection buffer -> three (B, heads, T, hd)
+    views of it (permuted, not copied)."""
+    D = qkv.shape[-1] // 3
+    return tuple(qkv[..., i * D:(i + 1) * D].unflatten(-1, (heads, -1))
+                 .transpose(1, 2) for i in range(3))
+
+
 def split_qkv_heads(qkv: torch.Tensor, heads: int
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, T, 3D) fused-projection buffer -> three (B*heads, T, hd).
@@ -36,15 +45,7 @@ def split_qkv_heads(qkv: torch.Tensor, heads: int
     The leading axis is (batch, head) row-major: one entry per mounted
     attention matrix.
     """
-    B, T, three_d = qkv.shape
-    D = three_d // 3
-    hd = D // heads
-
-    def sp(u):
-        return (u.reshape(B, T, heads, hd).permute(0, 2, 1, 3)
-                .reshape(B * heads, T, hd))
-
-    return sp(qkv[..., :D]), sp(qkv[..., D:2 * D]), sp(qkv[..., 2 * D:])
+    return tuple(u.flatten(0, 1) for u in qkv_head_views(qkv, heads))
 
 
 def merge_heads(ctx: torch.Tensor, heads: int) -> torch.Tensor:

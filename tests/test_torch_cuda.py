@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import (clip_possible, crossbar_gemm,
+from repro_torch.kernels import (COUNTED, clip_possible, crossbar_gemm,
                                  crossbar_gemm_exact_ref, crossbar_gemm_ref,
                                  fb_epilogue, fb_epilogue_ref,
                                  flash_attention, flash_attention_ref,
@@ -24,6 +24,7 @@ from repro_torch.kernels import (clip_possible, crossbar_gemm,
                                  kernel_layout, mount_weight, ops,
                                  packed_gemm, packed_gemm_ref,
                                  packed_gemm_tiles_ref, pad_groups,
+                                 quantize_layout, quantize_layout_ref,
                                  tile_group_map)
 
 
@@ -864,8 +865,7 @@ def test_lm_on_the_card_equals_the_cpu(cuda, arch):
     frames = (torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
               if cfg.is_encdec else None)
     want = _lm_logits(cfg, params, tokens, frames, 16)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = COUNTED
     before = [k.launches for k in kernels]
     got = _lm_logits(cfg, _to(params, cuda), tokens.to(cuda),
                      None if frames is None else frames.to(cuda), 16)
@@ -1017,8 +1017,7 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     if cfg.is_encdec:
         batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
                                       generator=gen)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = COUNTED
     before = [k.launches for k in kernels]
     params_d, batch_d = _to(params, cuda), _to(batch, cuda)
     loss_c, grads_c = _f32_value_and_grad(cfg, params, batch)
@@ -1240,8 +1239,7 @@ def test_serve_lm_example_on_the_card(cuda):
     prompts = torch.randint(0, cfg.vocab_size, (2, 8),
                             generator=torch.Generator().manual_seed(1),
                             dtype=torch.int32)
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = COUNTED
     before = [k.launches for k in kernels]
     f32 = torch.float32
     got = sv.generate(cfg, _to(params, cuda), prompts.to(cuda), None, 8,
@@ -1263,8 +1261,7 @@ def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
     tl, quiet = _example("train_lm_torch")
     monkeypatch.setattr(tl, "build_100m_config", lambda: dataclasses.replace(
         get_config("internlm2_1_8b").reduced(), n_layers=2))
-    kernels = (crossbar_gemm, fb_epilogue, flash_attention,
-               fused_gemm_epilogue, packed_gemm)
+    kernels = COUNTED
     before = [k.launches for k in kernels]
     r = quiet(tl.main, ["--steps", "2", "--batch", "2", "--seq", "32",
                         "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
@@ -1273,3 +1270,125 @@ def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
     assert r["captures"] == 1
     assert all(np.isfinite(r["losses"]))
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1", "step_2"]
+
+
+# ---------------------------------------------------------------------------
+# quantize_layout: the executor's left operands
+# ---------------------------------------------------------------------------
+
+# name -> (input shape, quantize_layout kwargs besides K, K): the cases of
+# tests/test_torch_quantize_layout.py (conv geometries at batch 1 and 3,
+# a 1x1 stride-2 input whose largest |x| sits on an odd row, both
+# layouts at 4/6/8-bit inputs, the fc flatten, tokens, attention's Q view
+# and probabilities)
+_QL_CONVS = [(3, 1, 1), (3, 2, 1), (1, 1, 0), (1, 2, 0), (4, 4, 0),
+             (5, 1, 2), (11, 4, 2)]
+QL_CASES = {
+    **{f"conv{k}s{s}p{p}-b{b}": ((b, 32, 32, 3), dict(conv=(k, s, p)),
+                                 -(-3 * k * k // 494) * 494)
+       for k, s, p in _QL_CONVS for b in (1, 3)},
+    "odd-row-1x1s2": ((2, 32, 32, 4), dict(conv=(1, 2, 0)), 494),
+    **{f"layout{rows}-adc{adc}-a{bits}": (
+        (1, 32, 32, 64), dict(conv=(3, 1, 1), rows=rows, adc_bits=adc,
+                              bits=bits), -(-576 // rows) * rows)
+       for rows, adc in ((494, 9), (512, 9), (128, 5), (494, 8))
+       for bits in (4, 6, 8)},
+    "fc-flatten": ((3, 256), dict(rows=128, adc_bits=5), 256),
+    "tokens": ((192, 192), dict(bits=4), 494),
+    "qk-view": ((2, 16, 360), dict(rows=40, adc_bits=5, per_slice=True), 40),
+    "pv": ((6, 40, 40), dict(rows=40, per_slice=True), 40),
+    # x / scale within an ulp of half-integers: where the kernel's
+    # multiply by 1/scale is not enough and the true division decides
+    "near-ties": ((64, 1000), dict(rows=494), 1482),
+    "near-ties-conv": ((2, 16, 16, 8), dict(conv=(3, 1, 1)), 494),
+}
+
+
+def near_ties(shape, g, device, bits=8, amax=3.0):
+    """Values (k + 1/2) * scale for integers -qmax <= k < qmax, and one of
+    |x| = ``amax`` (so that scale is ``quantize_scale(amax)``): each
+    x / scale lies within an ulp or so of a half-integer."""
+    from repro_torch.kernels.quantize_layout import qmax, quantize_scale
+    s = quantize_scale(torch.tensor(amax), bits).item()
+    k = torch.randint(-qmax(bits), qmax(bits), shape, generator=g,
+                      device=device)
+    x = ((k + 0.5) * s).float()
+    x.view(-1)[0] = amax
+    return x
+
+
+def _ql_input(name, shape, g, device):
+    if name.startswith("near-ties"):
+        return near_ties(shape, g, device)
+    x = torch.randn(shape, generator=g, device=device)
+    if name.startswith("odd-row"):
+        x[1, 5, 6, 2] = -40.0                   # no patch reads it
+    if name == "qk-view":                       # the Q heads, permuted
+        from repro_torch.program.sequence import qkv_head_views
+        return qkv_head_views(x, 3)[0]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QL_CASES))
+def test_quantize_layout_kernel_equals_plain(cuda, case):
+    """The kernel's (x8, amax) ``torch.equal`` to the plain version on the
+    same card tensors, one launch a call."""
+    shape, kw, K = QL_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    x = _ql_input(case, shape, g, cuda)
+    before = quantize_layout.launches
+    got = quantize_layout(x, K, **kw)
+    assert quantize_layout.launches == before + 1
+    want = quantize_layout_ref(x, K, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case.startswith("odd-row"):
+        assert got[1] < 40.0
+
+
+def _spied_quantize_layout(monkeypatch):
+    """Record every call of the executor's ``quantize_layout`` (inputs and
+    outputs) and the devices that reach ``quantize_layout_ref``."""
+    import importlib
+    execute = importlib.import_module("repro_torch.program.execute")
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
+    calls, ref_devices = [], []
+    real, real_ref = execute.quantize_layout, qmod.quantize_layout_ref
+
+    def spy(x, K, **kw):
+        out = real(x, K, **kw)
+        calls.append((x, K, kw, out))
+        return out
+
+    def ref_spy(x, *args, **kw):
+        ref_devices.append(x.device.type)
+        return real_ref(x, *args, **kw)
+
+    monkeypatch.setattr(execute, "quantize_layout", spy)
+    monkeypatch.setattr(qmod, "quantize_layout_ref", ref_spy)
+    return calls, ref_devices, real_ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["resnet18", "vit_tiny"])
+def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
+    """ResNet-18 and vit_tiny at batch 16, eager ``execute_packed``: one
+    ``quantize_layout`` launch per stage (static and dynamic), each call
+    at the stage's full size ``torch.equal`` to the plain version, and no
+    CUDA tensor reaches the plain version from the executor."""
+    from repro_torch.program.execute import execute_packed
+    model = api.compile(net, api.HurryConfig(), seed=0, device="cuda")
+    x = torch.randn(model.program.input_shape(16), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(16))
+    calls, ref_devices, real_ref = _spied_quantize_layout(monkeypatch)
+    before = quantize_layout.launches
+    execute_packed(model.packed, x, return_logits=True)
+    torch.cuda.synchronize()
+    n = len(model.program.stages())
+    assert quantize_layout.launches == before + n == before + len(calls)
+    assert ref_devices == []
+    for xin, K, kw, (x8, amax) in calls:
+        w8, wamax = real_ref(xin, K, **kw)
+        assert torch.equal(x8, w8) and torch.equal(amax, wamax)

@@ -22,7 +22,8 @@ import torch
 
 from repro.program.execute import im2col as jax_im2col
 from repro_torch import api
-from repro_torch.kernels import crossbar_gemm, fb_epilogue
+from repro_torch.kernels import (COUNTED, crossbar_gemm, fb_epilogue,
+                                 quantize_layout)
 from repro_torch.program.execute import execute_packed, im2col
 from repro_torch.program.pack import PackedProgram
 from repro_torch.program.serve import (BUCKETS, Executable, executable_key,
@@ -166,18 +167,28 @@ class _DoublingGraph:
         self.replays += 1
 
 
+def test_counted_holds_the_six_wrappers():
+    assert [fn.__name__ for fn in COUNTED] == [
+        "crossbar_gemm", "fb_epilogue", "flash_attention",
+        "fused_gemm_epilogue", "packed_gemm", "quantize_layout"]
+    assert all(isinstance(fn.launches, int) for fn in COUNTED)
+
+
 def test_replay_adds_the_captured_launches_and_returns_a_new_tensor():
     x, out = torch.zeros(4, 3), torch.zeros(4, 3)
     graph = _DoublingGraph(x, out)
     exe = Executable(graph=graph, x=x, out=out, pool=(0, 0),
-                     launches={crossbar_gemm: 5, fb_epilogue: 5},
+                     launches={crossbar_gemm: 5, fb_epilogue: 5,
+                               quantize_layout: 5},
                      capture_s=0.0)
-    before = crossbar_gemm.launches, fb_epilogue.launches
+    before = (crossbar_gemm.launches, fb_epilogue.launches,
+              quantize_layout.launches)
     a = exe(torch.arange(12.0).reshape(4, 3), 3)
     b = exe(torch.ones(4, 3), 4)
     assert graph.replays == 2
-    assert (crossbar_gemm.launches, fb_epilogue.launches) == (
-        before[0] + 10, before[1] + 10)
+    assert (crossbar_gemm.launches, fb_epilogue.launches,
+            quantize_layout.launches) == (
+        before[0] + 10, before[1] + 10, before[2] + 10)
     # each answer is its own tensor: the next replay does not move it
     assert torch.equal(a, 2 * torch.arange(9.0).reshape(3, 3))
     assert torch.equal(b, torch.full((4, 3), 2.0))

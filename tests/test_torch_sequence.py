@@ -30,7 +30,8 @@ from repro.program.sequence import tokens as jax_tokens
 from repro_torch import api as tapi
 from repro_torch.convert import params_from_jax
 from repro_torch.core.crossbar import dequant_scale, quantize_scale
-from repro_torch.kernels import crossbar_gemm, flash_attention
+from repro_torch.kernels import (crossbar_gemm, flash_attention,
+                                 kernel_layout, mount_weight)
 from repro_torch.program.execute import _dyn_stage, dyn_mounts
 from repro_torch.program.sequence import split_qkv_heads
 
@@ -128,10 +129,15 @@ def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
             ja8, jw8, jy = (np.asarray(t) for t in _jax_mounts(gemm, cfg,
                                                                 bufs))
             a8, w8, _, rows = dyn_mounts(gemm, tbufs, tm.program.cfg)
-            np.testing.assert_array_equal(a8.numpy(), ja8)
+            # the left operand comes in the kernel layout of K_pad
+            np.testing.assert_array_equal(a8.numpy(), kernel_layout(
+                torch.from_numpy(ja8), ja8.shape[-1], rows=rows,
+                adc_bits=cfg.adc_bits).numpy())
             np.testing.assert_array_equal(w8.numpy(), jw8)
             assert w8.mT.is_contiguous()         # mounted K-major
-            y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows)
+            y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows,
+                              wt=mount_weight(w8, rows=rows,
+                                              adc_bits=cfg.adc_bits))
             np.testing.assert_array_equal(y.numpy(), jy)
             got = _dyn_stage(gemm, posts, tbufs, tm.program.cfg).numpy()
             assert got.shape == ref.shape
