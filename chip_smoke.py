@@ -310,8 +310,11 @@ each on standard output (the per-shape details go to standard error):
     ``execute_packed`` on the card on its own draw (no aliasing), one
     launch of each program kernel per stage and request on the counters;
     one b16 replay of each net profiled: exactly one ``crossbar_gemm``
-    and one ``fb_epilogue`` kernel and two ``quantize_layout`` passes per
-    stage by name (``KERNEL_NAMES``); time per batch at 1, 4 and 16
+    and one ``fb_epilogue`` kernel per stage and, of ``quantize_layout``,
+    the kernels its path launches per stage (``device_kernels``), by name
+    (``KERNEL_NAMES``), and the static stages dispatching no PyTorch op
+    of a requant factor (``static_stage_ops``); time per batch at 1, 4
+    and 16
     through ``run`` (replay) beside eager ``execute_packed``, each with
     busy time and idle share, the replay's busy time by wrapper; the
     capture seconds of every key and each profile's largest kernels
@@ -328,11 +331,16 @@ each on standard output (the per-shape details go to standard error):
     and vit_tiny at batches 1, 3 and 16, and ResNet-18 b16, AlexNet b4
     and vit_tiny b16 at every ``WIDTHS`` row, driven eagerly
     (``record_stages``): one launch per stage (static and dynamic), every
-    call's (x8, amax) ``torch.equal`` to the plain version on the same
-    card tensors, no card tensor reaching the plain version; per
-    ResNet-18 forward at b16 and b1 the kernel's device time beside its
-    bound, the plain version and the PyTorch chain it replaced
-    (``old_chain``, held equal too).
+    call's (x8, amax) and the static stages' requant factor
+    ``torch.equal`` to the plain version on the same card tensors, no
+    card tensor reaching the plain version; per ResNet-18 forward at b16,
+    b3 and b1 the device kernels of all its calls (profiled: exactly
+    ``device_kernels``, no memset or other kernel), the kernel's device
+    time beside its bound, the plain version and the PyTorch chain it
+    replaced (``old_chain`` with ``dequant_scale``, held equal too), each
+    call also with the one-launch and the multi-pass path forced (the
+    threshold between them, standard error), and the largest stage
+    alone.
 
 Phases run in the order 1-20, 27, 29, 28, 21, 22, 24-26, 23: phase 27
 profiles before the LM phases have traced anything, and phase 23's dry-run
@@ -4458,9 +4466,11 @@ KERNEL_NAMES = {"crossbar_gemm": ("exact_kernel", "sliced_kernel"),
                 "fb_epilogue": ("elementwise_kernel", "pool_kernel",
                                 "rows_warp_kernel", "seqmean_kernel",
                                 "rows_kernel"),
-                "quantize_layout": ("amax_conv_kernel", "amax_strided_kernel",
-                                    "quantize_conv_kernel",
-                                    "quantize_strided_kernel")}
+                "quantize_layout": ("one_conv_kernel", "one_rows_kernel",
+                                    "partials_conv_kernel",
+                                    "partials_rows_kernel", "image_kernel",
+                                    "gather_kernel",
+                                    "quantize_rows_kernel")}
 
 
 def token_graph(api):
@@ -4537,34 +4547,100 @@ def busy_by_wrapper(top: list) -> dict:
     return out
 
 
-def replay_kernels(fn) -> dict:
+def replay_kernels(fn, sessions: int = 3) -> dict:
     """The device's kernels in one call of ``fn`` (profiler device
     events), counted by the wrapper whose source defines them
     (``KERNEL_NAMES``); the rest (copies, fills, PyTorch's kernels) under
-    ``other``.  A session in which the profiler saw no device event at
-    all (it loses them at times late in a long process) is taken again,
-    twice at most."""
+    ``other``.  Late in a long process the profiler misses the first
+    device events of a session (PR 20's and PR 21's smoke runs counted
+    two kernels fewer than the same replay alone): each session starts
+    with four sentinel kernels (``torch.cuda._sleep``, PyTorch's
+    ``spin_kernel``), left out of the counts, and each count is the
+    largest of ``sessions`` profiled calls (the profiler drops events,
+    it does not invent them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):          # warms the profiler up
         fn()
         torch.cuda.synchronize()
-    for _ in range(3):
+    counts = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
+    for _ in range(sessions):
         with profile(activities=acts) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
-        counts = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
+        seen = dict.fromkeys(counts, 0)
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or "spin_kernel" in e.name):
                 continue
             m = re.search(r"\(anonymous namespace\)::(\w+)", e.name)
             owner = next((k for k, names in KERNEL_NAMES.items()
                           if m and m.group(1) in names), "other")
-            counts[owner] += 1
-        if any(counts.values()):
-            break
+            seen[owner] += 1
+        counts = {k: max(v, seen[k]) for k, v in counts.items()}
     return counts
+
+
+def aten_ops(fn) -> dict:
+    """PyTorch ops (``aten`` overload packets) one call of ``fn`` dispatches,
+    counted by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.ops
+
+
+# PyTorch ops of a requant factor (``dequant_scale``: two ``clamp_min``,
+# two ``mul``) that the static stages must not dispatch on the card
+SCALE_OPS = ("clamp_min", "clamp", "mul", "maximum")
+
+
+def static_stage_ops(model, x) -> dict:
+    """``SCALE_OPS`` that the static stages of one eager forward of
+    ``model`` on ``x`` dispatch (``aten_ops`` around each
+    ``_static_stage``), with the dynamic stages' own scale products left
+    out; empty when the kernel writes every requant factor."""
+    from repro_torch.program.execute import execute_packed
+    execute = importlib.import_module("repro_torch.program.execute")
+    real, seen = execute._static_stage, {}
+
+    def counted_stage(*args, **kw):
+        out = []
+        ops = aten_ops(lambda: out.append(real(*args, **kw)))
+        for name in SCALE_OPS:
+            if ops.get(name):
+                seen[name] = seen.get(name, 0) + ops[name]
+        return out[0]
+
+    execute._static_stage = counted_stage
+    try:
+        execute_packed(model.packed, x, return_logits=True)
+    finally:
+        execute._static_stage = real
+    return seen
+
+
+def quant_kernels(model, x) -> int:
+    """The ``quantize_layout`` device kernels of one eager forward of
+    ``model`` on ``x``: each stage's call's ``device_kernels``."""
+    from repro_torch.kernels.quantize_layout import device_kernels
+    _, recs = record_stages(model, x)
+    return sum(device_kernels(xin, K, **kw)
+               for xin, K, kw, _ in (r["quant"] for r in recs))
 
 
 def executable_phase(api, dev) -> dict:
@@ -4573,7 +4649,11 @@ def executable_phase(api, dev) -> dict:
     ``EXEC_TOKENS``, ``make_server("resnet18")`` and a saved and loaded
     ResNet-18, each held by ``hold_replays``; one b16 replay of each net
     profiled (exactly one ``crossbar_gemm`` and one ``fb_epilogue``
-    kernel per stage); time per batch at ``EXEC_TIMED`` through ``run``
+    kernel per stage and ``quant_kernels`` of ``quantize_layout``), and
+    an eager b16 forward's static stages dispatching no PyTorch op of a
+    scale (``SCALE_OPS``: ``dequant_scale``'s, which the kernel's requant
+    factor replaced; a replay runs what eager launched); time per batch
+    at ``EXEC_TIMED`` through ``run``
     (replay) beside eager ``execute_packed``, each with device busy time
     and idle share (``wall_ms``, ``forward_profile``); the capture
     seconds of every key."""
@@ -4609,14 +4689,19 @@ def executable_phase(api, dev) -> dict:
         r = held(name, model, lambda x, lg, m=model: m.run(x, logits=lg),
                  [model.program.input_shape(b) for b in EXEC_BATCHES])
         n = len(model.program.stages())
+        n_dyn = sum(g.kind == "dyn_gemm" for g, _ in model.program.stages())
         x16 = torch.randn(model.program.input_shape(16), generator=gen,
                           device=dev)
         kern = replay_kernels(lambda: model.run(x16))
+        quant = quant_kernels(model, x16)
+        scale_ops = static_stage_ops(model, x16)
         check(kern["crossbar_gemm"] == n and kern["fb_epilogue"] == n
-              and kern["quantize_layout"] == 2 * n,
+              and kern["quantize_layout"] == quant,
               f"{name} b16: one replay ran {kern} kernels for {n} stages "
-              "(one crossbar_gemm and fb_epilogue kernel, two "
-              "quantize_layout passes per stage)")
+              "(one crossbar_gemm and fb_epilogue kernel per stage, "
+              f"{quant} quantize_layout kernels by device_kernels)")
+        check(not scale_ops, f"{name} b16: the static stages dispatched "
+              f"{scale_ops}: a requant factor computed by PyTorch")
         times = {}
         for b in EXEC_TIMED:
             xb = x16[:b].contiguous()
@@ -4686,7 +4771,8 @@ def executable_line(xp: dict, card: str) -> str:
 
 
 # phase 29: the nets driven eagerly at QUANT_BATCHES (default widths), and
-# at every WIDTHS row the nets of phase 25 at their batches
+# at every WIDTHS row the nets of phase 25 at their batches; ResNet-18's
+# calls timed at each of QUANT_BATCHES
 QUANT_BATCHES = (1, 3, 16)
 QUANT_WIDTH_NETS = (("resnet18", 16), ("alexnet", 4), ("vit_tiny", 16))
 
@@ -4704,12 +4790,14 @@ def quant_covered(xin, kw) -> int:
     return n * count(h) * count(w) * c
 
 
-def quant_bound(xin, kw, x8, amax) -> float:
+def quant_bound(xin, kw, got) -> float:
     """The least time of one call on the card, in ms: the covered input
-    read once (float32), the int8 operand and the amax written once, over
-    the memory rate (its few operations an element are far below the
-    float32 rate)."""
-    moved = 4 * quant_covered(xin, kw) + x8.numel() + 4 * amax.numel()
+    (and a weight amax) read once (float32), the int8 operand, the amax
+    and a requant factor written once, over the memory rate (its few
+    operations an element are far below the float32 rate)."""
+    x8, amax = got[:2]
+    moved = (4 * quant_covered(xin, kw) + x8.numel() + 4 * amax.numel()
+             + 8 * (len(got) - 2))
     return moved / HBM_BYTES_PER_S * 1e3
 
 
@@ -4717,9 +4805,11 @@ def old_chain(xin, K: int, kw: dict):
     """The executor's left operand as the port made it before the kernel:
     ``im2col``, ``abs``, ``amax``, the scale, the division, ``round``,
     the clamp, the int8 cast and ``kernel_layout``'s pad, each a PyTorch
-    kernel (one tensor-wide amax: the static stages' form)."""
+    kernel (one tensor-wide amax: the static stages' form), and where the
+    call asks for it ``dequant_scale``'s four scalar kernels."""
     import torch
-    from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
+    from repro_torch.core.crossbar import (dequant_scale, quantize_scale,
+                                           quantize_with_scale)
     from repro_torch.kernels import kernel_layout
     from repro_torch.program.execute import im2col
     if kw.get("conv") is not None:
@@ -4728,8 +4818,12 @@ def old_chain(xin, K: int, kw: dict):
     amax = xin.abs().amax()
     q = quantize_with_scale(xin, quantize_scale(amax, kw["bits"]),
                             kw["bits"]).to(torch.int8)
-    return kernel_layout(q, K, rows=kw["rows"],
-                         adc_bits=kw["adc_bits"]).contiguous(), amax
+    out = (kernel_layout(q, K, rows=kw["rows"],
+                         adc_bits=kw["adc_bits"]).contiguous(), amax)
+    if kw.get("w_amax") is None:
+        return out
+    return (*out, dequant_scale(amax, kw["w_amax"], kw["bits"],
+                                kw["weight_bits"]).reshape(1, 1))
 
 
 def near_ties(shape, gen, bits: int = 8, amax: float = 3.0):
@@ -4754,20 +4848,84 @@ QUANT_TIES = (((64, 1000), dict(rows=494), 1482),
               ((48, 64, 64), dict(rows=64, per_slice=True, bits=4), 64))
 
 
+def _forced(qmod, one_launch: bool | None):
+    """A context that forces ``quantize_layout``'s path (None: the
+    wrapper's own choice) through ``ONE_LAUNCH_MAX``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = qmod.ONE_LAUNCH_MAX
+        if one_launch is not None:
+            qmod.ONE_LAUNCH_MAX = 2 ** 31 if one_launch else -1
+        try:
+            yield
+        finally:
+            qmod.ONE_LAUNCH_MAX = saved
+    return ctx()
+
+
+def quant_times(calls, label: str, paths: bool = True) -> dict:
+    """Device ms of a forward's ``quantize_layout`` calls (the executor's
+    own, as ``record_stages`` recorded them), summed: the kernel, the
+    plain version, the PyTorch chain it replaced (``old_chain``, held
+    equal), the bound; with ``paths`` also every call with the one-launch
+    and the multi-pass path forced.  Per call on standard error."""
+    import torch
+    from repro_torch.kernels import quantize_layout
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
+    t = dict(ms=0.0, plain=0.0, chain=0.0, bound=0.0, one=0.0, multi=0.0,
+             largest=None)
+    for xin, K, qkw, got in calls:
+        chain = old_chain(xin, K, qkw)
+        check(len(chain) == len(got) and all(
+            torch.equal(a, b) for a, b in zip(chain, got)),
+            f"29 {label}: the kernel differs from the chain it replaced")
+        c = dict(ms=device_ms(lambda: quantize_layout(xin, K, **qkw)),
+                 plain=device_ms(lambda: qmod.quantize_layout_ref(
+                     xin, K, **qkw)),
+                 chain=device_ms(lambda: old_chain(xin, K, qkw)),
+                 bound=quant_bound(xin, qkw, got))
+        if paths:
+            for key, one in (("one", True), ("multi", False)):
+                with _forced(qmod, one):
+                    c[key] = device_ms(lambda: quantize_layout(xin, K, **qkw))
+        geo = {k: v for k, v in qkw.items()
+               if k in ("rows", "adc_bits", "conv", "per_slice")}
+        pl = qmod.plan(xin, K, **geo)
+        covered = quant_covered(xin, qkw)
+        detail(f"time 29 {label} quantize_layout {tuple(xin.shape)} K={K} "
+               f"{geo} covered {covered}: kernel {c['ms']:.4f} ms "
+               f"({'one launch' if pl.one_launch else 'multi-pass'}, "
+               f"{pl.kernels} kernels; bound {c['bound']:.5f}, plain "
+               f"{c['plain']:.4f}, old chain {c['chain']:.4f}"
+               + (f"; forced one-launch {c['one']:.4f}, multi-pass "
+                  f"{c['multi']:.4f}" if paths else "") + ")")
+        for k in c:
+            t[k] += c[k]
+        if t["largest"] is None or covered > t["largest"][0]:
+            t["largest"] = (covered, tuple(xin.shape), c["ms"], c["bound"])
+    t["launches"] = len(calls)
+    return t
+
+
 def quantize_phase(api, dev) -> dict:
     """Phase 29: ``quantize_layout`` on the executor's path.  ``EXEC_NETS``
     at ``QUANT_BATCHES`` and ``QUANT_WIDTH_NETS`` at every ``WIDTHS`` row,
     each compiled on the card and driven eagerly through ``execute_packed``
     (``record_stages``): one ``quantize_layout`` launch per stage, static
-    and dynamic, each call's (x8, amax) ``torch.equal`` to the plain
-    version on the same card tensors, and no card tensor reaching the
-    plain version (a spy on ``quantize_layout_ref``).  Then per ResNet-18
-    forward at b16 and b1, summed over its stages: the kernel's device
-    time beside the chain it replaced (``old_chain``, also held equal),
-    the plain version and the bound.  Also ``QUANT_TIES``: inputs whose
-    every x / scale lies within an ulp of a half-integer."""
+    and dynamic, each call's (x8, amax) and each static stage's requant
+    factor ``torch.equal`` to the plain version on the same card tensors,
+    and no card tensor reaching the plain version (a spy on
+    ``quantize_layout_ref``).  Then per ResNet-18 forward at b16, b3 and
+    b1, over its stages: the device kernels of all its calls in one
+    profile (exactly ``device_kernels``, nothing else: no memset, no
+    scalar kernel), and ``quant_times``.  Also ``QUANT_TIES``: inputs
+    whose every x / scale lies within an ulp of a half-integer, on both
+    paths."""
     import torch
     from repro_torch.kernels import quantize_layout
+    from repro_torch.kernels.quantize_layout import device_kernels
     qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
     ref = qmod.quantize_layout_ref
     t0 = time.perf_counter()
@@ -4782,7 +4940,8 @@ def quantize_phase(api, dev) -> dict:
             for net, kw in EXEC_NETS for b in QUANT_BATCHES]
     runs += [(f"{net}-{w}", net, WIDTHS[w], b)
              for net, b in QUANT_WIDTH_NETS for w in WIDTHS]
-    out = dict(calls=0, err=0, runs=len(runs), recs={}, static=0, dyn=0)
+    out = dict(calls=0, err=0, runs=len(runs), recs={}, static=0, dyn=0,
+               requant=0)
     qmod.quantize_layout_ref = ref_spy
     try:
         for label, net, kw, b in runs:
@@ -4798,53 +4957,56 @@ def quantize_phase(api, dev) -> dict:
                   f"launches for {len(stages)} stages")
             check("cuda" not in ref_devices, f"29 {label}: the plain "
                   "version ran on a card tensor from execute_packed")
+            n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+            with_requant = 0
             for r in recs:
-                xin, K, qkw, (x8, amax) = r["quant"]
-                w8, wamax = ref(xin, K, **qkw)
-                check(x8.shape == w8.shape and amax.shape == wamax.shape,
+                xin, K, qkw, got = r["quant"]
+                want = ref(xin, K, **qkw)
+                check(len(got) == len(want) and all(
+                    a.shape == w.shape for a, w in zip(got, want)),
                       f"29 {label} b{b}: a quantize_layout call {qkw} "
-                      f"returned shapes {x8.shape} {amax.shape}, the plain "
-                      f"version {w8.shape} {wamax.shape}")
-                out["err"] = max(out["err"],
-                                 int((x8.int() - w8.int()).abs().max()))
-                check(torch.equal(x8, w8) and torch.equal(amax, wamax),
+                      f"returned shapes {[a.shape for a in got]}, the plain "
+                      f"version {[w.shape for w in want]}")
+                out["err"] = max(out["err"], int(
+                    (got[0].int() - want[0].int()).abs().max()))
+                check(all(torch.equal(a, w) for a, w in zip(got, want)),
                       f"29 {label} b{b}: a quantize_layout call {qkw} "
                       f"differs from the plain version")
+                with_requant += len(got) == 3
+            check(with_requant == len(stages) - n_dyn,
+                  f"29 {label} b{b}: {with_requant} calls wrote the requant "
+                  f"factor, for {len(stages) - n_dyn} static stages")
             out["calls"] += len(recs)
-            n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+            out["requant"] += with_requant
             out["static"] += len(stages) - n_dyn
             out["dyn"] += n_dyn
-            if label == "resnet18" and b in (1, 16):
+            if label == "resnet18":
                 out["recs"][b] = [r["quant"] for r in recs]
     finally:
         qmod.quantize_layout_ref = ref
     tie_gen = torch.Generator(device=dev).manual_seed(30)
     for shape, kw, K in QUANT_TIES:
         x = near_ties(shape, tie_gen, bits=kw.get("bits", 8))
-        (x8, amax), (w8, wamax) = quantize_layout(x, K, **kw), ref(x, K, **kw)
-        check(torch.equal(x8, w8) and torch.equal(amax, wamax),
-              f"29 near ties {shape} {kw}: the kernel differs from the plain "
-              "version")
+        want = ref(x, K, **kw)
+        for one in (True, False):
+            with _forced(qmod, one):
+                got = quantize_layout(x, K, **kw)
+            check(all(torch.equal(a, w) for a, w in zip(got, want)),
+                  f"29 near ties {shape} {kw} (one launch {one}): the "
+                  "kernel differs from the plain version")
     times = {}
-    for b, calls in out.pop("recs").items():
-        t = dict(ms=0.0, plain=0.0, chain=0.0, bound=0.0)
-        for xin, K, qkw, (x8, amax) in calls:
-            o8, oamax = old_chain(xin, K, qkw)
-            check(torch.equal(o8, x8) and torch.equal(oamax, amax),
-                  f"29 resnet18 b{b}: the kernel differs from the chain it "
-                  "replaced")
-            c = dict(ms=device_ms(lambda: quantize_layout(xin, K, **qkw)),
-                     plain=device_ms(lambda: ref(xin, K, **qkw)),
-                     chain=device_ms(lambda: old_chain(xin, K, qkw)),
-                     bound=quant_bound(xin, qkw, x8, amax))
-            detail(f"time 29 resnet18 b{b} quantize_layout "
-                   f"{tuple(xin.shape)} K={K} {qkw}: kernel {c['ms']:.4f} "
-                   f"ms (bound {c['bound']:.5f}, plain {c['plain']:.4f}, "
-                   f"old chain {c['chain']:.4f})")
-            for k in t:
-                t[k] += c[k]
-        t["launches"] = len(calls)
-        times[b] = t
+    for b, calls in sorted(out.pop("recs").items(), reverse=True):
+        def all_calls(calls=calls):
+            for xin, K, qkw, _ in calls:
+                quantize_layout(xin, K, **qkw)
+        kern = replay_kernels(all_calls)
+        want = sum(device_kernels(xin, K, **qkw)
+                   for xin, K, qkw, _ in calls)
+        check(kern["quantize_layout"] == want and sum(kern.values()) == want,
+              f"29 resnet18 b{b}: the {len(calls)} calls ran {kern} device "
+              f"kernels, device_kernels says {want} of their own")
+        times[b] = quant_times(calls, f"resnet18 b{b}")
+        times[b]["kernels"] = want
     out["times"] = times
     out["s"] = time.perf_counter() - t0
     return out
@@ -4853,30 +5015,38 @@ def quantize_phase(api, dev) -> dict:
 def quantize_line(qp: dict, card: str) -> str:
     """Phase 29's line on standard output."""
     t = "; ".join(
-        f"per ResNet-18 b{b} forward ({r['launches']} launches): kernel "
-        f"{r['ms']:.4f} ms (bound {r['bound']:.5f} by bytes, plain "
-        f"{r['plain']:.4f}, the replaced chain {r['chain']:.4f})"
-        for b, r in sorted(qp["times"].items(), reverse=True))
+        f"per ResNet-18 b{b} forward ({r['launches']} calls, {r['kernels']} "
+        f"device kernels): kernel {r['ms']:.4f} ms (bound {r['bound']:.5f} "
+        f"by bytes, plain {r['plain']:.4f}, the replaced chain "
+        f"{r['chain']:.4f}; every call forced to one launch (1x1 convs "
+        f"multi-pass) {r['one']:.4f}, to the multi-pass path "
+        f"{r['multi']:.4f}); its largest stage "
+        f"{r['largest'][1]} {r['largest'][2]:.4f} ms (bound "
+        f"{r['largest'][3]:.5f})"
+        for b, r in qp["times"].items())
     return (f"[29 quantize_layout] {qp['runs']} eager forwards "
             f"({'/'.join(n + ('-adc8' if kw else '') for n, kw in EXEC_NETS)}"
             f" at b{','.join(map(str, QUANT_BATCHES))}; "
             f"{'/'.join(n for n, _ in QUANT_WIDTH_NETS)} at "
             f"{'/'.join(WIDTHS)}): one launch per stage, {qp['calls']} "
             f"calls ({qp['static']} static, {qp['dyn']} dynamic stages) "
-            "each torch.equal to the plain version (x8 and amax), none "
+            "each torch.equal to the plain version (x8 and amax, and the "
+            f"requant factor of all {qp['requant']} static stages), none "
             "of the plain version on a card tensor from execute_packed, "
-            f"{len(QUANT_TIES)} near-tie inputs equal too; "
+            f"{len(QUANT_TIES)} near-tie inputs equal on both paths; "
             f"{t}; phase {qp['s']:.1f} s | {card}")
 
 
 def kernel_times(label: str) -> int:
-    """``--kernel-times``: the times of phases 7 and 15 that compare the
-    redesigned kernels with another tree, for the ``repro_torch`` on
+    """``--kernel-times``: the times of phases 7, 15 and 29 that compare
+    the redesigned kernels with another tree, for the ``repro_torch`` on
     ``sys.path``: ``fb_epilogue`` per ResNet-18 b16 forward and at
     vit_tiny's dynamic pairs, ``flash_attention`` on the attention path
-    and at ``FLASH_TIMED`` beside SDPA, and ``fused_gemm_epilogue`` and
+    and at ``FLASH_TIMED`` beside SDPA, ``fused_gemm_epilogue`` and
     ``packed_gemm`` at ``FUSED_TIMED`` / ``PACKED_TIMED``
-    (``float_gemm_times``).  The last line is a JSON record."""
+    (``float_gemm_times``), and ``quantize_layout`` per ResNet-18 b16 and
+    b1 forward (the calls that tree's executor makes, ``record_stages``).
+    The last line is a JSON record."""
     import torch
     import repro_torch
     from repro_torch import api
@@ -4885,10 +5055,8 @@ def kernel_times(label: str) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     log(nvidia_smi())
-    names = ("fb_epilogue", "flash_attention", "fused_gemm_epilogue",
-             "packed_gemm")
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.build, names))
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        list(pool.map(_build.build, _build.SOURCES))
     log(f"[times {label}] repro_torch from "
         f"{os.path.dirname(os.path.dirname(repro_torch.__file__))}")
     resnet = api.compile("resnet18", api.HurryConfig(), seed=0,
@@ -4897,7 +5065,21 @@ def kernel_times(label: str) -> int:
     dyn = dyn_fb_times(dev, gen)
     flt = flash_times(dev, gen)
     fg = float_gemm_times(dev, gen)
-    rec = dict(label=label, fb_resnet18_b16=dict(
+    ql = importlib.import_module(
+        "repro_torch.kernels.quantize_layout").quantize_layout
+    quant = {}
+    for b in (16, 1):
+        x = torch.randn(resnet.program.input_shape(b), generator=gen,
+                        device=dev)
+        calls = [r["quant"] for r in record_stages(resnet, x)[1]]
+        quant[f"resnet18_b{b}"] = dict(
+            ms=sum(device_ms(lambda: ql(xin, K, **kw))
+                   for xin, K, kw, _ in calls),
+            bound_ms=sum(quant_bound(xin, kw, got)
+                         for xin, K, kw, got in calls),
+            calls=len(calls), requant=sum(len(got) == 3
+                                          for _, _, _, got in calls))
+    rec = dict(label=label, quantize_layout=quant, fb_resnet18_b16=dict(
         ms=f["ms"], bound_ms=f["bound"], plain_ms=f["plain"],
         launches=len(f["stages"])),
         fb_vit_dyn_pair=dict(ms=dyn["ms"], bound_ms=dyn["bound"],
@@ -4908,6 +5090,10 @@ def kernel_times(label: str) -> int:
         flash_attention=flt["shapes"], fused_gemm_epilogue=fg["fused"],
         packed_gemm=fg["packed"])
     fu, pk = fg["fused"][0], fg["packed"][0]
+    log(f"[times {label}] quantize_layout per ResNet-18 forward "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.5f}, "
+                    f"{v['calls']} calls, {v['requant']} writing the requant "
+                    "factor)" for k, v in quant.items()))
     log(f"[times {label}] fb_epilogue ResNet-18 b16 {f['ms']:.4f} ms (bound "
         f"{f['bound']:.4f}); vit_tiny dynamic pair {dyn['ms']:.4f} ms; "
         f"flash_attention path {flt['path']['ms']:.4f} ms; "

@@ -10,7 +10,8 @@ stage (``_static_stage``):
   ``pack.pack_program``) straight into the kernel layout of the mounts'
   K (``kernels.crossbar_gemm.kernel_layout``: to a multiple of 32
   bytes, or chunk by chunk where the ADC can clip), which the stage's
-  mounted ``wt`` shares;
+  mounted ``wt`` shares, and the requant factor from the mount's
+  ``w_amax`` (``core.crossbar.dequant_scale``'s form) beside it;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read);
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -37,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.crossbar import dequant_scale, quantize_scale
+from repro_torch.core.crossbar import quantize_scale
 from repro_torch.kernels.crossbar_gemm import crossbar_gemm, kernel_layout
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 from repro_torch.kernels.quantize_layout import quantize_layout
@@ -154,14 +155,14 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
 
     # K was padded to full mounts at pack time and laid out for the
     # kernel (``st.wt``); quantize the activations straight into that
-    # layout (the patches of a conv gathered on the way)
-    xq, x_amax = quantize_layout(xin, st.w8.shape[0], bits=cfg.input_bits,
-                                 rows=gemm.tile_rows, adc_bits=cfg.adc_bits,
-                                 conv=conv)
+    # layout (the patches of a conv gathered on the way), the requant
+    # factor (``dequant_scale``'s form) written beside them
+    xq, _, scale = quantize_layout(
+        xin, st.w8.shape[0], bits=cfg.input_bits, rows=gemm.tile_rows,
+        adc_bits=cfg.adc_bits, conv=conv, w_amax=st.w_amax,
+        weight_bits=cfg.weight_bits)
     y_int = crossbar_gemm(xq, st.w8, adc_bits=cfg.adc_bits,
                           rows=gemm.tile_rows, wt=st.wt)
-    scale = dequant_scale(x_amax, st.w_amax, cfg.input_bits,
-                          cfg.weight_bits).reshape(1, 1)
 
     act, pool, window, img_hw, norm = "none", "none", 0, 0, "none"
     softmax, res = False, None

@@ -1301,7 +1301,22 @@ QL_CASES = {
     # multiply by 1/scale is not enough and the true division decides
     "near-ties": ((64, 1000), dict(rows=494), 1482),
     "near-ties-conv": ((2, 16, 16, 8), dict(conv=(3, 1, 1)), 494),
+    # the walks that decode each element's pixel: an input whose last row
+    # and column no window reads (its largest |x| there), and a
+    # non-contiguous one (the first 8 of 12 channels)
+    "partly-covered-3s2p0": ((2, 32, 32, 8), dict(conv=(3, 2, 0)), 494),
+    "channel-slice-3s1p1": ((2, 16, 16, 12), dict(conv=(3, 1, 1)), 494),
+    # the covered input at ONE_LAUNCH_MAX elements (one launch) and one
+    # image row over it (the multi-pass path): a 3x3 conv over 32
+    # channels, and rows of 512 tokens
+    "threshold-at-conv": ((1, 64, 32, 32), dict(conv=(3, 1, 1)), 494),
+    "threshold-over-conv": ((1, 65, 32, 32), dict(conv=(3, 1, 1)), 494),
+    "threshold-at-rows": ((128, 512), dict(rows=494), 988),
+    "threshold-over-rows": ((129, 512), dict(rows=494), 988),
 }
+# QL_CASES whose operand has one amax: the requant factor is asked too
+QL_STATIC = [c for c, (_, kw, _) in QL_CASES.items()
+             if not kw.get("per_slice")]
 
 
 def near_ties(shape, g, device, bits=8, amax=3.0):
@@ -1323,29 +1338,163 @@ def _ql_input(name, shape, g, device):
     x = torch.randn(shape, generator=g, device=device)
     if name.startswith("odd-row"):
         x[1, 5, 6, 2] = -40.0                   # no patch reads it
+    if name.startswith("partly-covered"):
+        x[1, 31, 4, 3] = 40.0                   # no patch reads it
+        x[0, 6, 31, 5] = -40.0
+    if name.startswith("channel-slice"):
+        return x[..., :8]                       # strides of 12 channels
     if name == "qk-view":                       # the Q heads, permuted
         from repro_torch.program.sequence import qkv_head_views
         return qkv_head_views(x, 3)[0]
     return x
 
 
+def _held_equal(got, want) -> None:
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["auto", "one-launch", "multi-pass"])
 @pytest.mark.parametrize("case", list(QL_CASES))
-def test_quantize_layout_kernel_equals_plain(cuda, case):
+def test_quantize_layout_kernel_equals_plain(cuda, case, path, monkeypatch):
     """The kernel's (x8, amax) ``torch.equal`` to the plain version on the
-    same card tensors, one launch a call."""
+    same card tensors, one launch a call, on each path the wrapper can
+    take (forced through ``ONE_LAUNCH_MAX``: the one-launch clusters, or
+    the amax partials then quantize, or image and gather; a 1x1 conv takes
+    the multi-pass path whatever the limit); where the
+    operand has one amax, the requant factor too (``w_amax`` below 1e-8
+    for the conv geometries)."""
+    from repro_torch.kernels.quantize_layout import plan
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
     shape, kw, K = QL_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(len(case))
     x = _ql_input(case, shape, g, cuda)
+    if case in QL_STATIC:
+        w_amax = torch.tensor(3e-9 if case.startswith("conv") else 2.75,
+                              device=cuda)
+        kw = dict(kw, w_amax=w_amax, weight_bits=4 if "a4" in case else 8)
+    geo = {k: v for k, v in kw.items() if k in ("rows", "adc_bits", "conv",
+                                                "per_slice")}
+    if case.startswith("threshold"):       # sized to ONE_LAUNCH_MAX = 2^16
+        assert qmod.ONE_LAUNCH_MAX == 1 << 16
+        assert plan(x, K, **geo).one_launch == ("-at-" in case)
+    if path != "auto":                     # a 1x1 conv: always multi-pass
+        monkeypatch.setattr(qmod, "ONE_LAUNCH_MAX",
+                            2 ** 31 if path == "one-launch" else -1)
+        assert plan(x, K, **geo).one_launch == (
+            path == "one-launch" and geo.get("conv", (3,))[0] > 1)
     before = quantize_layout.launches
     got = quantize_layout(x, K, **kw)
     assert quantize_layout.launches == before + 1
     want = quantize_layout_ref(x, K, **kw)
     torch.cuda.synchronize()
-    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if case.startswith("odd-row"):
+    _held_equal(got, want)
+    assert len(got) == (3 if case in QL_STATIC else 2)
+    if case.startswith(("odd-row", "partly-covered")):
         assert got[1] < 40.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["layout494-adc9-a8", "layout128-adc5-a4",
+                                  "conv1s2p0-b3", "fc-flatten", "pv",
+                                  "threshold-over-conv",
+                                  "threshold-over-rows"])
+def test_quantize_layout_replay_equals_eager(cuda, case):
+    """One call captured in a CUDA graph (scratch, clusters and all) and
+    replayed on a new input equals an eager call on that input, twice."""
+    shape, kw, K = QL_CASES[case]
+    if case in QL_STATIC:
+        kw = dict(kw, w_amax=torch.tensor(1.5, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quantize_layout(x, K, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = quantize_layout(x, K, **kw)
+    for scale in (0.5, 7.0):
+        x.copy_(torch.randn(shape, generator=g, device=cuda) * scale)
+        graph.replay()
+        _held_equal(captured, quantize_layout(x, K, **kw))
+
+
+@pytest.mark.cuda
+def test_resnet18_runs_no_scalar_kernels_for_the_requant(cuda):
+    """ResNet-18 at b16: eager ``execute_packed`` calls no PyTorch op for
+    a stage's scale (no ``clamp_min``, ``mul``, ``maximum``: the kernel
+    writes the requant factor), each ``quantize_layout`` call launches
+    exactly ``device_kernels`` kernels of its own and nothing else (no
+    memset), and a replay of ``run`` launches the eager forward's kernels
+    and no others."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels.quantize_layout import device_kernels
+    from repro_torch.program.execute import execute_packed
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    model = api.compile("resnet18", api.HurryConfig(), seed=0,
+                        device="cuda")
+    x = torch.randn(model.program.input_shape(16), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    with Ops() as ops:
+        execute_packed(model.packed, x, return_logits=True)
+    assert not {"clamp_min", "mul", "maximum"} & set(ops.names), ops.names
+    execute = importlib.import_module("repro_torch.program.execute")
+    calls = []
+    real = execute.quantize_layout
+
+    def spy(xin, K, **kw):
+        calls.append((xin, K, kw))
+        return real(xin, K, **kw)
+
+    execute.quantize_layout = spy
+    try:
+        execute_packed(model.packed, x, return_logits=True)
+    finally:
+        execute.quantize_layout = real
+    own = re.compile(r"\(anonymous namespace\)::(one_conv|one_rows|"
+                     r"partials_conv|partials_rows|image|gather|"
+                     r"quantize_rows)_kernel")
+    for xin, K, kw in calls:
+        quantize_layout(xin, K, **kw)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            quantize_layout(xin, K, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == device_kernels(xin, K, **kw)
+        assert all(own.search(n) for n in names), names
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("Memcpy"))
+
+    # a replay launches what the eager forward launched, and no more (the
+    # copies of the request in and the answer out aside)
+    replay = kernels(lambda: model.run(x, logits=True))
+    assert replay == kernels(lambda: execute_packed(model.packed, x,
+                                                    return_logits=True))
 
 
 def _spied_quantize_layout(monkeypatch):
@@ -1376,8 +1525,9 @@ def _spied_quantize_layout(monkeypatch):
 def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
     """ResNet-18 and vit_tiny at batch 16, eager ``execute_packed``: one
     ``quantize_layout`` launch per stage (static and dynamic), each call
-    at the stage's full size ``torch.equal`` to the plain version, and no
-    CUDA tensor reaches the plain version from the executor."""
+    at the stage's full size ``torch.equal`` to the plain version (the
+    static stages' requant factor too), and no CUDA tensor reaches the
+    plain version from the executor."""
     from repro_torch.program.execute import execute_packed
     model = api.compile(net, api.HurryConfig(), seed=0, device="cuda")
     x = torch.randn(model.program.input_shape(16), device=cuda,
@@ -1389,6 +1539,7 @@ def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
     n = len(model.program.stages())
     assert quantize_layout.launches == before + n == before + len(calls)
     assert ref_devices == []
-    for xin, K, kw, (x8, amax) in calls:
-        w8, wamax = real_ref(xin, K, **kw)
-        assert torch.equal(x8, w8) and torch.equal(amax, wamax)
+    n_dyn = sum(g.kind == "dyn_gemm" for g, _ in model.program.stages())
+    assert sum("w_amax" in kw for _, _, kw, _ in calls) == n - n_dyn
+    for xin, K, kw, got in calls:
+        _held_equal(got, real_ref(xin, K, **kw))

@@ -10,9 +10,11 @@ against what the JAX executor computes under ``jax.jit``:
 attention heads), ``repro.core.crossbar.quantize_symmetric`` (per slice
 under ``jax.vmap`` for attention), the ``jnp.pad`` to full mounts, then
 the port's ``kernel_layout``.  The int8 operand and the amax must be
-equal, element for element.  The kernel itself is held against the
-plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
-phase 29).
+equal, element for element; a static stage's requant factor equal to
+the jitted product ``quantize_symmetric(xin)[1] * quantize_scale(w_amax)``.
+The kernel itself is held against the plain version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 29); here also the
+path it takes (``plan``), from the geometry alone.
 """
 
 import jax
@@ -25,9 +27,11 @@ from repro.core.crossbar import quantize_scale as jax_quantize_scale
 from repro.core.crossbar import quantize_symmetric as jax_quantize_symmetric
 from repro.program.execute import im2col as jax_im2col
 from repro.program.sequence import split_qkv_heads as jax_split_qkv_heads
+from repro_torch.core.crossbar import dequant_scale
 from repro_torch.kernels import clip_possible, kernel_layout, quantize_layout
-from repro_torch.kernels.quantize_layout import (conv_out, covered,
-                                                 quantize_layout_ref,
+from repro_torch.kernels.quantize_layout import (ONE_LAUNCH_MAX, conv_out,
+                                                 covered, device_kernels,
+                                                 plan, quantize_layout_ref,
                                                  quantize_scale)
 from repro_torch.program.sequence import qkv_head_views
 
@@ -209,3 +213,244 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
         quantize_layout(x.double(), 64, conv=(3, 2, 1))
     with pytest.raises(ValueError):
         quantize_layout(x, 40, conv=(3, 2, 1))  # 45 columns exceed K
+
+
+# ---------------------------------------------------------------------------
+# the requant factor of a static stage
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("amaxes", ["plain", "x-below-floor",
+                                    "w-below-floor"])
+@pytest.mark.parametrize("weight_bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_requant_equals_the_jitted_static_stage_product(bits, weight_bits,
+                                                        amaxes):
+    """``quantize_layout_ref(..., w_amax=)``'s third output against the
+    JAX executor's static stage under ``jax.jit``: ``quantize_symmetric
+    (xin, input_bits)[1] * quantize_scale(w_amax, weight_bits)`` as
+    (1, 1) float32, bit for bit; an amax below the 1e-8 floor on either
+    side too.  It is also ``dequant_scale``, which the executor called
+    before the kernel wrote the factor."""
+    rng = np.random.default_rng(bits * 10 + weight_bits)
+    x = rng.standard_normal((2, 8, 8, 6)).astype(np.float32)
+    w_amax = np.float32(rng.uniform(0.05, 3.0))
+    if amaxes == "x-below-floor":
+        x *= np.float32(1e-10)
+    elif amaxes == "w-below-floor":
+        w_amax = np.float32(4e-9)
+    cols = np.asarray(jax_im2col(x, 3, 1, 1)).reshape(-1, 54)
+
+    @jax.jit
+    def static(xin, wa):
+        _, xs = jax_quantize_symmetric(xin, bits)
+        return (xs * jax_quantize_scale(wa, weight_bits)).astype(
+            jnp.float32).reshape(1, 1)
+
+    want = np.asarray(static(jnp.asarray(cols), jnp.asarray(w_amax)))
+    got = quantize_layout_ref(torch.from_numpy(x), ROWS, bits=bits,
+                              conv=(3, 1, 1),
+                              w_amax=torch.tensor(w_amax),
+                              weight_bits=weight_bits)
+    assert len(got) == 3 and got[2].shape == (1, 1)
+    assert got[2].dtype == torch.float32
+    np.testing.assert_array_equal(got[2].numpy(), want)
+    np.testing.assert_array_equal(
+        got[2].numpy(),
+        dequant_scale(got[1], torch.tensor(w_amax), bits,
+                      weight_bits).reshape(1, 1).numpy())
+    _held(got[:2], _jax_chain(cols, ROWS, bits, ROWS, 9))
+
+
+def test_requant_is_a_static_stages_only():
+    x = torch.from_numpy(_image((6, 40, 40), 26))
+    with pytest.raises(ValueError):
+        quantize_layout(x, 40, rows=40, per_slice=True,
+                        w_amax=torch.tensor(1.0))
+    with pytest.raises(ValueError):
+        quantize_layout(x[0], 40, rows=40, w_amax=torch.ones(2))
+    assert len(quantize_layout(x[0], 40, rows=40)) == 2
+
+
+@pytest.mark.parametrize("net", ["resnet18", "vit_tiny"])
+def test_executor_takes_the_requant_factor_from_the_kernel(net,
+                                                           monkeypatch):
+    """``_static_stage`` passes its mount's ``w_amax`` and calls no
+    ``dequant_scale``; ``dyn_mounts`` passes no ``w_amax`` (the dynamic
+    stages keep the plain product of the two scales), and the forward
+    still equals the one with ``dequant_scale``'s factor."""
+    import importlib
+    from repro_torch import api
+    from repro_torch.program.execute import execute_packed
+    execute = importlib.import_module("repro_torch.program.execute")
+    crossbar = importlib.import_module("repro_torch.core.crossbar")
+    assert not hasattr(execute, "dequant_scale")
+    model = api.compile(net, api.HurryConfig(), seed=0, device="cpu")
+    x = torch.from_numpy(_image(model.program.input_shape(2), 27))
+    calls, requants = [], []
+    real = execute.quantize_layout
+
+    def spy(xin, K, **kw):
+        out = real(xin, K, **kw)
+        calls.append((kw, out))
+        if "w_amax" in kw:       # the factor dequant_scale would give
+            requants.append(dequant_scale(out[1], kw["w_amax"],
+                                          kw["bits"],
+                                          kw["weight_bits"]).reshape(1, 1))
+        return out
+
+    def no_dequant(*args, **kw):
+        raise AssertionError("the executor called dequant_scale")
+
+    monkeypatch.setattr(execute, "quantize_layout", spy)
+    monkeypatch.setattr(crossbar, "dequant_scale", no_dequant)
+    execute_packed(model.packed, x, return_logits=True)
+    stages = model.program.stages()
+    static = [st for (g, _), st in zip(stages, model.packed.stages)
+              if g.kind != "dyn_gemm"]
+    dyn = [kw for kw, _ in calls if kw.get("per_slice")]
+    assert len(calls) == len(stages)
+    assert len(dyn) == sum(g.kind == "dyn_gemm" for g, _ in stages)
+    assert (len(dyn) > 0) == (net == "vit_tiny")
+    assert all("w_amax" not in kw for kw in dyn)
+    stat = [(kw, out) for kw, out in calls if not kw.get("per_slice")]
+    assert [kw["w_amax"] for kw, _ in stat] == [st.w_amax for st in static]
+    for (kw, out), want in zip(stat, requants):
+        assert len(out) == 3 and torch.equal(out[2], want)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's path, from the geometry
+# ---------------------------------------------------------------------------
+
+# (input shape, kwargs besides K, K, one launch?, device kernels)
+PLAN_CASES = {
+    "conv3x3-at-max": ((1, 64, 32, 32), dict(conv=(3, 1, 1)), 494, True, 1),
+    "conv3x3-over-max": ((1, 65, 32, 32), dict(conv=(3, 1, 1)), 494, False,
+                         3),
+    "resnet-s0-b16": ((16, 32, 32, 64), dict(conv=(3, 1, 1), rows=494),
+                      988, False, 3),
+    "resnet-s0-b1": ((1, 32, 32, 64), dict(conv=(3, 1, 1), rows=494),
+                     988, True, 1),
+    # a 1x1 stride-2 projection reads a quarter of its input, rows of
+    # strided pixels: the multi-pass path at every size
+    "proj-1x1s2-b1": ((1, 32, 32, 64), dict(conv=(1, 2, 0), rows=64), 64,
+                      False, 2),
+    "proj-1x1s2-b16": ((16, 32, 32, 64), dict(conv=(1, 2, 0), rows=64), 64,
+                       False, 2),
+    "rows-at-max": ((128, 512), dict(rows=494), 988, True, 1),
+    "rows-over-max": ((129, 512), dict(rows=494), 988, False, 2),
+    "per-slice-small": ((48, 64, 64), dict(rows=64, per_slice=True), 64,
+                        True, 1),
+    "per-slice-large": ((4, 512, 512), dict(rows=494, per_slice=True), 988,
+                        False, 2),
+    "empty": ((0, 512), dict(rows=494), 988, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_picks_the_path_from_the_geometry(case):
+    """One launch where the covered input (a slice's, per slice) holds at
+    most ``ONE_LAUNCH_MAX`` elements and the call is no 1x1 conv;
+    otherwise the amax partials and one quantize pass, or, for a conv
+    with k > 1, the image and the gather:
+    ``device_kernels`` says 1, 2 or 3 (0 for an empty operand).  Scratch
+    and cluster shapes stay within the kernel's limits."""
+    shape, kw, K, one, kernels = PLAN_CASES[case]
+    x = torch.zeros(shape)
+    assert ONE_LAUNCH_MAX == 1 << 16            # the cases' sizes
+    assert device_kernels(x, K, bits=4, **kw) == kernels
+    if not kernels:
+        return
+    pl = plan(x, K, **kw)
+    assert pl.one_launch == one and pl.kernels == kernels
+    assert pl.image == (kernels == 3)
+    assert 1 <= pl.cluster <= 8 and pl.cluster & (pl.cluster - 1) == 0
+    slices = shape[0] if kw.get("per_slice") else 1
+    if one:
+        assert pl.blocks == slices if kw.get("per_slice") else \
+            1 <= pl.blocks * pl.cluster <= 128
+    else:
+        assert 1 <= pl.blocks * slices <= 1024
+
+
+def test_c_entries_take_what_the_wrapper_passes(monkeypatch):
+    """Each C entry's parameters in ``csrc/quantize_layout.cu`` match
+    ``SIGNATURES`` (``void*`` a pointer, ``int``, ``float``), and the
+    wrapper passes each entry exactly that many arguments, each one
+    ctypes converts, on every path (a stand-in library records them)."""
+    import ctypes
+    import importlib
+    import re
+    from pathlib import Path
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
+    src = (Path(qmod.__file__).parent / "csrc" /
+           "quantize_layout.cu").read_text()
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    for name, argtypes in qmod.SIGNATURES.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        types = [re.sub(r"\s+", "", p.rsplit(" ", 1)[0]).replace("const", "")
+                 for p in params.split(",")]
+        assert [kinds[t] for t in types] == argtypes, name
+
+    calls = []
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            types = qmod.SIGNATURES[self.name]
+            assert len(args) == len(types), (self.name, len(args))
+            for t, a in zip(types, args):
+                t.from_param(a)
+            calls.append(self.name)
+            return 0
+
+    class Lib:
+        quantize_layout_conv = Entry("quantize_layout_conv")
+        quantize_layout_strided = Entry("quantize_layout_strided")
+
+    monkeypatch.setattr(qmod, "_lib", lambda: Lib())
+    monkeypatch.setattr(qmod._build, "stream_handle",
+                        lambda: ctypes.c_void_p(0))
+    cases = [((2, 9, 9, 8), dict(conv=(3, 1, 1)), 494),
+             ((2, 9, 9, 8), dict(conv=(1, 2, 0)), 494),
+             ((3, 256), dict(rows=128, adc_bits=5), 256),
+             ((6, 40, 40), dict(rows=40, per_slice=True), 40)]
+    for limit in (2 ** 31, -1):                 # one launch, multi-pass
+        monkeypatch.setattr(qmod, "ONE_LAUNCH_MAX", limit)
+        for shape, kw, K in cases:
+            x = torch.zeros(shape)
+            kc, lead = qmod._geometry(x, K, kw.get("conv"))
+            rows, exact = qmod._branch(K, kw.get("rows", 512),
+                                       kw.get("adc_bits", 9), None)
+            w_amax = None if kw.get("per_slice") else torch.tensor(1.0)
+            got = qmod._launch(x, K, kc, lead, bits=8, rows=rows,
+                               adc_bits=kw.get("adc_bits", 9), exact=exact,
+                               conv=kw.get("conv"),
+                               per_slice=kw.get("per_slice", False),
+                               w_amax=w_amax, weight_bits=8)
+            assert len(got) == (2 if w_amax is None else 3)
+    assert calls == ["quantize_layout_conv"] * 2 + [
+        "quantize_layout_strided"] * 2 + ["quantize_layout_conv"] * 2 + [
+        "quantize_layout_strided"] * 2
+
+
+def test_variant_anchors_are_lines_of_the_kernel_source():
+    """``quantize_variants.py`` edits ``csrc/quantize_layout.cu`` by exact
+    source lines: each anchor of its variants and of its probe occurs
+    once, so a moved line fails here and not on the card."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import quantize_variants as qv
+    finally:
+        sys.path.remove(str(root))
+    src = Path(qv.CSRC).read_text()
+    for name, subs in [*qv.VARIANTS.items(), ("probe", qv.PROBE)]:
+        for old, new in subs:
+            assert src.count(old) == 1, (name, old)
+            assert old != new
