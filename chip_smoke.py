@@ -34,7 +34,8 @@ each on standard output (the per-shape details go to standard error):
    against the same weights run on the CPU's plain path; the three
    program kernels' launch counters (``quantize_layout``,
    ``crossbar_gemm``, ``fb_epilogue``: ``PROGRAM_KERNELS``) must each grow
-   by one per stage and request (``run`` captures a CUDA graph at each
+   by one per stage and request, ``quantize_layout`` by two per dynamic
+   stage (``forward_launches``; ``run`` captures a CUDA graph at each
    key's first request and replays it: the counters count the launches
    of the replays, ``program.serve.Executable``);
 6. the sliced branch end to end: AlexNet under ``HurryConfig(adc_bits=8)``
@@ -54,8 +55,10 @@ each on standard output (the per-shape details go to standard error):
    64x64x64): ``crossbar_gemm`` on both branches and ``fb_epilogue``
    (scores: softmax + post_scale; context: plain dequant) in one launch
    each, equal to the plain versions on the same inputs and to the
-   per-slice 2-D calls (``torch.equal``; softmax to 1e-6), and 5 ragged
-   slices of 16x1001x19 through a mounted weight;
+   per-slice 2-D calls (``torch.equal``; softmax to 1e-6), also in the
+   executor's forms (``crossbar_gemm`` on ``wt`` and K alone,
+   ``fb_epilogue`` with no bias and the context's heads merged on
+   store), and 5 ragged slices of 16x1001x19 through a mounted weight;
 9. ``flash_attention`` against its plain version: float32 at
    (1,128,1,64) and (2,256,4,64) causal and not, a 128-key window at
    (1,512,2,64), vit's (16,64,3,64), the attention path's (1,T,4,16) for
@@ -81,7 +84,8 @@ each on standard output (the per-shape details go to standard error):
     width (dim 192, 3 heads, depth 2, 64 tokens) serving batches 1, 3
     and 16 against the CPU plain path (argmax agreement 1.0, logits to
     a relative 1e-2, probabilities to 1e-3); every
-    dynamic stage makes exactly one ``quantize_layout``, one
+    dynamic stage makes exactly two ``quantize_layout`` launches (its
+    right operand, then its left one with the requant factor), one
     ``crossbar_gemm`` and one ``fb_epilogue`` launch (read from each
     key's capture); time per
     batch at 1 and 16 and the device's
@@ -307,12 +311,15 @@ each on standard output (the per-shape details go to standard error):
     16 and 32, ``make_server("resnet18")`` and a saved and loaded
     ResNet-18: at every key the first request captures and a second draw
     replays, both answers kept and each ``torch.equal`` to eager
-    ``execute_packed`` on the card on its own draw (no aliasing), one
-    launch of each program kernel per stage and request on the counters;
+    ``execute_packed`` on the card on its own draw (no aliasing),
+    ``forward_launches`` per request on the counters;
     one b16 replay of each net profiled: exactly one ``crossbar_gemm``
     and one ``fb_epilogue`` kernel per stage and, of ``quantize_layout``,
-    the kernels its path launches per stage (``device_kernels``), by name
-    (``KERNEL_NAMES``), and the static stages dispatching no PyTorch op
+    the kernels its paths launch per stage (``device_kernels``), by name
+    (``KERNEL_NAMES``), the other kernels by name (standard error and the
+    line), vit_tiny's dynamic stages run again alone launching the
+    wrappers' kernels and nothing else (``dyn_stage_kernels``), and the
+    static stages dispatching no PyTorch op
     of a requant factor (``static_stage_ops``); time per batch at 1, 4
     and 16
     through ``run`` (replay) beside eager ``execute_packed``, each with
@@ -330,10 +337,16 @@ each on standard output (the per-shape details go to standard error):
     (``quantize_phase``): ResNet-18, AlexNet at ``adc_bits=8``, VGG-16
     and vit_tiny at batches 1, 3 and 16, and ResNet-18 b16, AlexNet b4
     and vit_tiny b16 at every ``WIDTHS`` row, driven eagerly
-    (``record_stages``): one launch per stage (static and dynamic), every
-    call's (x8, amax) and the static stages' requant factor
-    ``torch.equal`` to the plain version on the same card tensors, no
-    card tensor reaching the plain version; per ResNet-18 forward at b16,
+    (``record_stages``): one launch per static stage and two per dynamic
+    stage (the right operand, then the left one given its amax), every
+    call's (x8, amax) and requant factor (the static stages', and the
+    dynamic stages' per-slice plain product) ``torch.equal`` to the plain
+    version on the same card tensors, no card tensor reaching the plain
+    version; ``QUANT_TIES`` near ties on both paths, among them V's
+    transposed heads at 4 bits on the sliced branch; vit_tiny b16's
+    dynamic-stage calls profiled (exactly ``device_kernels``) and timed
+    beside their bound, plain version and replaced chain; per ResNet-18
+    forward at b16,
     b3 and b1 the device kernels of all its calls (profiled: exactly
     ``device_kernels``, no memset or other kernel), the kernel's device
     time beside its bound, the plain version and the PyTorch chain it
@@ -715,20 +728,26 @@ def fb_stage_times(shapes, dev, gen) -> dict:
 
 def dyn_fb_times(dev, gen, S: int = 48, T: int = 64) -> dict:
     """``fb_epilogue``'s batched launches at vit_tiny's dynamic stages
-    (b16: 48 slices of 64x64): the scores' softmax + post_scale and the
-    context's dequant, summed as one (scores, context) pair."""
+    (b16: 48 slices of 64x64), as the executor calls them (no bias): the
+    scores' softmax + post_scale and the context's dequant stored with
+    its 3 heads merged, summed as one (scores, context) pair.  A tree
+    whose wrapper takes no ``heads`` (``--kernel-times --src`` of an
+    older one) gets its executor's form: a zero bias, no merge."""
+    import inspect
     import torch
     from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
     y32 = torch.randint(-2 ** 16, 2 ** 16, (S, T, T), generator=gen,
                         device=dev, dtype=torch.int32)
     sc = torch.rand(S, 1, 1, generator=gen, device=dev) * 1e-4
-    z = torch.zeros(T, device=dev)
     sm = dict(softmax=True, post_scale=0.125)
+    merged = "heads" in inspect.signature(fb_epilogue).parameters
+    bias = None if merged else torch.zeros(T, device=dev)
+    ctx = dict(heads=3) if merged else {}
     return dict(
-        ms=device_ms(lambda: fb_epilogue(y32, sc, z, **sm))
-        + device_ms(lambda: fb_epilogue(y32, sc, z)),
-        plain=device_ms(lambda: fb_epilogue_ref(y32, sc, z, **sm))
-        + device_ms(lambda: fb_epilogue_ref(y32, sc, z)),
+        ms=device_ms(lambda: fb_epilogue(y32, sc, bias, **sm))
+        + device_ms(lambda: fb_epilogue(y32, sc, bias, **ctx)),
+        plain=device_ms(lambda: fb_epilogue_ref(y32, sc, bias, **sm))
+        + device_ms(lambda: fb_epilogue_ref(y32, sc, bias, **ctx)),
         bound=2 * fb_bound(S * T, T, S * T, False))
 
 
@@ -1004,12 +1023,15 @@ def gemm_sliced_phase(dev, gen) -> tuple[int, int, int, int]:
 def batched_phase(dev, gen) -> tuple[int, int, float]:
     """Phase 8: one batched launch at vit_tiny's dynamic shapes (batch 16
     x 3 heads, 64 tokens, hd 64), held against the plain versions on the
-    same inputs and against the per-slice 2-D calls.  Returns the
-    kernel-against-plain errors: exact GEMM, sliced GEMM, epilogue."""
+    same inputs and against the per-slice 2-D calls; also in the forms
+    the executor's dynamic stages call: ``crossbar_gemm`` on ``wt`` and K
+    alone, ``fb_epilogue`` with no bias and the context's heads merged on
+    store.  Returns the kernel-against-plain errors: exact GEMM, sliced
+    GEMM, epilogue."""
     import torch
     from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_ref,
                                      fb_epilogue, fb_epilogue_ref,
-                                     mount_weight)
+                                     kernel_layout, mount_weight)
     S, T, hd = 16 * 3, 64, 64
     x = torch.randint(-128, 128, (S, T, hd), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -1031,6 +1053,12 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
                            for i in range(S)])
         check(torch.equal(y, per), f"batched crossbar_gemm (adc {adc}) "
               "differs from the per-slice calls")
+        xk = kernel_layout(x, hd, rows=hd, adc_bits=adc).contiguous()
+        wt = mount_weight(w, rows=hd, adc_bits=adc)
+        check(torch.equal(crossbar_gemm(xk, adc_bits=adc, rows=hd, wt=wt,
+                                        K=hd), ref),
+              f"batched crossbar_gemm on wt and K alone (adc {adc}) "
+              "differs from the plain version")
     # the slice axis at ragged M, K and N, through a mounted weight
     xr = torch.randint(-128, 128, (5, 16, 1001), generator=gen, device=dev,
                        dtype=torch.int8)
@@ -1068,6 +1096,18 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
         per_err = (out - per).abs().max().item()
         check(per_err <= atol, f"batched fb_epilogue {kw}: max |batched - "
               f"per-slice| {per_err} > {atol}")
+        # the dynamic stages' form: no bias (fma(y, s, +0) is y * s), and
+        # the context (no softmax) stored with its 3 heads merged
+        heads = 0 if kw else 3
+        got = fb_epilogue(y32, scale, None, heads=heads, **kw)
+        want = out.reshape(S // 3, 3, T, T).transpose(1, 2).reshape(
+            S // 3, T, 3 * T) if heads else out
+        check(torch.equal(got, want), f"batched fb_epilogue {kw} with no "
+              f"bias, heads {heads}: differs from the zero-bias call")
+        err = (got - fb_epilogue_ref(y32, scale, None, heads=heads, **kw)
+               ).abs().max().item()
+        check(err <= atol, f"batched fb_epilogue {kw} with no bias, heads "
+              f"{heads}: max |kernel - plain| {err} > {atol}")
     return gemm_err[9], gemm_err[5], fb_err
 
 
@@ -1395,13 +1435,15 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     finally:
         execute._dyn_stage = dyn_stage
     runs = 2 * len(requests)
-    want = len(stages) * runs
-    check(launches == each(want),
-          f"vit_tiny launch counts {launches}, expected {want} each")
+    want = forward_launches(vit_dev.program, runs)
+    check(launches == want,
+          f"vit_tiny launch counts {launches}, expected {want}")
+    per_stage = tuple(2 if w.__name__ == "quantize_layout" else 1
+                      for w in wrappers)
     check(len(per_dyn) == n_dyn * runs
-          and all(d == (1,) * len(wrappers) for d in per_dyn),
-        f"vit_tiny dynamic stages launched {per_dyn}, expected one "
-        f"launch of each of {PROGRAM_KERNELS}")
+          and all(d == per_stage for d in per_dyn),
+        f"vit_tiny dynamic stages launched {per_dyn}, expected {per_stage} "
+        f"of {[w.__name__ for w in wrappers]}")
     agree, worst_rel, worst_prob = [], 0.0, 0.0
     for x, (probs, logits) in zip(requests, served):
         ref = vit_cpu.run(x, logits=True)
@@ -1447,10 +1489,11 @@ def record_stages(model, x) -> tuple:
     """``execute_packed(model.packed, x, return_logits=True)`` run eagerly
     (what ``model.run``'s graph replays for a batch that fills its
     bucket) with, per stage, the buffers the stage read, its
-    ``quantize_layout`` call (input, K, keyword arguments and result),
-    its ``crossbar_gemm`` operands and int32 output and its
-    ``fb_epilogue`` output and keyword arguments.  Returns (logits,
-    records)."""
+    ``quantize_layout`` calls (``quants``: input, K, keyword arguments
+    and result of each; a dynamic stage's right operand, then its left
+    one), its ``crossbar_gemm`` operands (x8, and ``w`` or, where the
+    call passes none, ``wt``) and int32 output and its ``fb_epilogue``
+    output and keyword arguments.  Returns (logits, records)."""
     import torch
     execute = importlib.import_module("repro_torch.program.execute")
     saved = (execute._static_stage, execute._dyn_stage,
@@ -1460,12 +1503,12 @@ def record_stages(model, x) -> tuple:
 
     def quant(xin, K, **kw):
         out = saved[4](xin, K, **kw)
-        recs[-1]["quant"] = (xin, K, kw, out)
+        recs[-1]["quants"].append((xin, K, kw, out))
         return out
 
-    def gemm(x8, w8, **kw):
+    def gemm(x8, w8=None, **kw):
         y = saved[2](x8, w8, **kw)
-        recs[-1]["gemm"] = (x8, w8, y)
+        recs[-1]["gemm"] = (x8, kw["wt"] if w8 is None else w8, y)
         return y
 
     def fb(y, *args, **kw):
@@ -1474,11 +1517,11 @@ def record_stages(model, x) -> tuple:
         return out
 
     def static(*args, **kw):
-        recs.append(dict(bufs=dict(args[3]), kw=kw))
+        recs.append(dict(bufs=dict(args[3]), kw=kw, quants=[]))
         return saved[0](*args, **kw)
 
     def dyn(*args):
-        recs.append(dict(bufs=dict(args[2]), kw={}))
+        recs.append(dict(bufs=dict(args[2]), kw={}, quants=[]))
         return saved[1](*args)
 
     (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
@@ -1504,7 +1547,7 @@ def teacher_forced(vit_dev, recs) -> list[dict]:
     saved = execute.crossbar_gemm, execute.fb_epilogue
     got: dict = {}
 
-    def gemm(x8, w8, **kw):
+    def gemm(x8, w8=None, **kw):
         got["y"] = saved[0](x8, w8, **kw)
         return got["y"]
 
@@ -1675,13 +1718,25 @@ def ops_phase(dev, gen) -> dict:
 # phases 16-20: the rest of repro_torch.api on the card
 # ---------------------------------------------------------------------------
 
-# the program path's kernels: every stage launches one of each
+# the program path's kernels: every stage launches one of each, and a
+# dynamic (attention) stage a second quantize_layout (its right operand)
 PROGRAM_KERNELS = ("crossbar_gemm", "fb_epilogue", "quantize_layout")
 
 
 def each(n: int) -> dict:
     """``n`` launches of each of ``PROGRAM_KERNELS``."""
     return dict.fromkeys(PROGRAM_KERNELS, n)
+
+
+def forward_launches(program, runs: int = 1) -> dict:
+    """The program kernels' launches in ``runs`` forwards of ``program``:
+    one ``crossbar_gemm`` and one ``fb_epilogue`` a stage, one
+    ``quantize_layout`` a static stage and two a dynamic one."""
+    stages = program.stages()
+    n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+    return dict(crossbar_gemm=len(stages) * runs,
+                fb_epilogue=len(stages) * runs,
+                quantize_layout=(len(stages) + n_dyn) * runs)
 
 
 def _program_wrappers() -> list:
@@ -1759,9 +1814,9 @@ def save_load_phase(api, models: dict, gen) -> dict:
                             device="cuda")
             got, n = counted(lambda: (loaded.run(x), loaded.run(
                 x, logits=True)))
-            want = 2 * len(model.program.stages())
-            check(n == each(want),
-                  f"loaded {name}: launch counts {n}, expected {want} each")
+            want = forward_launches(model.program, 2)
+            check(n == want,
+                  f"loaded {name}: launch counts {n}, expected {want}")
             check(torch.equal(got[0], model.run(x))
                   and torch.equal(got[1], model.run(x, logits=True)),
                   f"loaded {name} differs from the in-memory model")
@@ -3834,9 +3889,10 @@ def _branches(fn) -> tuple:
         return (threading.get_ident() == me
                 and torch.cuda.is_current_stream_capturing())
 
-    def spy_gemm(x8, w8, **kw):
+    def spy_gemm(x8, w8=None, **kw):
         if captured():
-            calls.append([w8.shape[-2], kw["rows"], kw["adc_bits"], None])
+            K = kw["K"] if w8 is None else w8.shape[-2]
+            calls.append([K, kw["rows"], kw["adc_bits"], None])
         return gemm(x8, w8, **kw)
 
     def spy_launch(*args, **kw):
@@ -3923,9 +3979,8 @@ def widths_phase(dev, gen, meanwhile=None) -> dict:
             model = api.compile(net, cfg, seed=0, device="cuda")
             (logits, calls), n = counted(lambda: _branches(
                 lambda: model.run(x, logits=True)))
-            stages = len(model.program.stages())
-            check(n == each(stages),
-                  f"{net} launches {n}, expected {stages} each")
+            want = forward_launches(model.program)
+            check(n == want, f"{net} launches {n}, expected {want}")
             for k in n:
                 out["launches"][k] += n[k]
             branches = _check_branches(net, model, calls)
@@ -4509,7 +4564,8 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
     captures the key, the second replays it; both answers kept, then each
     ``torch.equal`` to eager ``execute_packed`` on its own draw (the
     first read after the second ran: no aliasing), finite, and the
-    counters one launch of each kernel per stage and request.  Returns
+    counters one launch of each kernel per stage and request (two of
+    ``quantize_layout`` a dynamic stage: ``forward_launches``).  Returns
     the launches and the keys' capture seconds."""
     import torch
     n = len(model.program.stages())
@@ -4519,7 +4575,7 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
             xs = [torch.randn(shape, generator=gen, device="cuda")
                   for _ in range(2)]
             got, c = counted(lambda: [answer(x, logits) for x in xs])
-            check(c == each(2 * n),
+            check(c == forward_launches(model.program, 2),
                   f"{name} {shape} logits={logits}: launches {c} for two "
                   f"requests of {n} stages")
             for i, (x, r) in enumerate(zip(xs, got)):
@@ -4547,7 +4603,8 @@ def busy_by_wrapper(top: list) -> dict:
     return out
 
 
-def replay_kernels(fn, sessions: int = 3) -> dict:
+def replay_kernels(fn, sessions: int = 3, others: dict | None = None
+                   ) -> dict:
     """The device's kernels in one call of ``fn`` (profiler device
     events), counted by the wrapper whose source defines them
     (``KERNEL_NAMES``); the rest (copies, fills, PyTorch's kernels) under
@@ -4557,7 +4614,8 @@ def replay_kernels(fn, sessions: int = 3) -> dict:
     with four sentinel kernels (``torch.cuda._sleep``, PyTorch's
     ``spin_kernel``), left out of the counts, and each count is the
     largest of ``sessions`` profiled calls (the profiler drops events,
-    it does not invent them)."""
+    it does not invent them).  ``others``, where given, is filled with
+    the ``other`` kernels by name (the largest count of a session)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -4572,6 +4630,7 @@ def replay_kernels(fn, sessions: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
         seen = dict.fromkeys(counts, 0)
+        named: dict = {}
         for e in prof.events():
             if (e.device_type != torch.autograd.DeviceType.CUDA
                     or "spin_kernel" in e.name):
@@ -4580,8 +4639,36 @@ def replay_kernels(fn, sessions: int = 3) -> dict:
             owner = next((k for k, names in KERNEL_NAMES.items()
                           if m and m.group(1) in names), "other")
             seen[owner] += 1
+            if owner == "other":
+                named[e.name] = named.get(e.name, 0) + 1
         counts = {k: max(v, seen[k]) for k, v in counts.items()}
+        if others is not None:
+            for name, n in named.items():
+                others[name] = max(others.get(name, 0), n)
     return counts
+
+
+def dyn_stage_kernels(model, x) -> tuple[dict, int]:
+    """The device kernels of ``model``'s dynamic stages: one eager forward
+    on ``x`` recorded (``record_stages``), then each dynamic stage run
+    again from its own buffers under ``replay_kernels``, summed by
+    wrapper; and the ``quantize_layout`` kernels their calls' plans give
+    (``device_kernels``).  What each replay's dynamic stages launch."""
+    from repro_torch.kernels.quantize_layout import device_kernels
+    execute = importlib.import_module("repro_torch.program.execute")
+    _, recs = record_stages(model, x)
+    total = dict.fromkeys([*KERNEL_NAMES, "other"], 0)
+    want = 0
+    for (op, posts), rec in zip(model.program.stages(), recs):
+        if op.kind != "dyn_gemm":
+            continue
+        kern = replay_kernels(lambda: execute._dyn_stage(
+            op, posts, rec["bufs"], model.program.cfg))
+        for k in total:
+            total[k] += kern[k]
+        want += sum(device_kernels(xin, K, **kw)
+                    for xin, K, kw, _ in rec["quants"])
+    return total, want
 
 
 def aten_ops(fn) -> dict:
@@ -4640,7 +4727,7 @@ def quant_kernels(model, x) -> int:
     from repro_torch.kernels.quantize_layout import device_kernels
     _, recs = record_stages(model, x)
     return sum(device_kernels(xin, K, **kw)
-               for xin, K, kw, _ in (r["quant"] for r in recs))
+               for r in recs for xin, K, kw, _ in r["quants"])
 
 
 def executable_phase(api, dev) -> dict:
@@ -4692,7 +4779,8 @@ def executable_phase(api, dev) -> dict:
         n_dyn = sum(g.kind == "dyn_gemm" for g, _ in model.program.stages())
         x16 = torch.randn(model.program.input_shape(16), generator=gen,
                           device=dev)
-        kern = replay_kernels(lambda: model.run(x16))
+        others: dict = {}
+        kern = replay_kernels(lambda: model.run(x16), others=others)
         quant = quant_kernels(model, x16)
         scale_ops = static_stage_ops(model, x16)
         check(kern["crossbar_gemm"] == n and kern["fb_epilogue"] == n
@@ -4700,6 +4788,16 @@ def executable_phase(api, dev) -> dict:
               f"{name} b16: one replay ran {kern} kernels for {n} stages "
               "(one crossbar_gemm and fb_epilogue kernel per stage, "
               f"{quant} quantize_layout kernels by device_kernels)")
+        for k_name, k_n in sorted(others.items()):
+            detail(f"27 {name} b16 replay, other kernel: {k_name} x {k_n}")
+        dyn = None
+        if n_dyn:         # the dynamic stages launch the wrappers' only
+            dyn, want_q = dyn_stage_kernels(model, x16)
+            check(dyn == dict(crossbar_gemm=n_dyn, fb_epilogue=n_dyn,
+                              quantize_layout=want_q, other=0),
+                  f"{name} b16: the {n_dyn} dynamic stages ran {dyn} "
+                  f"kernels, expected one crossbar_gemm and fb_epilogue "
+                  f"each, {want_q} quantize_layout and no other")
         check(not scale_ops, f"{name} b16: the static stages dispatched "
               f"{scale_ops}: a requant factor computed by PyTorch")
         times = {}
@@ -4717,6 +4815,7 @@ def executable_phase(api, dev) -> dict:
                            f"{k_ms:.4f} ms in {k_n} launches")
         caps = sorted(r["capture_s"].values())
         out["nets"][name] = dict(stages=n, kernels=kern, times=times,
+                                 others=others, dyn=dyn,
                                  capture=(caps[0], statistics.median(caps),
                                           caps[-1]))
     tok = api.compile(token_graph(api), api.HurryConfig(), seed=0,
@@ -4750,9 +4849,16 @@ def executable_line(xp: dict, card: str) -> str:
     def by(t):
         return "/".join(f"{v:.3f}" for v in t["by_wrapper"].values())
 
+    def named(r):
+        return ", ".join(f"{k[:60]} x{n}"
+                         for k, n in sorted(r["others"].items()))
+
     nets = "; ".join(
         f"{name} ({r['stages']} stages; one b16 replay's kernels "
-        f"{r['kernels']}; capture s min/median/max {r['capture'][0]:.3f}/"
+        f"{r['kernels']}, the other ones {named(r) or 'none'}"
+        + (f"; its dynamic stages run again alone: {r['dyn']}" if r["dyn"]
+           else "")
+        + f"; capture s min/median/max {r['capture'][0]:.3f}/"
         f"{r['capture'][1]:.3f}/{r['capture'][2]:.3f}): " + ", ".join(
             f"b{b} replay {t['replay']['ms']:.3f} ms ({busy(t['replay'])}; "
             f"{'/'.join(KERNEL_NAMES)}/other {by(t['replay'])} ms) vs eager "
@@ -4792,21 +4898,23 @@ def quant_covered(xin, kw) -> int:
 
 def quant_bound(xin, kw, got) -> float:
     """The least time of one call on the card, in ms: the covered input
-    (and a weight amax) read once (float32), the int8 operand, the amax
-    and a requant factor written once, over the memory rate (its few
-    operations an element are far below the float32 rate)."""
+    (and the weight amaxes) read once (float32), the int8 operand, the
+    amaxes and the requant factors written once, over the memory rate (its
+    few operations an element are far below the float32 rate)."""
     x8, amax = got[:2]
     moved = (4 * quant_covered(xin, kw) + x8.numel() + 4 * amax.numel()
-             + 8 * (len(got) - 2))
+             + (8 * got[2].numel() if len(got) == 3 else 0))
     return moved / HBM_BYTES_PER_S * 1e3
 
 
 def old_chain(xin, K: int, kw: dict):
-    """The executor's left operand as the port made it before the kernel:
-    ``im2col``, ``abs``, ``amax``, the scale, the division, ``round``,
-    the clamp, the int8 cast and ``kernel_layout``'s pad, each a PyTorch
-    kernel (one tensor-wide amax: the static stages' form), and where the
-    call asks for it ``dequant_scale``'s four scalar kernels."""
+    """An operand as the port made it before the kernel: ``im2col``,
+    ``abs``, ``amax``, the scale, the division, ``round``, the clamp, the
+    int8 cast and ``kernel_layout``'s pad, each a PyTorch kernel (one
+    tensor-wide amax, or per slice: a dynamic stage's, the right operand
+    as ``plane_pack`` made it), and where the call asks for it
+    ``dequant_scale``'s four scalar kernels, or per slice the product of
+    the two ``quantize_scale``s."""
     import torch
     from repro_torch.core.crossbar import (dequant_scale, quantize_scale,
                                            quantize_with_scale)
@@ -4815,13 +4923,19 @@ def old_chain(xin, K: int, kw: dict):
     if kw.get("conv") is not None:
         cols = im2col(xin, *kw["conv"])
         xin = cols.reshape(-1, cols.shape[-1])
-    amax = xin.abs().amax()
-    q = quantize_with_scale(xin, quantize_scale(amax, kw["bits"]),
-                            kw["bits"]).to(torch.int8)
+    per_slice = kw.get("per_slice", False)
+    amax = xin.abs().amax(dim=(-2, -1)) if per_slice else xin.abs().amax()
+    scale = quantize_scale(amax, kw["bits"])
+    q = quantize_with_scale(xin, scale[..., None, None] if per_slice
+                            else scale, kw["bits"]).to(torch.int8)
     out = (kernel_layout(q, K, rows=kw["rows"],
                          adc_bits=kw["adc_bits"]).contiguous(), amax)
     if kw.get("w_amax") is None:
         return out
+    if per_slice:
+        return (*out, (scale * quantize_scale(
+            kw["w_amax"].reshape(amax.shape), kw["weight_bits"])
+        ).reshape(-1, 1, 1))
     return (*out, dequant_scale(amax, kw["w_amax"], kw["bits"],
                                 kw["weight_bits"]).reshape(1, 1))
 
@@ -4842,10 +4956,16 @@ def near_ties(shape, gen, bits: int = 8, amax: float = 3.0):
     return x
 
 
-# phase 29's near-tie inputs: (shape, quantize_layout kwargs, K)
-QUANT_TIES = (((64, 1000), dict(rows=494), 1482),
-              ((2, 16, 16, 8), dict(conv=(3, 1, 1)), 494),
-              ((48, 64, 64), dict(rows=64, per_slice=True, bits=4), 64))
+# phase 29's near-tie inputs: (shape, quantize_layout kwargs, K, view):
+# view "v-heads" reads the input as a (B, T, 3D) fused projection's V
+# heads transposed (B, 3, hd, T), a stride of 3D along k: a dynamic
+# stage's right operand, here at 4 bits on the sliced branch, every
+# slice holding its own amax
+QUANT_TIES = (((64, 1000), dict(rows=494), 1482, None),
+              ((2, 16, 16, 8), dict(conv=(3, 1, 1)), 494, None),
+              ((48, 64, 64), dict(rows=64, per_slice=True, bits=4), 64, None),
+              ((16, 64, 576), dict(rows=64, adc_bits=6, per_slice=True,
+                                   bits=4), 64, "v-heads"))
 
 
 def _forced(qmod, one_launch: bool | None):
@@ -4951,16 +5071,24 @@ def quantize_phase(api, dev) -> dict:
             x = torch.randn(model.program.input_shape(b), generator=gen,
                             device=dev)
             (_, recs), n = counted(lambda: record_stages(model, x))
-            check(n["quantize_layout"] == len(stages)
-                  and all("quant" in r for r in recs),
+            n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+            per_stage = [2 if g.kind == "dyn_gemm" else 1 for g, _ in stages]
+            check(n["quantize_layout"] == len(stages) + n_dyn
+                  and [len(r["quants"]) for r in recs] == per_stage,
                   f"29 {label} b{b}: {n['quantize_layout']} quantize_layout "
-                  f"launches for {len(stages)} stages")
+                  f"launches for {len(stages)} stages ({n_dyn} dynamic, "
+                  "two each)")
             check("cuda" not in ref_devices, f"29 {label}: the plain "
                   "version ran on a card tensor from execute_packed")
-            n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+            for r in recs:                   # the right operand's amax
+                if len(r["quants"]) == 2:    # is the left one's w_amax
+                    right, left = r["quants"]
+                    check(left[2].get("w_amax") is right[3][1]
+                          and left[2].get("per_slice") and len(left[3]) == 3,
+                          f"29 {label} b{b}: a dynamic stage's left operand "
+                          "took no requant factor from its right operand")
             with_requant = 0
-            for r in recs:
-                xin, K, qkw, got = r["quant"]
+            for xin, K, qkw, got in (q for r in recs for q in r["quants"]):
                 want = ref(xin, K, **qkw)
                 check(len(got) == len(want) and all(
                     a.shape == w.shape for a, w in zip(got, want)),
@@ -4973,20 +5101,28 @@ def quantize_phase(api, dev) -> dict:
                       f"29 {label} b{b}: a quantize_layout call {qkw} "
                       f"differs from the plain version")
                 with_requant += len(got) == 3
-            check(with_requant == len(stages) - n_dyn,
+            check(with_requant == len(stages),
                   f"29 {label} b{b}: {with_requant} calls wrote the requant "
-                  f"factor, for {len(stages) - n_dyn} static stages")
-            out["calls"] += len(recs)
+                  f"factor, for {len(stages)} stages")
+            out["calls"] += n["quantize_layout"]
             out["requant"] += with_requant
             out["static"] += len(stages) - n_dyn
             out["dyn"] += n_dyn
             if label == "resnet18":
-                out["recs"][b] = [r["quant"] for r in recs]
+                out["recs"][b] = [q for r in recs for q in r["quants"]]
+            if label == "vit_tiny" and b == 16:
+                out["dyn_calls"] = [q for r in recs if len(r["quants"]) == 2
+                                    for q in r["quants"]]
     finally:
         qmod.quantize_layout_ref = ref
     tie_gen = torch.Generator(device=dev).manual_seed(30)
-    for shape, kw, K in QUANT_TIES:
-        x = near_ties(shape, tie_gen, bits=kw.get("bits", 8))
+    for shape, kw, K, view in QUANT_TIES:
+        amax = 3.0
+        x = near_ties(shape, tie_gen, bits=kw.get("bits", 8), amax=amax)
+        if view == "v-heads":
+            from repro_torch.program.sequence import qkv_head_views
+            x = qkv_head_views(x, 3)[2].mT
+            x[..., 0, 0] = amax              # every slice's scale the same
         want = ref(x, K, **kw)
         for one in (True, False):
             with _forced(qmod, one):
@@ -5008,6 +5144,19 @@ def quantize_phase(api, dev) -> dict:
         times[b] = quant_times(calls, f"resnet18 b{b}")
         times[b]["kernels"] = want
     out["times"] = times
+    # vit_tiny b16's dynamic stages: the right operands, then the left
+    # ones (each with the requant factor), as one profile and as timed
+    dyn = out.pop("dyn_calls")
+    kern = replay_kernels(lambda: [quantize_layout(xin, K, **qkw)
+                                   for xin, K, qkw, _ in dyn])
+    want = sum(device_kernels(xin, K, **qkw) for xin, K, qkw, _ in dyn)
+    check(kern["quantize_layout"] == want and sum(kern.values()) == want,
+          f"29 vit_tiny b16 dynamic stages: the {len(dyn)} calls ran {kern} "
+          f"device kernels, device_kernels says {want} of their own")
+    out["vit_dyn"] = {side: quant_times(dyn[i::2], f"vit_tiny b16 {side}",
+                                        paths=False)
+                      for i, side in enumerate(("right", "left"))}
+    out["vit_dyn"]["kernels"] = want
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -5024,17 +5173,26 @@ def quantize_line(qp: dict, card: str) -> str:
         f"{r['largest'][1]} {r['largest'][2]:.4f} ms (bound "
         f"{r['largest'][3]:.5f})"
         for b, r in qp["times"].items())
+    v = qp["vit_dyn"]
+    dyn = "; ".join(
+        f"its {r['launches']} {side}-operand calls {r['ms']:.4f} ms (bound "
+        f"{r['bound']:.5f} by bytes, plain {r['plain']:.4f}, the replaced "
+        f"PyTorch chain {r['chain']:.4f})" for side, r in
+        (("right", v["right"]), ("left", v["left"])))
     return (f"[29 quantize_layout] {qp['runs']} eager forwards "
             f"({'/'.join(n + ('-adc8' if kw else '') for n, kw in EXEC_NETS)}"
             f" at b{','.join(map(str, QUANT_BATCHES))}; "
             f"{'/'.join(n for n, _ in QUANT_WIDTH_NETS)} at "
-            f"{'/'.join(WIDTHS)}): one launch per stage, {qp['calls']} "
-            f"calls ({qp['static']} static, {qp['dyn']} dynamic stages) "
-            "each torch.equal to the plain version (x8 and amax, and the "
-            f"requant factor of all {qp['requant']} static stages), none "
+            f"{'/'.join(WIDTHS)}): one launch per static stage and two per "
+            f"dynamic stage, {qp['calls']} calls ({qp['static']} static, "
+            f"{qp['dyn']} dynamic stages) each torch.equal to the plain "
+            "version (x8 and amax, and the requant factor of all "
+            f"{qp['requant']} stages: the static ones, and the dynamic ones' "
+            "per-slice plain product from their right operand's amax), none "
             "of the plain version on a card tensor from execute_packed, "
             f"{len(QUANT_TIES)} near-tie inputs equal on both paths; "
-            f"{t}; phase {qp['s']:.1f} s | {card}")
+            f"{t}; per vit_tiny b16 forward's dynamic stages ({v['kernels']} "
+            f"device kernels): {dyn}; phase {qp['s']:.1f} s | {card}")
 
 
 def kernel_times(label: str) -> int:
@@ -5071,7 +5229,7 @@ def kernel_times(label: str) -> int:
     for b in (16, 1):
         x = torch.randn(resnet.program.input_shape(b), generator=gen,
                         device=dev)
-        calls = [r["quant"] for r in record_stages(resnet, x)[1]]
+        calls = [q for r in record_stages(resnet, x)[1] for q in r["quants"]]
         quant[f"resnet18_b{b}"] = dict(
             ms=sum(device_ms(lambda: ql(xin, K, **kw))
                    for xin, K, kw, _ in calls),
@@ -5546,9 +5704,9 @@ def main(argv: list[str] | None = None) -> int:
             detail(f"  {name}: {ms:.4f} ms in {n} launches")
     log(f"[12 vit_tiny main path] batches 1,3,16 x (probs, logits): launches "
         f"{vit['launches']} = {vit['n_stages']} stages each run, "
-        f"{vit['n_dyn']} dynamic stages per run with one quantize_layout, "
-        f"crossbar_gemm and fb_epilogue each ({vit['dyn_runs']} dynamic-stage "
-        "calls); vs "
+        f"{vit['n_dyn']} dynamic stages per run with two quantize_layout, "
+        f"one crossbar_gemm and one fb_epilogue each ({vit['dyn_runs']} "
+        "dynamic-stage calls); vs "
         f"CPU plain path argmax agreement {vit['agree']}, max rel logit "
         f"error {vit['rel']:.2e} (limit {VIT_REL}), max |probs diff| "
         f"{vit['prob']:.2e} (limit {VIT_PROB_ATOL}); end to end {vit_e2e[1]:.3f} ms at b=1, "
@@ -5772,8 +5930,8 @@ def main(argv: list[str] | None = None) -> int:
              library_ms=pk["library_ms"]["matmul loop"]),
         dict(name="quantize_layout", route="cuda",
              source="src/repro_torch/kernels/csrc/quantize_layout.cu",
-             replaces="src/repro/program/execute.py:148-164 (XLA's fusion "
-             "under jax.jit; no Pallas kernel)",
+             replaces="src/repro/program/execute.py:148-164 and :113-127 "
+             "(XLA's fusions under jax.jit and jax.vmap; no Pallas kernel)",
              launches=path_launches["quantize_layout"],
              max_abs_err=qp["err"], ms=qp["times"][16]["ms"],
              plain_ms=qp["times"][16]["plain"],

@@ -187,9 +187,9 @@ def executor_calls(dev) -> list:
             x = torch.randn(model.program.input_shape(b), generator=gen,
                             device=dev)
             for i, rec in enumerate(cs.record_stages(model, x)[1]):
-                xin, K, kw, _ = rec["quant"]
-                calls.append((net, b, i, xin, K, kw,
-                              qmod.quantize_layout_ref(xin, K, **kw)))
+                for xin, K, kw, _ in rec["quants"]:
+                    calls.append((net, b, i, xin, K, kw,
+                                  qmod.quantize_layout_ref(xin, K, **kw)))
     return calls
 
 

@@ -204,30 +204,33 @@ def _lib() -> ctypes.CDLL:
     return declare(_build.load("crossbar_gemm"))
 
 
-def _check_operands(x: torch.Tensor, w: torch.Tensor,
-                    wt: torch.Tensor | None) -> None:
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
+def _check_operands(x: torch.Tensor, w: torch.Tensor | None,
+                    wt: torch.Tensor | None, K: int) -> None:
+    """x against the right operand: ``w`` (K, N), or without it ``wt``,
+    which x must then match in the kernel layout."""
+    rhs = w if w is not None else wt
+    if x.dtype != torch.int8 or rhs.dtype != torch.int8:
         raise TypeError(f"crossbar_gemm takes int8 operands, got "
-                        f"{x.dtype} and {w.dtype}")
-    k_ok = x.shape[-1] == w.shape[-2] or (
+                        f"{x.dtype} and {rhs.dtype}")
+    k_ok = (x.shape[-1] == K and w is not None) or (
         wt is not None and x.shape[-1] == wt.shape[-1])
-    if not (x.dim() == w.dim() and x.dim() in (2, 3) and k_ok
-            and x.shape[:-2] == w.shape[:-2]):
+    if not (x.dim() == rhs.dim() and x.dim() in (2, 3) and k_ok
+            and x.shape[:-2] == rhs.shape[:-2]):
         raise ValueError(f"crossbar_gemm: shapes {tuple(x.shape)} x "
-                         f"{tuple(w.shape)} do not multiply")
-    if x.device != w.device:
+                         f"{tuple(rhs.shape)} do not multiply")
+    if x.device != rhs.device:
         raise ValueError(f"crossbar_gemm: operands on {x.device} and "
-                         f"{w.device}")
+                         f"{rhs.device}")
 
 
-def _check_wt(wt: torch.Tensor, w: torch.Tensor, kk: int) -> None:
-    want = (*w.shape[:-2], w.shape[-1], kk)
+def _check_wt(wt: torch.Tensor, x: torch.Tensor, N: int, kk: int) -> None:
+    want = (*x.shape[:-2], N, kk)
     if wt.dtype != torch.int8 or tuple(wt.shape) != want:
         raise ValueError(f"crossbar_gemm: wt {wt.dtype} {tuple(wt.shape)} "
                          f"is not the kernel layout int8 {want}")
-    if wt.device != w.device:
-        raise ValueError(f"crossbar_gemm: wt on {wt.device}, w on "
-                         f"{w.device}")
+    if wt.device != x.device:
+        raise ValueError(f"crossbar_gemm: wt on {wt.device}, x on "
+                         f"{x.device}")
 
 
 def splits(S: int, M: int, N: int, kk: int, *, exact: bool,
@@ -271,9 +274,11 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, N: int, *, exact: bool,
     return y
 
 
-def crossbar_gemm(x: torch.Tensor, w: torch.Tensor, *, adc_bits: int = 9,
-                  rows: int = 512, exact: bool | None = None,
-                  wt: torch.Tensor | None = None) -> torch.Tensor:
+def crossbar_gemm(x: torch.Tensor, w: torch.Tensor | None = None, *,
+                  adc_bits: int = 9, rows: int = 512,
+                  exact: bool | None = None,
+                  wt: torch.Tensor | None = None,
+                  K: int | None = None) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32 with HURRY semantics;
     (S, M, K) x (S, K, N) -> (S, M, N) runs S independent GEMMs.
 
@@ -281,24 +286,31 @@ def crossbar_gemm(x: torch.Tensor, w: torch.Tensor, *, adc_bits: int = 9,
     raises ``ValueError`` when ADC saturation could fire.  ``wt`` is the
     weight already in the kernel layout (``mount_weight(w, ...)`` with the
     same rows, adc_bits and exact); with it, x may come in the kernel
-    layout as well, (..., M, Kk).  CUDA operands run the kernel
-    (one launch for all slices), CPU operands the plain version.
+    layout as well, (..., M, Kk).  ``w`` may be left out where ``wt`` and
+    the contraction length ``K`` are given (x then in the kernel layout):
+    the dynamic stages' right operand is mounted straight into the layout
+    and has no (K, N) form.  CUDA operands run the kernel (one launch for
+    all slices), CPU operands the plain version.
     """
-    _check_operands(x, w, wt)
-    K = w.shape[-2]
+    if w is None and (wt is None or K is None):
+        raise ValueError("crossbar_gemm: without w, pass wt and K")
+    if w is not None:
+        K = w.shape[-2]
+    N = w.shape[-1] if w is not None else wt.shape[-2]
+    _check_operands(x, w, wt, K)
     rows, exact = _branch(K, rows, adc_bits, exact)
     kk = _kernel_k(K, rows, exact)
     if wt is not None:
-        _check_wt(wt, w, kk)
+        _check_wt(wt, x, N, kk)
     if x.is_cuda:
         if wt is None:        # lay the weight out here: one helper launch
             wt = _layout(w.mT, K, rows, exact).contiguous()
         if x.shape[-1] != kk:
             x = _layout(x, K, rows, exact)
-        return _launch(x.contiguous(), wt, w.shape[-1], exact=exact,
-                       rows=rows, adc_bits=adc_bits)
-    if x.shape[-1] != K:      # x in the kernel layout: chunks of r32 rows
-        w, rows = wt.mT, _up32(rows)
+        return _launch(x.contiguous(), wt, N, exact=exact, rows=rows,
+                       adc_bits=adc_bits)
+    if w is None or x.shape[-1] != K:   # x in the kernel layout: chunks of
+        w, rows = wt.mT, _up32(rows)    # r32 rows
     if exact:
         return crossbar_gemm_exact_ref(x, w)
     return crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)

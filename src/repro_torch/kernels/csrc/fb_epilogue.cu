@@ -58,6 +58,12 @@
 // context, what `jax.vmap` over the Pallas call computes) runs in the
 // same launch: y is (S * slice_rows, N) and row r dequantizes with its
 // slice's scale, scale[r / slice_rows].  The 2-D call has one slice.
+// Where the slices are (batch, head) pairs of attention's context, the
+// kernel can store them with the heads merged (`heads` > 0, no pool):
+// slice s = b * heads + h's row m goes to out[b, m, h * N : (h + 1) * N]
+// of (B, slice_rows, heads * N), what the reference's `merge_heads`
+// after the vmapped epilogue computes (src/repro/program/execute.py:135).
+// A null bias adds nothing: fma(y, scale, +0) rounds as y * scale does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,6 +89,7 @@ struct Chain {
   int slice_rows;       // rows per scale (M for one slice)
   int act;
   float post_scale;     // 0: off
+  int heads;            // > 0: slices stored with the heads merged
 };
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -98,6 +105,15 @@ __device__ __forceinline__ float row_scale(const Chain& p, long long row) {
   return p.slice_rows == p.M ? *p.scale : p.scale[row / p.slice_rows];
 }
 
+// Element offset of output row r's first column: r * N, or with `heads`
+// the head-merged place of slice s = b * heads + h's row m.
+__device__ __forceinline__ size_t out_row(const Chain& p, long long r) {
+  if (!p.heads) return (size_t)r * p.N;
+  const long long s = r / p.slice_rows, m = r - s * p.slice_rows;
+  const long long b = s / p.heads, h = s - b * p.heads;
+  return ((size_t)(b * p.slice_rows + m) * p.heads + h) * p.N;
+}
+
 // The chain up to the activation, on one value.
 __device__ __forceinline__ float chain1(const Chain& p, int32_t y,
                                         float scale, float bias, float res) {
@@ -111,7 +127,8 @@ __device__ __forceinline__ float chain1(const Chain& p, int32_t y,
 
 __device__ __forceinline__ float chain(const Chain& p, long long idx, int col,
                                        float scale) {
-  return chain1(p, p.y[idx], scale, p.bias[col], p.res ? p.res[idx] : 0.0f);
+  return chain1(p, p.y[idx], scale, p.bias ? p.bias[col] : 0.0f,
+                p.res ? p.res[idx] : 0.0f);
 }
 
 // V consecutive values at element offset `off` (V = 4: one 16-byte access)
@@ -170,8 +187,8 @@ __global__ void elementwise_kernel(Chain p, int rpt) {
   const int cg = blockIdx.x * blockDim.x + threadIdx.x;
   if (cg >= G) return;
   const int c = cg * V;
-  float bias[V];
-  load_f<V>(p.bias, c, bias);
+  float bias[V] = {};
+  if (p.bias) load_f<V>(p.bias, c, bias);
   const bool one_slice = p.slice_rows == p.M;
   const float scale0 = *p.scale;
   const int tile = blockDim.y * rpt;
@@ -181,10 +198,9 @@ __global__ void elementwise_kernel(Chain p, int rpt) {
       const long long r = r0 + threadIdx.y + (long long)k * blockDim.y;
       if (r >= p.M) break;
       const float scale = one_slice ? scale0 : p.scale[r / p.slice_rows];
-      const size_t off = (size_t)r * p.N + c;
       float v[V];
-      chain_v<V>(p, off, scale, bias, v);
-      store_f<V>(p.out, off, v);
+      chain_v<V>(p, (size_t)r * p.N + c, scale, bias, v);
+      store_f<V>(p.out, out_row(p, r) + c, v);
     }
 }
 
@@ -197,8 +213,8 @@ __global__ void pool_kernel(Chain p, int pool, int window, int img_hw,
   const int cg = blockIdx.x * blockDim.x + threadIdx.x;
   if (cg >= G) return;
   const int c = cg * V;
-  float bias[V];
-  load_f<V>(p.bias, c, bias);
+  float bias[V] = {};
+  if (p.bias) load_f<V>(p.bias, c, bias);
   const int oh = img_hw / window;
   const float inv = 1.0f / (float)(window * window);
   for (int o = blockIdx.y * blockDim.y + threadIdx.y; o < pixels;
@@ -319,7 +335,7 @@ __global__ void rows_warp_kernel(Chain p, int norm, int softmax) {
 #pragma unroll
     for (int k = 0; k < NV; ++k) x[k] = __fdiv_rn(x[k], s);
   }
-  const size_t row = (size_t)r * N;
+  const size_t row = out_row(p, r);
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = lane + 32 * k;
@@ -430,7 +446,7 @@ __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
         acc[c] = __fadd_rn(acc[c], row[c]);
     } else {
       for (int c = threadIdx.x; c < N; c += blockDim.x)
-        p.out[r * N + c] = row[c];
+        p.out[out_row(p, r) + c] = row[c];
     }
   }
   if (seqmean)
@@ -542,19 +558,25 @@ int fb_epilogue_rows_smem(int N, int seqmean) {
   return (int)(sizeof(float) * (size_t)N * (seqmean ? 2 : 1));
 }
 
-// pool: 0 none, 1 max, 2 avg, 3 seqmean.  res / gamma / beta may be null.
-// M counts the rows of all slices; each slice of slice_rows rows has its
-// own scale, and no pool window or sequence crosses a slice.
+// pool: 0 none, 1 max, 2 avg, 3 seqmean.  bias / res / gamma / beta may be
+// null.  M counts the rows of all slices; each slice of slice_rows rows
+// has its own scale, and no pool window or sequence crosses a slice.
+// heads > 0 (no pool; the slice count a multiple of it): out is (S /
+// heads, slice_rows, heads * N), the heads merged.
 int fb_epilogue(const void* y, const void* scale, const void* bias,
                 const void* res, const void* gamma, const void* beta,
                 void* out, int M, int N, int slice_rows, int act,
                 float post_scale, int norm, int pool, int window, int img_hw,
-                int softmax, void* stream) {
+                int softmax, int heads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (heads < 0 || (heads > 0 && (pool != POOL_NONE ||
+                                  (M / slice_rows) % heads != 0)))
+    return (int)cudaErrorInvalidValue;
   Chain p{(const int32_t*)y, (const float*)scale, (const float*)bias,
           (const float*)res,  (const float*)gamma, (const float*)beta,
           (float*)out,        M,                   N,
-          slice_rows,         act,                 post_scale};
+          slice_rows,         act,                 post_scale,
+          heads};
   // 16-byte accesses where every row starts on 16 bytes
   const bool vec = N % 4 == 0 && aligned16(y) && aligned16(bias) &&
                    aligned16(res) && aligned16(gamma) && aligned16(beta) &&

@@ -6,7 +6,13 @@
 // executor's chain into one pass over each stage's input: `im2col`
 // (src/repro/program/execute.py:148), `quantize_symmetric` (:160,
 // src/repro/core/crossbar.py:204-209), the zero pad to full mounts (:164)
-// and the requant product `xs * quantize_scale(w_amax)` (:170-171).
+// and the requant product `xs * quantize_scale(w_amax)` (:170-171); in a
+// dynamic (attention) stage, per (batch, head) slice under `jax.vmap`,
+// the right operand's `plane_pack` (:117) and the left operand's
+// quantize, pad and scale product `ascale * ws` (:113-127).  A dynamic
+// stage makes two calls: the right operand (its K-major view, at the
+// weight width) first, then the left one, which reads the right one's
+// per-slice amax as w_amax.
 //
 // What it computes, per call:
 //
@@ -20,7 +26,10 @@
 //             rounded division, rint half to even (torch.round, jnp.round);
 //   requant = (max(amax, 1e-8) * max(w_amax, 1e-8)) * f32(f32(1/qx) *
 //             f32(1/qw)), where the caller passes w_amax: dequant_scale's
-//             form, which XLA makes of the static stage's product;
+//             form, which XLA makes of the static stage's product; per
+//             slice (a dynamic stage, w_amax one a slice) the plain
+//             product (max(amax, 1e-8) * f32(1/qx)) * (max(w_amax, 1e-8)
+//             * f32(1/qw)), which XLA keeps under jax.vmap (:127);
 //
 // x8 laid out as `crossbar_gemm` takes it: source column j of K goes to
 // column j on the exact branch (Kk = up32(K)), to (j / rows) * R32 +
@@ -37,8 +46,10 @@
 //            input element is read by up to k*k patches;
 //   rows:    no element repeats: an (A, B, R, kc) view (the fc flatten,
 //            the sequence stages' tokens, attention's per-(batch, head)
-//            left operands, read as they lie) or a 1x1 conv, whose rows
-//            are pixels.  One amax per (a, b) slice, or one in all.
+//            operands, read as they lie: the Q and K heads permuted, V's
+//            transposed heads with a stride of 3D along k) or a 1x1 conv,
+//            whose rows are pixels.  One amax per (a, b) slice, or one in
+//            all.
 //
 // What bounds it on the H100: bytes.  The covered input is read once as
 // float32 and the int8 operand written once (the bound: some 41 us per
@@ -125,11 +136,14 @@ struct Layout {
 // Where the amax and the requant factor go, and the quantizer's constants.
 struct Result {
   float* amax;           // one, or one a slice
-  float* requant;        // null, or the (1, 1) requant factor
-  const float* w_amax;   // with requant: the mounted weight's amax
-  float req_c;           // f32(f32(1/qx) * f32(1/qw))
+  float* requant;        // null, or the requant factor: (1, 1), or one a
+                         // slice where `plain`
+  const float* w_amax;   // with requant: the mounted weight's amax (plain:
+                         // the right operand's, one a slice)
+  float req_c;           // f32(f32(1/qx) * f32(1/qw)); plain: f32(1/qw)
   int qmax;
   float inv_qmax;
+  int plain;             // 1: the per-slice plain product of the scales
 };
 
 // An NHWC conv input.  Element offsets into x stay below 2^31 (the wrapper
@@ -310,11 +324,20 @@ __device__ __forceinline__ void cluster_done() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-// The amax, and the requant factor where asked (one thread).
+// The amax, and the requant factor where asked (one thread): the static
+// stage's reassociated form, or per slice the plain product of the two
+// quantize scales (each product rounded on its own: no contraction).  A
+// kernel calls it after every wait on the kernel before it, so the right
+// operand's call has written w_amax.
 __device__ __forceinline__ void write_result(const Result& res, int slot,
                                              float amax) {
   res.amax[slot] = amax;
-  if (res.requant)
+  if (!res.requant) return;
+  if (res.plain)
+    res.requant[slot] =
+        __fmul_rn(__fmul_rn(fmaxf(amax, 1e-8f), res.inv_qmax),
+                  __fmul_rn(fmaxf(res.w_amax[slot], 1e-8f), res.req_c));
+  else
     res.requant[0] = __fmul_rn(
         __fmul_rn(fmaxf(amax, 1e-8f), fmaxf(res.w_amax[0], 1e-8f)),
         res.req_c);
@@ -1085,8 +1108,7 @@ int run_rows(const Rows& g, const Layout& L, const Result& res, int8_t* out,
              unsigned rows_per, int one_launch, int blocks, int cluster,
              cudaStream_t s) {
   const long long words = (long long)rows_per * (L.kk / V);
-  if ((long long)rows_per * g.kc >= INDEX_LIMIT || words >= INDEX_LIMIT ||
-      (per_slice && res.requant))
+  if ((long long)rows_per * g.kc >= INDEX_LIMIT || words >= INDEX_LIMIT)
     return (int)cudaErrorInvalidValue;
   if (one_launch) {
     const int clusters = per_slice ? (int)slices : blocks;
@@ -1143,7 +1165,7 @@ int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
   if (elems >= INDEX_LIMIT || words >= INDEX_LIMIT)
     return (int)cudaErrorInvalidValue;
   const Result res{(float*)amax, (float*)requant, (const float*)w_amax,
-                   req_c, qmax, inv_qmax};
+                   req_c, qmax, inv_qmax, 0};
   const bool vec = sc == 1 && C % 4 == 0 && sn % 4 == 0 && sh % 4 == 0 &&
                    sw % 4 == 0 && aligned16(x);
   if (k == 1) {                       // no tap repeats: rows are pixels
@@ -1195,10 +1217,11 @@ int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
 
 // x an (A, B, R, kc) float32 view with element strides (sa, sb, sr, sk),
 // every element's offset below 2^31; out (A*B*R, kk) int8, 16-byte
-// aligned; amax A*B floats (per_slice) or one; requant as for the conv
-// entry (not per slice).  one_launch: a cluster of `cluster` a slice
-// (per_slice) or `blocks` clusters; otherwise `blocks` partial maxima a
-// slice in `partials`.  Returns cudaGetLastError().
+// aligned; amax A*B floats (per_slice) or one; requant null, or as for
+// the conv entry, or per_slice A*B floats, the plain product with w_amax
+// A*B floats and req_c f32(1/qw).  one_launch: a cluster of `cluster` a
+// slice (per_slice) or `blocks` clusters; otherwise `blocks` partial
+// maxima a slice in `partials`.  Returns cudaGetLastError().
 int quantize_layout_strided(const void* x, void* out, void* amax,
                             void* requant, const void* w_amax, float req_c,
                             void* partials, int A, int B, int R, int kc,
@@ -1212,7 +1235,7 @@ int quantize_layout_strided(const void* x, void* out, void* amax,
   if (!layout_ok(L, out) || slices > 65535 || (requant && !w_amax))
     return (int)cudaErrorInvalidValue;
   const Result res{(float*)amax, (float*)requant, (const float*)w_amax,
-                   req_c, qmax, inv_qmax};
+                   req_c, qmax, inv_qmax, per_slice && requant ? 1 : 0};
   const bool vec = sk == 1 && kc % 4 == 0 && sa % 4 == 0 && sb % 4 == 0 &&
                    sr % 4 == 0 && aligned16(x);
   const bool flat = sk == 1 && sr == kc && (B == 1 || sb == R * kc) &&

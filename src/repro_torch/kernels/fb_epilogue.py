@@ -10,7 +10,12 @@ canonical FB order::
 A leading slice axis runs in the same launch: y (S, M, N) with a
 (S, 1, 1) scale applies the chain to each slice with its own scale, what
 ``jax.vmap`` over the Pallas kernel computes for attention's
-per-(batch, head) scores and context.
+per-(batch, head) scores and context.  With ``heads`` the slices (S = B *
+heads, slice b * heads + h) are stored with the heads merged, (B, M,
+heads * N): the reference's ``merge_heads`` after the context stage
+(``src/repro/program/execute.py:135``), done by the stores.  A ``bias``
+of None adds nothing (the dynamic stages' zero bias): ``fma(y, scale,
++0)`` rounds as ``y * scale``.
 
 For a CUDA tensor ``fb_epilogue`` launches the hand-written kernel in
 ``csrc/fb_epilogue.cu`` (its header says what bounds it on the H100) and
@@ -66,8 +71,14 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _check_modes(M: int, N: int, *, act, pool, window, img_hw, softmax,
-                 norm, gamma, beta) -> None:
+def _check_modes(y: torch.Tensor, *, act, pool, window, img_hw, softmax,
+                 norm, gamma, beta, heads) -> None:
+    M, N = y.shape[-2:]
+    if heads and not (heads > 0 and y.dim() == 3 and pool == "none"
+                      and y.shape[0] % heads == 0):
+        raise ValueError(f"fb_epilogue: heads={heads} merges the slices of "
+                         f"a (S, M, N) y, S a multiple of it, without a "
+                         f"pool; got {tuple(y.shape)} pool {pool!r}")
     if act not in _ACTS:
         raise ValueError(f"fb_epilogue: act {act!r} not in {tuple(_ACTS)}")
     if pool not in _POOLS:
@@ -110,19 +121,31 @@ def avg_windows(x6: torch.Tensor) -> torch.Tensor:
 
 
 def dequant(y: torch.Tensor, scale: torch.Tensor,
-            bias: torch.Tensor) -> torch.Tensor:
-    """``fma(float32(y), scale, bias)`` with one rounding, via float64."""
-    return (y.float().double() * scale.double()
-            + bias.double()).float()
+            bias: torch.Tensor | None) -> torch.Tensor:
+    """``fma(float32(y), scale, bias)`` with one rounding, via float64
+    (the product of two float32 values is exact there); no bias: the
+    product rounded once."""
+    out = y.float().double() * scale.double()
+    return (out if bias is None else out + bias.double()).float()
 
 
-def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+def merge_heads(ctx: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B * heads, T, hd) attention context -> (B, T, heads * hd): slice
+    b * heads + h's row t to ``[b, t, h * hd:(h + 1) * hd]``."""
+    bh, T, hd = ctx.shape
+    B = bh // heads
+    return (ctx.reshape(B, heads, T, hd).permute(0, 2, 1, 3)
+            .reshape(B, T, heads * hd))
+
+
+def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor | None,
                     residual: torch.Tensor | None = None, *,
                     act: str = "none", pool: str = "none", window: int = 0,
                     img_hw: int = 0, softmax: bool = False,
                     norm: str = "none", gamma: torch.Tensor | None = None,
                     beta: torch.Tensor | None = None,
-                    post_scale: float = 0.0) -> torch.Tensor:
+                    post_scale: float = 0.0, heads: int = 0) -> torch.Tensor:
     """The plain PyTorch composition the kernel must equal.
 
     Average pooling sums each window in row-major order and multiplies
@@ -154,7 +177,8 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         out = out.reshape(-1, N)
     if softmax:
         out = softmax_rows(out)
-    return out.reshape(*y.shape[:-2], -1, N)
+    out = out.reshape(*y.shape[:-2], -1, N)
+    return merge_heads(out, heads) if heads else out
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +190,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fb_epilogue")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, i, i,
-                                i, i, p]
+                                i, i, i, p]
     lib.fb_epilogue.restype = i
     lib.fb_epilogue_rows_smem.argtypes = [i, i]
     lib.fb_epilogue_rows_smem.restype = i
@@ -186,7 +210,7 @@ def _operand(t: torch.Tensor | None, name: str, dtype: torch.dtype,
 
 
 def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
-            norm, gamma, beta, post_scale) -> torch.Tensor:
+            norm, gamma, beta, post_scale, heads) -> torch.Tensor:
     M, N = y.shape[-2:]
     S = y.shape[0] if y.dim() == 3 else 1
     lead = y.shape[:-2]
@@ -212,7 +236,9 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
         out_rows = (M // (img_hw * img_hw)) * (img_hw // window) ** 2
     else:
         out_rows = M
-    out = torch.empty(*lead, out_rows, N, dtype=torch.float32, device=dev)
+    shape = ((S // heads, out_rows, heads * N) if heads
+             else (*lead, out_rows, N))
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = _lib()
@@ -221,25 +247,27 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
                          "block's shared memory")
     err = lib.fb_epilogue(*ptrs, out.data_ptr(), S * M, N, M, _ACTS[act],
                           float(post_scale), int(has_norm), _POOLS[pool],
-                          int(window), int(img_hw), int(softmax),
+                          int(window), int(img_hw), int(softmax), int(heads),
                           _build.stream_handle())
     _build.check(lib, "fb_epilogue", err)
     fb_epilogue.launches += 1
     return out
 
 
-def fb_epilogue(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor | None,
                 residual: torch.Tensor | None = None, *, act: str = "none",
                 pool: str = "none", window: int = 0, img_hw: int = 0,
                 softmax: bool = False, norm: str = "none",
                 gamma: torch.Tensor | None = None,
                 beta: torch.Tensor | None = None,
-                post_scale: float = 0.0) -> torch.Tensor:
+                post_scale: float = 0.0, heads: int = 0) -> torch.Tensor:
     """y (M, N) int32 crossbar output -> fused FB chain -> f32.
 
-    ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,); a 3-D
-    ``y`` (S, M, N) takes a (S, 1, 1) ``scale``, one per slice, and
-    returns (S, out_rows, N) with every mode applied per slice.  ``pool``
+    ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,) or None; a
+    3-D ``y`` (S, M, N) takes a (S, 1, 1) ``scale``, one per slice, and
+    returns (S, out_rows, N) with every mode applied per slice, or with
+    ``heads`` (no pool) (S / heads, M, heads * N), the heads merged.  ``pool``
     max/avg reduce ``window x window`` blocks of each image's
     ``img_hw x img_hw`` rows (M = B * img_hw^2, output
     (B * (img_hw // window)^2, N)); ``seqmean`` averages each sequence's
@@ -251,12 +279,12 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if y.dim() not in (2, 3):
         raise ValueError(f"fb_epilogue: y must be (M, N) or (S, M, N), got "
                          f"{tuple(y.shape)}")
-    M, N = y.shape[-2:]
-    _check_modes(M, N, act=act, pool=pool, window=window, img_hw=img_hw,
-                 softmax=softmax, norm=norm, gamma=gamma, beta=beta)
+    _check_modes(y, act=act, pool=pool, window=window, img_hw=img_hw,
+                 softmax=softmax, norm=norm, gamma=gamma, beta=beta,
+                 heads=heads)
     kw = dict(act=act, pool=pool, window=window, img_hw=img_hw,
               softmax=softmax, norm=norm, gamma=gamma, beta=beta,
-              post_scale=post_scale)
+              post_scale=post_scale, heads=heads)
     if y.is_cuda:
         return _launch(y, scale, bias, residual, **kw)
     return fb_epilogue_ref(y, scale, bias, residual, **kw)

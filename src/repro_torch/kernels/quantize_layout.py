@@ -26,12 +26,26 @@ Two gather modes:
   tokens, attention's per-(batch, head) left operands; the Q heads are a
   permuted view of the fused projection).
 
-With ``w_amax=`` (a weight-mounted stage's amax, a one-element tensor) and
-``weight_bits`` it also returns ``requant``, (1, 1) float32: bit for bit
-``core.crossbar.dequant_scale(amax, w_amax, bits, weight_bits)``, the form
-jitted XLA makes of the static stage's ``xs * quantize_scale(w_amax)``
-(``src/repro/program/execute.py:170-171``).  The executor's dynamic
-stages keep the plain product of the two scales and pass no ``w_amax``.
+With ``w_amax=`` and ``weight_bits`` it also returns ``requant``, the
+stage's requant factor, float32:
+
+* a weight-mounted stage passes its mount's amax, a one-element tensor,
+  and gets (1, 1): bit for bit ``core.crossbar.dequant_scale(amax, w_amax,
+  bits, weight_bits)``, the form jitted XLA makes of the static stage's
+  ``xs * quantize_scale(w_amax)`` (``src/repro/program/execute.py:170-171``);
+* a dynamic (attention) stage's left operand, ``per_slice=True``, passes
+  the right operand's per-slice amax (one a slice) and gets (S, 1, 1): the
+  plain product ``quantize_scale(amax, bits) * quantize_scale(w_amax,
+  weight_bits)`` slice by slice, which XLA does not reassociate under
+  ``jax.vmap`` (``:127``; ``requant_plain``).
+
+A dynamic stage makes two calls: its right operand first (the K-major
+view of K or Vᵀ at ``bits=weight_bits``, per slice: the output is
+``crossbar_gemm``'s ``wt``, the function ``jax.vmap(plane_pack)`` then
+``kernel_layout`` computes), then its left operand with that call's amax
+as ``w_amax``.  The second call's first kernel reads ``w_amax`` only
+after the first call's last kernel has finished (no programmatic
+dependent launch crosses calls).
 
 For a CUDA tensor the wrapper launches ``csrc/quantize_layout.cu`` and
 adds one to ``quantize_layout.launches`` (one a call, whatever the path);
@@ -131,6 +145,16 @@ def requant_c(bits: int, weight_bits: int) -> float:
     return float(np.float32(inv_qmax(bits)) * np.float32(inv_qmax(weight_bits)))
 
 
+def requant_plain(amax: torch.Tensor, w_amax: torch.Tensor, bits: int = 8,
+                  weight_bits: int = 8) -> torch.Tensor:
+    """A dynamic stage's per-slice requant factor, (S, 1, 1): the plain
+    product ``quantize_scale(amax, bits) * quantize_scale(w_amax,
+    weight_bits)`` of each slice's two scales."""
+    return (quantize_scale(amax, bits)
+            * quantize_scale(w_amax.reshape(amax.shape), weight_bits)
+            ).reshape(-1, 1, 1)
+
+
 def requant_factor(amax: torch.Tensor, w_amax: torch.Tensor, bits: int = 8,
                    weight_bits: int = 8) -> torch.Tensor:
     """A static stage's requant factor, (1, 1): ``(max(amax, 1e-8) *
@@ -220,7 +244,7 @@ def quantize_layout_ref(x: torch.Tensor, K: int, *, bits: int = 8,
     once (a conv's input as an int8 image), then gathered and scattered
     into the layout; with ``w_amax`` the requant factor beside them."""
     kc, _ = _geometry(x, K, conv)
-    _check_requant(w_amax, per_slice)
+    _check_requant(x, conv, w_amax, per_slice)
     rows, exact = _branch(K, rows, adc_bits, None)
     q_max = qmax(bits)
     if conv is not None:
@@ -247,18 +271,27 @@ def quantize_layout_ref(x: torch.Tensor, K: int, *, bits: int = 8,
     out = (_scatter(q, K, rows, exact), amax)
     if w_amax is None:
         return out
-    return (*out, requant_factor(amax, w_amax, bits, weight_bits))
+    factor = requant_plain if per_slice else requant_factor
+    return (*out, factor(amax, w_amax, bits, weight_bits))
 
 
-def _check_requant(w_amax: torch.Tensor | None, per_slice: bool) -> None:
+def _slices(x: torch.Tensor, conv, per_slice: bool) -> int:
+    """Amaxes a call writes: one a slice, or one."""
+    return int(np.prod(x.shape[:-2])) if per_slice and conv is None else 1
+
+
+def _check_requant(x: torch.Tensor, conv, w_amax: torch.Tensor | None,
+                   per_slice: bool) -> None:
+    """``w_amax``: one float32 a slice of ``x`` (per slice), else one."""
     if w_amax is None:
         return
-    if per_slice:
-        raise ValueError("quantize_layout: the requant factor is a static "
-                         "stage's (one amax), not per slice")
-    if w_amax.numel() != 1 or w_amax.dtype != torch.float32:
-        raise ValueError(f"quantize_layout: w_amax is one float32, got "
-                         f"{tuple(w_amax.shape)} {w_amax.dtype}")
+    if per_slice and conv is not None:
+        raise ValueError("quantize_layout: a per-slice requant factor "
+                         "takes a strided view, not a conv")
+    n = _slices(x, conv, per_slice)
+    if w_amax.numel() != n or w_amax.dtype != torch.float32:
+        raise ValueError(f"quantize_layout: w_amax is {n} float32 (one a "
+                         f"slice), got {tuple(w_amax.shape)} {w_amax.dtype}")
 
 
 class Plan(NamedTuple):
@@ -304,7 +337,7 @@ def plan(x: torch.Tensor, K: int, *, rows: int = 512, adc_bits: int = 9,
     _, lead = _geometry(x, K, conv)
     rows, exact = _branch(K, rows, adc_bits, None)
     kk = _kernel_k(K, rows, exact)
-    slices = int(np.prod(x.shape[:-2])) if per_slice and conv is None else 1
+    slices = _slices(x, conv, per_slice)
     elems = _covered_elems(x, conv) // slices
     words = int(np.prod(lead)) * (kk // 16) // slices
     image = conv is not None and conv[0] > 1
@@ -379,14 +412,16 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
     amax = torch.empty(slices, dtype=torch.float32, device=x.device)
     requant = None
     if w_amax is not None:
-        if w_amax.device != x.device:
-            raise ValueError(f"quantize_layout: w_amax on {w_amax.device}, "
-                             f"x on {x.device}")
-        requant = torch.empty(1, 1, dtype=torch.float32, device=x.device)
+        if w_amax.device != x.device or not w_amax.is_contiguous():
+            raise ValueError(f"quantize_layout: w_amax must be contiguous "
+                             f"on {x.device}, got {w_amax.device}")
+        shape = (_slices(x, conv, True), 1, 1) if per_slice else (1, 1)
+        requant = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         out.zero_(), amax.zero_()
+        factor = requant_plain if per_slice else requant_factor
         return (out, amax) if requant is None else (
-            out, amax, requant_factor(amax, w_amax, bits, weight_bits))
+            out, amax, factor(amax, w_amax, bits, weight_bits))
     _offsets_fit(x)
     n_slices = int(np.prod(x.shape[:-2])) if conv is None else 1
     if n_slices > 65535:
@@ -402,8 +437,10 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
         image = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
         table = torch.empty(kk, dtype=torch.int16, device=x.device)
     lib = _lib()
+    req_c = inv_qmax(weight_bits) if per_slice else requant_c(bits,
+                                                              weight_bits)
     head = (x.data_ptr(), out.data_ptr(), amax.data_ptr(), _ptr(requant),
-            _ptr(w_amax), requant_c(bits, weight_bits), _ptr(partials))
+            _ptr(w_amax), req_c, _ptr(partials))
     layout = (kk, rows, _up32(rows), int(exact), qmax(bits), inv_qmax(bits),
               int(pl.one_launch), pl.blocks, pl.cluster,
               _build.stream_handle())
@@ -432,18 +469,19 @@ def quantize_layout(x: torch.Tensor, K: int, *, bits: int = 8,
                     weight_bits: int = 8) -> tuple[torch.Tensor, ...]:
     """A stage's float32 input -> (int8 operand in the kernel layout of a
     ``crossbar_gemm`` call of contraction length ``K``, f32 amax), and
-    with ``w_amax`` the (1, 1) requant factor third.
+    with ``w_amax`` the requant factor third: (1, 1), or per slice (S, 1,
+    1), the plain product (module docstring).
 
     ``rows`` and ``adc_bits`` pick the branch as ``crossbar_gemm``
     does (``clip_possible``); ``bits`` is the input width, ``weight_bits``
     the mounted weight's.  ``conv=(k, stride, pad)`` takes NHWC ``x``
     through its patches; otherwise the last two dims of ``x`` are the
     operand's (R, k), any leading ones its slices, and ``per_slice=True``
-    gives each slice its own amax (and takes no ``w_amax``).  CUDA
-    tensors run the kernel, CPU tensors the plain version.
+    gives each slice its own amax (and takes one ``w_amax`` a slice).
+    CUDA tensors run the kernel, CPU tensors the plain version.
     """
     kc, lead = _geometry(x, K, conv)
-    _check_requant(w_amax, per_slice)
+    _check_requant(x, conv, w_amax, per_slice)
     rows, exact = _branch(K, rows, adc_bits, None)
     if x.is_cuda:
         return _launch(x, K, kc, lead, bits=bits, rows=rows,

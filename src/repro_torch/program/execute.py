@@ -18,13 +18,21 @@ stage (``_static_stage``):
   residual, ReLU, pooling, softmax) over the int32 GEMM output.
 
 Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
-activations instead of weights: per (batch, head) slice, the Q·Kᵀ or
-P·V right-hand operand is quantized and mounted with ``plane_pack``,
-the left-hand one quantized with its own scale (one ``quantize_layout``
-call for all slices), and all slices run in one batched
-``crossbar_gemm`` launch and one batched ``fb_epilogue`` launch (the
-counterpart of the JAX executor's ``jax.vmap``), with the contraction
-sized to the runtime head dim or sequence length.
+activations instead of weights, per (batch, head) slice, in four kernel
+calls for all slices (the counterpart of the JAX executor's ``jax.vmap``,
+the contraction sized to the runtime head dim or sequence length):
+
+* one ``quantize_layout`` call mounts the Q·Kᵀ or P·V right-hand
+  operand at ``weight_bits`` (what ``plane_pack`` and the pad to the
+  kernel layout compute), read K-major as it lies in the fused
+  projection: the K heads, or V's transposed heads;
+* one ``quantize_layout`` call quantizes the left-hand operand (the Q
+  heads, or the probabilities), each slice with its own scale, and
+  writes the requant factor from the right operand's per-slice amax:
+  the plain product of the two quantize scales, which XLA does not
+  reassociate under ``jax.vmap``;
+* one batched ``crossbar_gemm`` call and one batched ``fb_epilogue``
+  call (no bias; the context stored with its heads merged).
 
 Buffers are dropped as soon as no later stage reads them.  On a CUDA
 device the three calls launch the hand-written kernels; on the CPU they
@@ -38,14 +46,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.crossbar import quantize_scale
-from repro_torch.kernels.crossbar_gemm import crossbar_gemm, kernel_layout
+from repro_torch.kernels.crossbar_gemm import crossbar_gemm
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 from repro_torch.kernels.quantize_layout import quantize_layout
 
 from .compile import CrossbarProgram, ProgramOp
-from .pack import PackedProgram, PackedStage, pack_program, plane_pack
-from .sequence import merge_heads, qkv_head_views, tokens
+from .pack import PackedProgram, PackedStage, pack_program
+from .sequence import qkv_head_views, tokens
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -83,57 +90,54 @@ def _last_reads(stages) -> dict[str, int]:
 
 
 def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int,
+                          int]:
     """A dynamic stage's operands, mounted slice by slice.
 
-    Returns ``(a8 (S, M, Kk) int8, w8 (S, K_pad, N) int8, scale (S, 1, 1)
-    f32, rows)``: per (batch, head) slice the left operand is quantized
-    with its own scale and the right one mounted with ``plane_pack``, as
-    ``jax.vmap`` over the JAX executor's per-slice function computes.
-    ``a8`` comes from one ``quantize_layout`` call, already in the kernel
-    layout of K_pad (Kk: ``kernel_layout(a8_padded, K_pad, rows=rows,
-    adc_bits=...)``); for Q·Kᵀ it reads the Q heads as they lie in the
-    fused projection.  The right operand is mounted K-major, the form
-    the kernel takes: ``w8`` is the transposed view of a contiguous (S, N,
-    K_pad) tensor (for Q·Kᵀ the key block itself, for P·V it is Vᵀ).
+    Returns ``(a8 (S, M, Kk) int8, wt (S, N, Kk) int8, scale (S, 1, 1)
+    f32, rows, K_pad)``, what ``jax.vmap`` over the JAX executor's
+    per-slice function computes, laid out for the kernel.  ``wt`` is the
+    right operand from one ``quantize_layout`` call at ``weight_bits``
+    on its K-major view (Q·Kᵀ: the K heads, (B, H, T, hd); P·V: V's
+    transposed heads, (B, H, hd, T), a stride of 3D along k), one amax a
+    slice: ``plane_pack``'s planes in the kernel layout of K_pad, the
+    contraction padded to whole ``rows``-row mounts.  ``a8`` and the
+    requant factor come from a second call on the left operand (the Q
+    heads as they lie in the fused projection, or the probabilities),
+    given the first call's amax: ``scale`` is the plain product
+    ``quantize_scale(a_amax) * quantize_scale(w_amax)``.  Views only
+    besides the two calls.
     """
     if gemm.dyn == "qk":
         q, k, _ = qkv_head_views(tokens(bufs[gemm.src]), gemm.heads)
-        a, wk = q, k.flatten(0, 1)               # (B, H, T, hd), Kᵀ K-major
+        a, wk = q, k                             # Kᵀ K-major: the K heads
     elif gemm.dyn == "pv":
         a = bufs[gemm.src]                       # (BH, T, T) probabilities
         _, _, v = qkv_head_views(tokens(bufs[gemm.dyn_src]), gemm.heads)
-        wk = v.flatten(0, 1).transpose(1, 2)     # (BH, hd, T): V K-major
+        wk = v.mT                                # (B, H, hd, T): V K-major
     else:  # pragma: no cover - compile_network emits only qk/pv
         raise ValueError(gemm.dyn)
     rows = min(gemm.tile_rows, a.shape[-1])      # dynamic mount height
-    w8t, w_amax = plane_pack(wk, tile_rows=rows,
-                             weight_bits=cfg.weight_bits, k_major=True)
-    a8, a_amax = quantize_layout(a, w8t.shape[2], bits=cfg.input_bits,
-                                 rows=rows, adc_bits=cfg.adc_bits,
-                                 per_slice=True)
-    a8, a_amax = a8.flatten(0, -3), a_amax.flatten()
-    # under jax.vmap XLA keeps ``ascale * ws`` a plain product of the two
-    # quantize scales, not ``dequant_scale``'s reassociated form
-    scale = (quantize_scale(a_amax, cfg.input_bits)
-             * quantize_scale(w_amax, cfg.weight_bits))
-    return a8, w8t.mT, scale.reshape(-1, 1, 1), rows
+    K = -(-a.shape[-1] // rows) * rows           # full mounts
+    layout = dict(rows=rows, adc_bits=cfg.adc_bits, per_slice=True)
+    wt, w_amax = quantize_layout(wk, K, bits=cfg.weight_bits, **layout)
+    a8, _, scale = quantize_layout(a, K, bits=cfg.input_bits, w_amax=w_amax,
+                                   weight_bits=cfg.weight_bits, **layout)
+    return a8.flatten(0, -3), wt.flatten(0, -3), scale, rows, K
 
 
 def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
                cfg) -> torch.Tensor:
     """One dynamic-operand GEMM stage (attention Q·Kᵀ or P·V): the
     slices' mounts (``dyn_mounts``), then one crossbar GEMM launch and
-    one epilogue launch for all of them."""
-    a8, w8, scale, rows = dyn_mounts(gemm, bufs, cfg)
-    wt = kernel_layout(w8.mT, w8.shape[1], rows=rows, adc_bits=cfg.adc_bits)
-    y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows, wt=wt)
-    out = fb_epilogue(y, scale, torch.zeros(w8.shape[2], device=y.device),
-                      None, softmax=any(p.kind == "softmax" for p in posts),
-                      post_scale=gemm.post_scale)
-    if gemm.dyn == "pv":                         # heads rejoin the model dim
-        out = merge_heads(out, gemm.heads)
-    return out
+    one epilogue launch for all of them, the context stored with its
+    heads merged, (B, T, heads * hd)."""
+    a8, wt, scale, rows, K = dyn_mounts(gemm, bufs, cfg)
+    y = crossbar_gemm(a8, adc_bits=cfg.adc_bits, rows=rows, wt=wt, K=K)
+    return fb_epilogue(y, scale, None, None,
+                       softmax=any(p.kind == "softmax" for p in posts),
+                       post_scale=gemm.post_scale,
+                       heads=gemm.heads if gemm.dyn == "pv" else 0)
 
 
 def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],

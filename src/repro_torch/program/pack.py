@@ -15,7 +15,8 @@ mount_weight``), a derived copy that nothing compares or saves.
 Packing runs on the device the parameters live on; the hot loop then
 only quantizes activations.  Dynamic-operand (attention) stages own no
 weights and pack as empty placeholders; the executor mounts their
-runtime operands with the same ``plane_pack``, over a slice axis.
+runtime operands with ``kernels.quantize_layout``, which computes what
+``plane_pack`` over a slice axis computes, straight in the kernel layout.
 """
 
 from __future__ import annotations
@@ -78,8 +79,8 @@ class PackedProgram:
         return self.program.cfg
 
 
-def plane_pack(w: torch.Tensor, *, tile_rows: int, weight_bits: int = 8,
-               k_major: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def plane_pack(w: torch.Tensor, *, tile_rows: int, weight_bits: int = 8
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mount a (K, N) float matrix: -> (int8 planes (K_pad, N), f32 amax).
 
     Symmetric per-tensor int8 quantization at ``weight_bits``, K
@@ -88,15 +89,10 @@ def plane_pack(w: torch.Tensor, *, tile_rows: int, weight_bits: int = 8,
     A (S, K, N) stack of runtime operands mounts slice by slice, in one
     pass: one int8 plane matrix and one ``amax`` per slice, -> ((S,
     K_pad, N), (S,)), what ``plane_pack`` under ``jax.vmap`` computes.
-    ``k_major=True`` takes the matrix transposed, (..., N, K), and returns
-    its planes so, (..., N, K_pad) contiguous: the kernel's operand form.
     """
     amax = w.abs().amax(dim=(-2, -1))
     scale = quantize_scale(amax, weight_bits)[..., None, None]
     wq = quantize_with_scale(w, scale, weight_bits)
-    if k_major:
-        wq = F.pad(wq, (0, -w.shape[-1] % tile_rows))
-        return wq.to(torch.int8).contiguous(), amax.float()
     wq = F.pad(wq, (0, 0, 0, -w.shape[-2] % tile_rows))
     return wq.to(torch.int8), amax.float()
 

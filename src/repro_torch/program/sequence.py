@@ -2,8 +2,10 @@
 
 The port of ``repro.program.sequence``.  ``attn_scale`` is what the
 compiler folds into the scores stage; the layout helpers are what the
-executor's dynamic-operand (attention) stages split and merge heads
-with.  Reshape/transpose only, plus one Python float constant.
+executor's dynamic-operand (attention) stages split heads with, and
+the functional model merges them with (the executor's context stage
+stores them merged).  Reshape/transpose only, plus one Python float
+constant.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+# one implementation, the epilogue kernel's plain version's
+from repro_torch.kernels.fb_epilogue import merge_heads  # noqa: F401
 
 
 def attn_scale(head_dim: int) -> float:
@@ -48,9 +53,3 @@ def split_qkv_heads(qkv: torch.Tensor, heads: int
     return tuple(u.flatten(0, 1) for u in qkv_head_views(qkv, heads))
 
 
-def merge_heads(ctx: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B*heads, T, hd) attention context -> (B, T, heads*hd)."""
-    bh, T, hd = ctx.shape
-    B = bh // heads
-    return (ctx.reshape(B, heads, T, hd).permute(0, 2, 1, 3)
-            .reshape(B, T, heads * hd))

@@ -1297,6 +1297,12 @@ QL_CASES = {
     "tokens": ((192, 192), dict(bits=4), 494),
     "qk-view": ((2, 16, 360), dict(rows=40, adc_bits=5, per_slice=True), 40),
     "pv": ((6, 40, 40), dict(rows=40, per_slice=True), 40),
+    # a dynamic stage's right operand, read K-major as it lies in the
+    # fused projection: the K heads (vit_tiny b16's), and V's transposed
+    # heads, a stride of 3D along k, at 4 bits on the sliced branch
+    "k-heads": ((16, 64, 576), dict(rows=64, per_slice=True), 64),
+    "v-heads-w4": ((2, 64, 576), dict(rows=64, adc_bits=6, per_slice=True,
+                                      bits=4), 64),
     # x / scale within an ulp of half-integers: where the kernel's
     # multiply by 1/scale is not enough and the true division decides
     "near-ties": ((64, 1000), dict(rows=494), 1482),
@@ -1317,6 +1323,9 @@ QL_CASES = {
 # QL_CASES whose operand has one amax: the requant factor is asked too
 QL_STATIC = [c for c, (_, kw, _) in QL_CASES.items()
              if not kw.get("per_slice")]
+# per-slice QL_CASES of a dynamic stage's left operand: the per-slice
+# requant factor is asked, from a right operand's amax (one a slice)
+QL_DYN_LEFT = ["qk-view", "pv"]
 
 
 def near_ties(shape, g, device, bits=8, amax=3.0):
@@ -1343,9 +1352,13 @@ def _ql_input(name, shape, g, device):
         x[0, 6, 31, 5] = -40.0
     if name.startswith("channel-slice"):
         return x[..., :8]                       # strides of 12 channels
+    from repro_torch.program.sequence import qkv_head_views
     if name == "qk-view":                       # the Q heads, permuted
-        from repro_torch.program.sequence import qkv_head_views
         return qkv_head_views(x, 3)[0]
+    if name == "k-heads":
+        return qkv_head_views(x, 3)[1]
+    if name.startswith("v-heads"):              # Vᵀ, K-major
+        return qkv_head_views(x, 3)[2].mT
     return x
 
 
@@ -1366,7 +1379,8 @@ def test_quantize_layout_kernel_equals_plain(cuda, case, path, monkeypatch):
     the amax partials then quantize, or image and gather; a 1x1 conv takes
     the multi-pass path whatever the limit); where the
     operand has one amax, the requant factor too (``w_amax`` below 1e-8
-    for the conv geometries)."""
+    for the conv geometries), and for a dynamic stage's left operand the
+    per-slice factor from a ``w_amax`` a slice (some below 1e-8)."""
     from repro_torch.kernels.quantize_layout import plan
     qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
     shape, kw, K = QL_CASES[case]
@@ -1376,6 +1390,11 @@ def test_quantize_layout_kernel_equals_plain(cuda, case, path, monkeypatch):
         w_amax = torch.tensor(3e-9 if case.startswith("conv") else 2.75,
                               device=cuda)
         kw = dict(kw, w_amax=w_amax, weight_bits=4 if "a4" in case else 8)
+    if case in QL_DYN_LEFT:
+        slices = int(np.prod(x.shape[:-2]))
+        w_amax = torch.rand(slices, generator=g, device=cuda) * 3
+        w_amax[::4] = 5e-9
+        kw = dict(kw, w_amax=w_amax, weight_bits=4)
     geo = {k: v for k, v in kw.items() if k in ("rows", "adc_bits", "conv",
                                                 "per_slice")}
     if case.startswith("threshold"):       # sized to ONE_LAUNCH_MAX = 2^16
@@ -1392,7 +1411,7 @@ def test_quantize_layout_kernel_equals_plain(cuda, case, path, monkeypatch):
     want = quantize_layout_ref(x, K, **kw)
     torch.cuda.synchronize()
     _held_equal(got, want)
-    assert len(got) == (3 if case in QL_STATIC else 2)
+    assert len(got) == (3 if case in QL_STATIC + QL_DYN_LEFT else 2)
     if case.startswith(("odd-row", "partly-covered")):
         assert got[1] < 40.0
 
@@ -1524,10 +1543,12 @@ def _spied_quantize_layout(monkeypatch):
 @pytest.mark.parametrize("net", ["resnet18", "vit_tiny"])
 def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
     """ResNet-18 and vit_tiny at batch 16, eager ``execute_packed``: one
-    ``quantize_layout`` launch per stage (static and dynamic), each call
-    at the stage's full size ``torch.equal`` to the plain version (the
-    static stages' requant factor too), and no CUDA tensor reaches the
-    plain version from the executor."""
+    ``quantize_layout`` launch per static stage and two per dynamic stage
+    (its right operand, then its left one, given the right one's amax),
+    each call at the stage's full size ``torch.equal`` to the plain
+    version (every requant factor too: the static stages', the dynamic
+    stages' per-slice product), and no CUDA tensor reaches the plain
+    version from the executor."""
     from repro_torch.program.execute import execute_packed
     model = api.compile(net, api.HurryConfig(), seed=0, device="cuda")
     x = torch.randn(model.program.input_shape(16), device=cuda,
@@ -1537,9 +1558,140 @@ def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
     execute_packed(model.packed, x, return_logits=True)
     torch.cuda.synchronize()
     n = len(model.program.stages())
-    assert quantize_layout.launches == before + n == before + len(calls)
-    assert ref_devices == []
     n_dyn = sum(g.kind == "dyn_gemm" for g, _ in model.program.stages())
-    assert sum("w_amax" in kw for _, _, kw, _ in calls) == n - n_dyn
+    assert quantize_layout.launches == before + n + n_dyn
+    assert len(calls) == n + n_dyn
+    assert ref_devices == []
+    assert sum("w_amax" in kw for _, _, kw, _ in calls) == n
+    dyn = [c for c in calls if c[2].get("per_slice")]
+    assert len(dyn) == 2 * n_dyn
+    for (_, _, rkw, right), (_, _, lkw, left) in zip(dyn[0::2], dyn[1::2]):
+        assert "w_amax" not in rkw and lkw["w_amax"] is right[1]
+        assert left[2].shape == (left[1].numel(), 1, 1)
     for xin, K, kw, got in calls:
         _held_equal(got, real_ref(xin, K, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc_bits", [9, 6])
+def test_dyn_stages_on_the_card_equal_the_plain_versions(cuda, adc_bits,
+                                                        monkeypatch):
+    """vit_tiny b16's dynamic stages on the card, each of their four calls
+    held against its plain version on the same card tensors: the two
+    ``quantize_layout`` calls (``test_executor_left_operands_on_the_
+    kernel``), ``crossbar_gemm`` on ``wt`` and K alone, and
+    ``fb_epilogue`` with no bias, the context's heads merged on store;
+    the stage's output is also the CPU path's stage output on the same
+    buffers (int32 equal, so the context bit for bit, the probabilities
+    to the softmax's 1e-6)."""
+    execute = importlib.import_module("repro_torch.program.execute")
+    cfg_kw = dict(adc_bits=adc_bits)
+    if adc_bits == 6:
+        cfg_kw.update(input_bits=4, weight_bits=4)     # sliced, 4-bit
+    model = api.compile("vit_tiny", api.HurryConfig(**cfg_kw), seed=0,
+                        device="cuda")
+    cfg = model.program.cfg
+    x = torch.randn(model.program.input_shape(16), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    seen, calls = [], []
+    real = (execute._dyn_stage, execute.crossbar_gemm, execute.fb_epilogue)
+
+    def stage(gemm, posts, bufs, cfg):
+        seen.append((gemm, posts, dict(bufs)))
+        return real[0](gemm, posts, bufs, cfg)
+
+    monkeypatch.setattr(execute, "_dyn_stage", stage)
+    execute.execute_packed(model.packed, x, return_logits=True)
+    monkeypatch.setattr(execute, "_dyn_stage", real[0])
+
+    def gemm(x8, w8=None, **kw):
+        y = real[1](x8, w8, **kw)
+        calls.append(("gemm", x8, kw, y))
+        return y
+
+    def fb(y, scale, bias, res=None, **kw):
+        out = real[2](y, scale, bias, res, **kw)
+        calls.append(("fb", (y, scale, bias), kw, out))
+        return out
+
+    monkeypatch.setattr(execute, "crossbar_gemm", gemm)
+    monkeypatch.setattr(execute, "fb_epilogue", fb)
+    assert len(seen) == 4
+    for op, posts, bufs in seen:
+        calls.clear()
+        before = crossbar_gemm.launches, fb_epilogue.launches
+        got = execute._dyn_stage(op, posts, bufs, cfg)
+        assert (crossbar_gemm.launches, fb_epilogue.launches) == (
+            before[0] + 1, before[1] + 1)
+        (_, x8, gkw, y), (_, fargs, fkw, out) = calls
+        assert gkw.get("K") and gkw["wt"].is_cuda
+        # the plain version of the wt-only call: x8 against wt.mT in
+        # chunks of up32(rows)
+        r32 = -(-gkw["rows"] // 32) * 32
+        want_y = (crossbar_gemm_exact_ref(x8, gkw["wt"].mT)
+                  if not clip_possible(gkw["rows"], adc_bits)
+                  else crossbar_gemm_ref(x8, gkw["wt"].mT,
+                                         adc_bits=adc_bits, rows=r32))
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y)
+        assert fargs[2] is None
+        assert fkw.get("heads") == (op.heads if op.dyn == "pv" else 0)
+        want = fb_epilogue_ref(*fargs, **fkw)
+        torch.testing.assert_close(out, want, rtol=0,
+                                   atol=1e-6 if fkw.get("softmax") else 0)
+        cpu = real[0](op, posts, {k: v.cpu() for k, v in bufs.items()},
+                      cfg)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=0,
+                                   atol=1e-6 if op.dyn == "qk" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,heads", [(64, 3), (16, 3), (19, 2)])
+@pytest.mark.parametrize("softmax", [False, True])
+def test_fb_epilogue_heads_merged_on_store(cuda, N, heads, softmax):
+    """The batched epilogue with no bias and ``heads``: one launch, its
+    output (S / heads, M, heads * N) ``torch.equal`` to the same call with
+    a zero bias and no heads, merged (the 16-byte path at N 64 and 16,
+    the scalar one at 19; the warp-per-row path with the softmax), and to
+    the plain version (the softmax to 1e-6)."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    S, M = 6 * heads, 40
+    y = torch.randint(-2 ** 16, 2 ** 16, (S, M, N), generator=g,
+                      device=cuda, dtype=torch.int32)
+    scale = torch.rand(S, 1, 1, generator=g, device=cuda) * 1e-4
+    kw = dict(softmax=softmax, post_scale=0.125 if softmax else 0.0)
+    before = fb_epilogue.launches
+    got = fb_epilogue(y, scale, None, heads=heads, **kw)
+    assert fb_epilogue.launches == before + 1
+    flat = fb_epilogue(y, scale, torch.zeros(N, device=cuda), **kw)
+    assert got.shape == (S // heads, M, heads * N)
+    assert torch.equal(got, flat.reshape(S // heads, heads, M, N)
+                       .transpose(1, 2).reshape(S // heads, M, heads * N))
+    torch.testing.assert_close(
+        got, fb_epilogue_ref(y, scale, None, heads=heads, **kw), rtol=0,
+        atol=1e-6 if softmax else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc_bits,rows,K", [(9, 64, 64), (5, 40, 80),
+                                             (6, 64, 64)])
+def test_crossbar_gemm_takes_wt_and_k_alone_on_the_card(cuda, adc_bits,
+                                                        rows, K):
+    """48 slices (vit_tiny b16's) with no (K, N) weight: x and ``wt`` in
+    the kernel layout and K; one launch, ``torch.equal`` to the call with
+    ``w`` and to the plain version."""
+    rng = np.random.default_rng(K + adc_bits)
+    S, M, N = 48, 64, 64
+    x, w = _int8((S, M, K), rng).to(cuda), _int8((S, K, N), rng).to(cuda)
+    x[:, :8] = -1
+    w[:, :, :8] = -1
+    wt = mount_weight(w, rows=rows, adc_bits=adc_bits)
+    xk = kernel_layout(x, K, rows=rows, adc_bits=adc_bits).contiguous()
+    before = crossbar_gemm.launches
+    got = crossbar_gemm(xk, adc_bits=adc_bits, rows=rows, wt=wt, K=K)
+    assert crossbar_gemm.launches == before + 1
+    assert torch.equal(got, crossbar_gemm(x, w, adc_bits=adc_bits,
+                                          rows=rows))
+    torch.cuda.synchronize()
+    assert torch.equal(got, crossbar_gemm_ref(x, w, adc_bits=adc_bits,
+                                              rows=rows))

@@ -158,6 +158,35 @@ def test_crossbar_gemm_rejects_a_wt_of_another_layout():
         crossbar_gemm(xt[:, :90], wt_, rows=40, adc_bits=5, wt=sliced)
 
 
+@pytest.mark.parametrize("adc_bits,rows", [(9, 64), (5, 40)],
+                         ids=["exact", "sliced"])
+def test_crossbar_gemm_takes_wt_and_k_alone(adc_bits, rows):
+    """A batched call with no (K, N) weight: ``wt`` (the right operand
+    mounted straight into the kernel layout, as a dynamic stage's is) and
+    the contraction length K, x in the kernel layout too, equals the call
+    with ``w`` and the Pallas kernel vmapped over the slices; without K
+    (or wt) it raises."""
+    rng = np.random.default_rng(rows)
+    S, M, K, N = 3, 16, 2 * rows, 24
+    x = rng.integers(-128, 128, (S, M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (S, K, N)).astype(np.int8)
+    xt, w8 = torch.from_numpy(x), torch.from_numpy(w)
+    wt = mount_weight(w8, rows=rows, adc_bits=adc_bits)
+    xk = kernel_layout(xt, K, rows=rows, adc_bits=adc_bits).contiguous()
+    got = crossbar_gemm(xk, adc_bits=adc_bits, rows=rows, wt=wt, K=K)
+    assert torch.equal(got, crossbar_gemm(xt, w8, adc_bits=adc_bits,
+                                          rows=rows))
+    ref = np.stack([np.asarray(jax_crossbar_gemm(
+        jnp.asarray(x[i]), jnp.asarray(w[i]), adc_bits=adc_bits, rows=rows,
+        interpret=True)) for i in range(S)])
+    np.testing.assert_array_equal(got.numpy(), ref)
+    with pytest.raises(ValueError, match="wt and K"):
+        crossbar_gemm(xk, adc_bits=adc_bits, rows=rows, wt=wt)
+    with pytest.raises(ValueError, match="do not multiply"):
+        crossbar_gemm(xt[..., :K - 1], adc_bits=adc_bits, rows=rows, wt=wt,
+                      K=K)
+
+
 # (kwargs, residual?, atol, reason) — atol 0 is bit for bit
 FB_CASES = {
     "none": (dict(), False, 0.0, "same roundings"),
@@ -225,6 +254,37 @@ def test_fb_epilogue_dequant_is_one_fused_rounding():
     assert (unfused != ref).any()
 
 
+@pytest.mark.parametrize("mode", ["none", "post_scale", "softmax"])
+@pytest.mark.parametrize("heads", [0, 3])
+def test_fb_epilogue_heads_merged_and_no_bias_equal_pallas(heads, mode):
+    """A dynamic stage's batched epilogue: (S, M, N) with a (S, 1, 1)
+    scale, no bias (the JAX executor passes zeros), and with ``heads``
+    the slices stored head-merged, (S / heads, M, heads * N): the Pallas
+    kernel vmapped over the slices with a zero bias, then the JAX
+    package's ``merge_heads``.  Bit for bit (the softmax to its
+    ``FB_CASES`` tolerance)."""
+    import jax
+    from repro.program.sequence import merge_heads as jax_merge_heads
+    kw, _, atol, _why = FB_CASES[mode]
+    S, M, N = 6, 16, 24
+    rng = np.random.default_rng(heads)
+    y = rng.integers(-2 ** 20, 2 ** 20, (S, M, N), dtype=np.int32)
+    scale = rng.uniform(1e-7, 1e-5, (S, 1, 1)).astype(np.float32)
+    run = jax.vmap(lambda y2, s2: jax_fb_epilogue(
+        y2, s2.reshape(1, 1), jnp.zeros(N, jnp.float32), None,
+        interpret=True, **kw))
+    ref = run(jnp.asarray(y), jnp.asarray(scale))
+    ref = np.asarray(jax_merge_heads(ref, heads) if heads else ref)
+    got = fb_epilogue(torch.from_numpy(y), torch.from_numpy(scale), None,
+                      heads=heads, **kw).numpy()
+    assert got.shape == ref.shape == ((S // heads, M, heads * N) if heads
+                                      else (S, M, N))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+    zeros = fb_epilogue(torch.from_numpy(y), torch.from_numpy(scale),
+                        torch.zeros(N), heads=heads, **kw)
+    assert torch.equal(torch.from_numpy(got), zeros)
+
+
 def test_fb_epilogue_rejects_bad_modes():
     y = torch.zeros(16, 4, dtype=torch.int32)
     s, b = torch.ones(1, 1), torch.zeros(4)
@@ -234,3 +294,11 @@ def test_fb_epilogue_rejects_bad_modes():
         fb_epilogue(y, s, b, norm="layer")
     with pytest.raises(ValueError, match="act"):
         fb_epilogue(y, s, b, act="tanh")
+    y3 = torch.zeros(6, 16, 4, dtype=torch.int32)
+    s3 = torch.ones(6, 1, 1)
+    with pytest.raises(ValueError, match="heads"):
+        fb_epilogue(y3, s3, None, heads=4)      # 6 slices
+    with pytest.raises(ValueError, match="heads"):
+        fb_epilogue(y3, s3, None, heads=3, pool="max", window=2, img_hw=4)
+    with pytest.raises(ValueError, match="heads"):
+        fb_epilogue(y, s, None, heads=1)        # no slice axis

@@ -9,9 +9,12 @@ against what the JAX executor computes under ``jax.jit``:
 ``repro.program.execute.im2col`` (or the flatten, the tokens, the
 attention heads), ``repro.core.crossbar.quantize_symmetric`` (per slice
 under ``jax.vmap`` for attention), the ``jnp.pad`` to full mounts, then
-the port's ``kernel_layout``.  The int8 operand and the amax must be
-equal, element for element; a static stage's requant factor equal to
-the jitted product ``quantize_symmetric(xin)[1] * quantize_scale(w_amax)``.
+the port's ``kernel_layout``; for a dynamic stage's right operand,
+``jax.vmap(plane_pack)`` laid out the same way.  The int8 operand and
+the amax must be equal, element for element; a static stage's requant
+factor equal to the jitted product ``quantize_symmetric(xin)[1] *
+quantize_scale(w_amax)``, a dynamic stage's per-slice factor to the
+vmapped ``ascale * ws``.
 The kernel itself is held against the plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 29); here also the
 path it takes (``plan``), from the geometry alone.
@@ -26,15 +29,19 @@ import torch
 from repro.core.crossbar import quantize_scale as jax_quantize_scale
 from repro.core.crossbar import quantize_symmetric as jax_quantize_symmetric
 from repro.program.execute import im2col as jax_im2col
+from repro.program.pack import plane_pack as jax_plane_pack
 from repro.program.sequence import split_qkv_heads as jax_split_qkv_heads
+from repro_torch import api as tapi
 from repro_torch.core.crossbar import dequant_scale
-from repro_torch.kernels import clip_possible, kernel_layout, quantize_layout
+from repro_torch.kernels import (clip_possible, kernel_layout, mount_weight,
+                                 quantize_layout)
 from repro_torch.kernels.quantize_layout import (ONE_LAUNCH_MAX, conv_out,
                                                  covered, device_kernels,
                                                  plan, quantize_layout_ref,
                                                  quantize_scale)
 from repro_torch.program.sequence import qkv_head_views
 
+from test_torch_cuda import WIDTHS
 from test_torch_executable import IM2COL_CASES
 
 # (rows, adc_bits): the exact layout (494 rows, the program's mount
@@ -216,6 +223,111 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# a dynamic stage's right operand and its per-slice requant factor
+# ---------------------------------------------------------------------------
+
+# the vit configurations of tests/test_torch_sequence.py's teacher-forced
+# test: (vit_tiny_graph kwargs, HurryConfig kwargs)
+VIT_CONFIGS = {
+    "small": (dict(depth=1, dim=48, heads=3), dict()),
+    "small-adc5": (dict(depth=1, dim=48, heads=3), dict(adc_bits=5)),
+    "full-width": (dict(), dict()),
+    "full-width-w4a4-adc6": (dict(), WIDTHS["w4a4_adc6"]),
+}
+
+
+def _dyn_stages(config):
+    """A compiled vit_tiny's dynamic stages (CPU), its config and its
+    model dim (64 tokens at the default patch and input size)."""
+    graph_kw, cfg_kw = VIT_CONFIGS[config]
+    model = tapi.compile(tapi.vit_tiny_graph(**graph_kw),
+                         tapi.HurryConfig(**cfg_kw), seed=0, device="cpu")
+    return ([g for g, _ in model.program.stages() if g.kind == "dyn_gemm"],
+            model.program.cfg, graph_kw.get("dim", 192))
+
+
+@pytest.mark.parametrize("dyn", ["qk", "pv"])
+@pytest.mark.parametrize("config", list(VIT_CONFIGS))
+def test_right_operand_equals_the_jax_plane_pack(config, dyn):
+    """The right operand mounted by ``quantize_layout`` on its K-major
+    view as it lies in a (B, T, 3D) fused projection (Q·Kᵀ: the K heads,
+    (B, H, T, hd); P·V: V's transposed heads, (B, H, hd, T), a stride of
+    3D along k) at ``weight_bits``, per slice: the planes and amaxes of
+    the JAX package's jitted ``jax.vmap(plane_pack)`` over (BH, K, N),
+    laid out by ``kernel_layout`` (``mount_weight``), element for
+    element."""
+    gemms, cfg, dim = _dyn_stages(config)
+    gemm = next(g for g in gemms if g.dyn == dyn)
+    qkv = _image((2, 64, 3 * dim), 31 + len(config))
+    _, k, v = jax_split_qkv_heads(jnp.asarray(qkv), gemm.heads)
+    w = jnp.swapaxes(k, 1, 2) if dyn == "qk" else v       # (BH, K, N)
+    rows = min(gemm.tile_rows, w.shape[1])
+    run = jax.jit(jax.vmap(lambda w2: jax_plane_pack(
+        w2, tile_rows=rows, weight_bits=cfg.weight_bits)))
+    jw8, jamax = (np.array(t) for t in run(w))
+    K = jw8.shape[1]
+    _, kv, vv = qkv_head_views(torch.from_numpy(qkv), gemm.heads)
+    view = kv if dyn == "qk" else vv.mT
+    assert not view.is_contiguous()             # read as it lies
+    if dyn == "pv":
+        assert view.stride(-1) == 3 * dim
+    wt, amax = quantize_layout_ref(view, K, bits=cfg.weight_bits, rows=rows,
+                                   adc_bits=cfg.adc_bits, per_slice=True)
+    want = mount_weight(torch.from_numpy(jw8), rows=rows,
+                        adc_bits=cfg.adc_bits)
+    _held((wt.flatten(0, 1), amax.flatten()), (want.numpy(), jamax))
+
+
+@pytest.mark.parametrize("amaxes", ["plain", "a-below-floor",
+                                    "w-below-floor"])
+@pytest.mark.parametrize("weight_bits", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_per_slice_requant_equals_the_vmapped_product(bits, weight_bits,
+                                                      amaxes):
+    """A dynamic stage's two calls, the right operand first: the left
+    call's third output, given the right call's per-slice amax as
+    ``w_amax``, equals the JAX executor's ``ascale * quantize_scale(
+    wamax)`` under ``jax.jit(jax.vmap(...))``, (S, 1, 1) float32, bit for
+    bit, on slices of magnitudes over three decades and with either amax
+    below the 1e-8 floor; and it differs from ``dequant_scale``'s
+    reassociated form on some slices."""
+    rng = np.random.default_rng(bits * 10 + weight_bits)
+    S, M, k, N = 300, 8, 16, 8
+    mag = rng.uniform(0.01, 10, (S, 1, 1)).astype(np.float32)
+    a = rng.standard_normal((S, M, k)).astype(np.float32) * mag
+    w = rng.standard_normal((S, k, N)).astype(np.float32) * mag[::-1]
+    if amaxes == "a-below-floor":
+        a[::7] *= np.float32(1e-10)
+    elif amaxes == "w-below-floor":
+        w[::5] *= np.float32(1e-10)
+
+    @jax.jit
+    def jax_scale(a, w):
+        def one(a2, w2):
+            _, ascale = jax_quantize_symmetric(a2, bits)
+            _, wamax = jax_plane_pack(w2, tile_rows=k,
+                                      weight_bits=weight_bits)
+            return (ascale * jax_quantize_scale(wamax, weight_bits)).astype(
+                jnp.float32).reshape(1, 1)
+        return jax.vmap(one)(a, w)
+
+    want = np.asarray(jax_scale(a, w))
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    _, w_amax = quantize_layout_ref(tw.mT, k, bits=weight_bits, rows=k,
+                                    per_slice=True)
+    got = quantize_layout_ref(ta, k, bits=bits, rows=k, per_slice=True,
+                              w_amax=w_amax, weight_bits=weight_bits)
+    assert len(got) == 3 and got[2].shape == (S, 1, 1)
+    assert got[2].dtype == torch.float32
+    np.testing.assert_array_equal(got[2].numpy(), want)
+    assert (dequant_scale(got[1], w_amax, bits, weight_bits).numpy()
+            != want.ravel()).any()
+    wrapped = quantize_layout(ta, k, bits=bits, rows=k, per_slice=True,
+                              w_amax=w_amax, weight_bits=weight_bits)
+    assert all(torch.equal(x, y) for x, y in zip(wrapped, got))
+
+
+# ---------------------------------------------------------------------------
 # the requant factor of a static stage
 # ---------------------------------------------------------------------------
 
@@ -262,10 +374,17 @@ def test_requant_equals_the_jitted_static_stage_product(bits, weight_bits,
 
 
 def test_requant_is_a_static_stages_only():
+    """One ``w_amax`` a call, or per slice one a slice (a dynamic stage's
+    left operand); nothing else."""
     x = torch.from_numpy(_image((6, 40, 40), 26))
     with pytest.raises(ValueError):
         quantize_layout(x, 40, rows=40, per_slice=True,
                         w_amax=torch.tensor(1.0))
+    with pytest.raises(ValueError):
+        quantize_layout(x[None].expand(2, -1, -1, -1), 40, rows=40,
+                        conv=(1, 1, 0), per_slice=True, w_amax=torch.ones(1))
+    assert quantize_layout(x, 40, rows=40, per_slice=True,
+                           w_amax=torch.ones(6))[2].shape == (6, 1, 1)
     with pytest.raises(ValueError):
         quantize_layout(x[0], 40, rows=40, w_amax=torch.ones(2))
     assert len(quantize_layout(x[0], 40, rows=40)) == 2
@@ -275,9 +394,11 @@ def test_requant_is_a_static_stages_only():
 def test_executor_takes_the_requant_factor_from_the_kernel(net,
                                                            monkeypatch):
     """``_static_stage`` passes its mount's ``w_amax`` and calls no
-    ``dequant_scale``; ``dyn_mounts`` passes no ``w_amax`` (the dynamic
-    stages keep the plain product of the two scales), and the forward
-    still equals the one with ``dequant_scale``'s factor."""
+    ``dequant_scale``, and the forward still equals the one with
+    ``dequant_scale``'s factor; ``dyn_mounts`` makes two calls a dynamic
+    stage, the right operand at ``weight_bits`` first, then the left one
+    with that call's per-slice amax as ``w_amax``, whose factor is the
+    plain product of the two scales."""
     import importlib
     from repro_torch import api
     from repro_torch.program.execute import execute_packed
@@ -292,7 +413,8 @@ def test_executor_takes_the_requant_factor_from_the_kernel(net,
     def spy(xin, K, **kw):
         out = real(xin, K, **kw)
         calls.append((kw, out))
-        if "w_amax" in kw:       # the factor dequant_scale would give
+        if "w_amax" in kw and not kw.get("per_slice"):
+            # the factor dequant_scale would give
             requants.append(dequant_scale(out[1], kw["w_amax"],
                                           kw["bits"],
                                           kw["weight_bits"]).reshape(1, 1))
@@ -307,11 +429,19 @@ def test_executor_takes_the_requant_factor_from_the_kernel(net,
     stages = model.program.stages()
     static = [st for (g, _), st in zip(stages, model.packed.stages)
               if g.kind != "dyn_gemm"]
-    dyn = [kw for kw, _ in calls if kw.get("per_slice")]
-    assert len(calls) == len(stages)
-    assert len(dyn) == sum(g.kind == "dyn_gemm" for g, _ in stages)
+    n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
+    dyn = [(kw, out) for kw, out in calls if kw.get("per_slice")]
+    assert len(calls) == len(stages) + n_dyn
+    assert len(dyn) == 2 * n_dyn
     assert (len(dyn) > 0) == (net == "vit_tiny")
-    assert all("w_amax" not in kw for kw in dyn)
+    cfg = model.program.cfg
+    for (rkw, right), (lkw, left) in zip(dyn[0::2], dyn[1::2]):
+        assert "w_amax" not in rkw and rkw["bits"] == cfg.weight_bits
+        assert lkw["w_amax"] is right[1] and lkw["bits"] == cfg.input_bits
+        assert len(left) == 3 and torch.equal(left[2], (
+            quantize_scale(left[1], cfg.input_bits)
+            * quantize_scale(right[1].reshape(left[1].shape),
+                             cfg.weight_bits)).reshape(-1, 1, 1))
     stat = [(kw, out) for kw, out in calls if not kw.get("per_slice")]
     assert [kw["w_amax"] for kw, _ in stat] == [st.w_amax for st in static]
     for (kw, out), want in zip(stat, requants):
@@ -414,27 +544,32 @@ def test_c_entries_take_what_the_wrapper_passes(monkeypatch):
     monkeypatch.setattr(qmod, "_lib", lambda: Lib())
     monkeypatch.setattr(qmod._build, "stream_handle",
                         lambda: ctypes.c_void_p(0))
-    cases = [((2, 9, 9, 8), dict(conv=(3, 1, 1)), 494),
-             ((2, 9, 9, 8), dict(conv=(1, 2, 0)), 494),
-             ((3, 256), dict(rows=128, adc_bits=5), 256),
-             ((6, 40, 40), dict(rows=40, per_slice=True), 40)]
+    # (shape, kwargs, K, w_amax): a static stage's one, a dynamic stage's
+    # left operand's one a slice, or none (its right operand)
+    cases = [((2, 9, 9, 8), dict(conv=(3, 1, 1)), 494, torch.tensor(1.0)),
+             ((2, 9, 9, 8), dict(conv=(1, 2, 0)), 494, torch.tensor(1.0)),
+             ((3, 256), dict(rows=128, adc_bits=5), 256, torch.tensor(1.0)),
+             ((6, 40, 40), dict(rows=40, per_slice=True), 40, None),
+             ((2, 3, 40, 40), dict(rows=40, per_slice=True), 40,
+              torch.ones(2, 3))]
     for limit in (2 ** 31, -1):                 # one launch, multi-pass
         monkeypatch.setattr(qmod, "ONE_LAUNCH_MAX", limit)
-        for shape, kw, K in cases:
+        for shape, kw, K, w_amax in cases:
             x = torch.zeros(shape)
             kc, lead = qmod._geometry(x, K, kw.get("conv"))
             rows, exact = qmod._branch(K, kw.get("rows", 512),
                                        kw.get("adc_bits", 9), None)
-            w_amax = None if kw.get("per_slice") else torch.tensor(1.0)
             got = qmod._launch(x, K, kc, lead, bits=8, rows=rows,
                                adc_bits=kw.get("adc_bits", 9), exact=exact,
                                conv=kw.get("conv"),
                                per_slice=kw.get("per_slice", False),
                                w_amax=w_amax, weight_bits=8)
             assert len(got) == (2 if w_amax is None else 3)
+            if kw.get("per_slice") and w_amax is not None:
+                assert got[2].shape == (6, 1, 1)
     assert calls == ["quantize_layout_conv"] * 2 + [
-        "quantize_layout_strided"] * 2 + ["quantize_layout_conv"] * 2 + [
-        "quantize_layout_strided"] * 2
+        "quantize_layout_strided"] * 3 + ["quantize_layout_conv"] * 2 + [
+        "quantize_layout_strided"] * 3
 
 
 def test_variant_anchors_are_lines_of_the_kernel_source():

@@ -3,7 +3,8 @@
 Both sides compute on the same weights (``convert.params_from_jax``) and
 the same seeded numpy inputs.  Each dynamic-operand (attention) stage,
 fed the reference's own input buffers, must mount the same int8 planes
-and produce the same int32 GEMM output; the context (P·V) stage's f32
+(in the kernel layout), form the same per-slice requant factor and
+produce the same int32 GEMM output; the context (P·V) stage's f32
 output is then bit-exact, the probabilities (softmax FB) within a
 relative 2e-6 (XLA's exp and row-sum order; the scaled logits before
 the softmax are bit-exact).
@@ -67,9 +68,9 @@ def _x(graph, batch, seed=0):
 
 
 def _jax_mounts(gemm, cfg, bufs):
-    """The JAX executor's per-slice mounts and GEMM, vmapped and jitted:
-    ``_dyn_stage``'s body up to the epilogue, from the JAX package's own
-    functions."""
+    """The JAX executor's per-slice mounts, requant factor and GEMM,
+    vmapped and jitted: ``_dyn_stage``'s body up to the epilogue, from
+    the JAX package's own functions."""
     @jax.jit
     def run(bufs):
         if gemm.dyn == "qk":
@@ -83,16 +84,18 @@ def _jax_mounts(gemm, cfg, bufs):
         rows = min(gemm.tile_rows, a.shape[-1])
 
         def one(a2, w2):
-            aq, _ = jax_quantize_symmetric(a2, cfg.input_bits)
-            w8, _ = jax_plane_pack(w2, tile_rows=rows,
-                                   weight_bits=cfg.weight_bits)
+            aq, ascale = jax_quantize_symmetric(a2, cfg.input_bits)
+            w8, wamax = jax_plane_pack(w2, tile_rows=rows,
+                                       weight_bits=cfg.weight_bits)
             a8 = aq.astype(jnp.int8)
             kp = w8.shape[0] - a8.shape[1]
             if kp:
                 a8 = jnp.pad(a8, ((0, 0), (0, kp)))
             y = jax_crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows,
                                   block_m=512, block_n=512, interpret=True)
-            return a8, w8, y
+            scale = (ascale * jax_quantize_scale(wamax, cfg.weight_bits)
+                     ).astype(jnp.float32).reshape(1, 1)
+            return a8, w8, scale, y
 
         return jax.vmap(one)(a, w)
 
@@ -111,10 +114,12 @@ def _jax_mounts(gemm, cfg, bufs):
 ], ids=["small", "small-adc5", "full-width", "full-width-w4a4-adc6"])
 def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
     """Every stage of a vit_tiny forward is fed the reference's own
-    buffers; at each dynamic stage the port's mounts and int32 GEMM
-    output must equal the JAX executor's, the context output bit for
-    bit and the probabilities within a relative 2e-6 (XLA's exp and
-    row sum: a few ulps)."""
+    buffers; at each dynamic stage the port's mounts (both in the kernel
+    layout: ``kernel_layout`` of JAX's padded left operand and of its
+    planes), per-slice requant factor and int32 GEMM output (``wt``
+    alone, no (K, N) weight) must equal the JAX executor's, the context
+    output bit for bit and the probabilities within a relative 2e-6
+    (XLA's exp and row sum: a few ulps)."""
     jm, tm = _vit_models(cfg_kw, **graph_kw)
     jprog, cfg = jm.packed.program, jm.packed.program.cfg
     bufs = {"input": jnp.asarray(_x(jm.graph, 2))}
@@ -126,18 +131,21 @@ def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
             run = jax.jit(lambda b, g=gemm, p=posts: jax_dyn_stage(
                 g, p, b, cfg, block_m=512, block_n=512, interpret=True))
             ref = np.asarray(run(bufs))
-            ja8, jw8, jy = (np.asarray(t) for t in _jax_mounts(gemm, cfg,
-                                                                bufs))
-            a8, w8, _, rows = dyn_mounts(gemm, tbufs, tm.program.cfg)
-            # the left operand comes in the kernel layout of K_pad
+            ja8, jw8, jscale, jy = (np.array(t) for t in _jax_mounts(
+                gemm, cfg, bufs))
+            a8, wt, scale, rows, K = dyn_mounts(gemm, tbufs, tm.program.cfg)
+            # both operands come in the kernel layout of K_pad
+            assert K == jw8.shape[1] == ja8.shape[-1]
             np.testing.assert_array_equal(a8.numpy(), kernel_layout(
-                torch.from_numpy(ja8), ja8.shape[-1], rows=rows,
+                torch.from_numpy(ja8), K, rows=rows,
                 adc_bits=cfg.adc_bits).numpy())
-            np.testing.assert_array_equal(w8.numpy(), jw8)
-            assert w8.mT.is_contiguous()         # mounted K-major
-            y = crossbar_gemm(a8, w8, adc_bits=cfg.adc_bits, rows=rows,
-                              wt=mount_weight(w8, rows=rows,
-                                              adc_bits=cfg.adc_bits))
+            np.testing.assert_array_equal(wt.numpy(), mount_weight(
+                torch.from_numpy(jw8), rows=rows,
+                adc_bits=cfg.adc_bits).numpy())
+            assert wt.is_contiguous()            # mounted K-major
+            np.testing.assert_array_equal(scale.numpy(), jscale)
+            y = crossbar_gemm(a8, adc_bits=cfg.adc_bits, rows=rows, wt=wt,
+                              K=K)
             np.testing.assert_array_equal(y.numpy(), jy)
             got = _dyn_stage(gemm, posts, tbufs, tm.program.cfg).numpy()
             assert got.shape == ref.shape
@@ -153,6 +161,78 @@ def test_dyn_stages_bit_exact_with_teacher_forcing(graph_kw, cfg_kw):
             ref = run(jst, bufs)
         bufs[dst] = jnp.asarray(ref)
     assert seen == {"qk", "pv"}
+
+
+@pytest.mark.parametrize("graph_kw,cfg_kw", [
+    (dict(depth=1, dim=48, heads=3), dict(adc_bits=5)),   # sliced branch
+    (dict(depth=1), W4A4_ADC6),                            # 4-bit mounts
+], ids=["small-adc5", "full-width-w4a4-adc6"])
+def test_dyn_stage_dispatches_only_views_outside_the_kernels(
+        graph_kw, cfg_kw, monkeypatch):
+    """A dynamic stage is four kernel calls and nothing else: under a
+    ``TorchDispatchMode`` every aten op that ``_dyn_stage`` dispatches
+    outside ``quantize_layout`` (two calls: the right operand, then the
+    left one with the requant factor), ``crossbar_gemm`` and
+    ``fb_epilogue`` (one call each) is a view: no copy of the K or V
+    heads, no scale product, no bias, no head merge, no pad.  The stage's
+    output is the same with the mode on."""
+    import importlib
+    from torch.utils._python_dispatch import TorchDispatchMode
+    execute = importlib.import_module("repro_torch.program.execute")
+    model = tapi.compile(tapi.vit_tiny_graph(**graph_kw),
+                         tapi.HurryConfig(**cfg_kw), seed=0, device="cpu")
+    seen = []
+    real_stage = execute._dyn_stage
+
+    def record(gemm, posts, bufs, cfg):
+        out = real_stage(gemm, posts, bufs, cfg)
+        seen.append((gemm, posts, dict(bufs), cfg, out))
+        return out
+
+    monkeypatch.setattr(execute, "_dyn_stage", record)
+    execute.execute_packed(model.packed, torch.from_numpy(
+        _x(model.graph, 2)), return_logits=True)
+    monkeypatch.setattr(execute, "_dyn_stage", real_stage)
+    assert {g.dyn for g, *_ in seen} == {"qk", "pv"}
+
+    class Outside(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.inside = [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not self.inside:
+                self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    mode = Outside()
+    calls: dict = {}
+
+    def kernel(fn):
+        def call(*args, **kw):
+            calls[fn.__name__] = calls.get(fn.__name__, 0) + 1
+            mode.inside += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                mode.inside -= 1
+        return call
+
+    for name in ("quantize_layout", "crossbar_gemm", "fb_epilogue"):
+        monkeypatch.setattr(execute, name, kernel(getattr(execute, name)))
+    for gemm, posts, bufs, cfg, want in seen:
+        calls.clear()
+        mode.ops.clear()
+        with mode:
+            got = execute._dyn_stage(gemm, posts, bufs, cfg)
+        assert calls == dict(quantize_layout=2, crossbar_gemm=1,
+                             fb_epilogue=1), (gemm.name, calls)
+        assert mode.ops and all(op.is_view for op in mode.ops), (
+            gemm.name, [op for op in mode.ops if not op.is_view])
+        assert torch.equal(got, want)
+        if gemm.dyn == "pv":                     # the heads merged on store
+            qkv = bufs[gemm.dyn_src]
+            assert got.shape == (*qkv.shape[:2], qkv.shape[-1] // 3)
 
 
 def test_dyn_scale_is_the_plain_product_under_vmap():
