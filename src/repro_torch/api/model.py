@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.baselines import (SimReport, simulate_isaac,
                                         simulate_misca)
 from repro_torch.core.simulator import simulate_hurry
@@ -147,20 +148,26 @@ def compile(network, config: HurryConfig | None = None, *,
     """
     dev = resolve_device(device)
     config = config or HurryConfig()
-    if isinstance(network, str):
-        graph = GRAPHS[network]()
-    elif isinstance(network, NetworkBuilder):
-        graph = network.build()
-    elif isinstance(network, NetworkGraph):
-        graph = network
-    else:
-        graph = NetworkGraph.from_layers(network)
-    program = compile_network(graph, config=config)
-    if params is None:
-        params = graph.init_params(torch.Generator().manual_seed(seed))
-    params = params_to(params, dev)
+    with trace.span("compile"):
+        with trace.span("compile.lower"):
+            if isinstance(network, str):
+                graph = GRAPHS[network]()
+            elif isinstance(network, NetworkBuilder):
+                graph = network.build()
+            elif isinstance(network, NetworkGraph):
+                graph = network
+            else:
+                graph = NetworkGraph.from_layers(network)
+            program = compile_network(graph, config=config)
+        with trace.span("compile.params"):
+            if params is None:
+                params = graph.init_params(torch.Generator().manual_seed(
+                    seed))
+            params = params_to(params, dev)
+        with trace.span("compile.pack"):
+            packed = pack_program(program, params)
     return CompiledModel(graph=graph, config=config, program=program,
-                         params=params, packed=pack_program(program, params),
+                         params=params, packed=packed,
                          device=dev, buckets=tuple(buckets or ()))
 
 

@@ -11,8 +11,10 @@ root::
 The library name carries a hash of the source and of the shared
 headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one
 is never loaded; ``ptxas``' register and
-shared-memory report lands beside it as ``<lib>.log``.  Nothing here
-runs at import time.
+shared-memory report lands beside it as ``<lib>.log``.  A load is a
+``kernels.load`` span (``repro_torch.trace``) and counts
+``kernels.loaded``, a compile ``kernels.built``.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from repro_torch import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,13 +77,19 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
+    trace.count("kernels.built")
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s shared library."""
-    return ctypes.CDLL(str(build(name)))
+    """Build (if needed) and load ``csrc/<name>.cu``'s shared library
+    (a ``kernels.load`` span; the counters ``kernels.built`` and
+    ``kernels.loaded``)."""
+    with trace.span("kernels.load", library=name):
+        lib = ctypes.CDLL(str(build(name)))
+    trace.count("kernels.loaded")
+    return lib
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

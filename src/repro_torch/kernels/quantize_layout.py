@@ -48,7 +48,8 @@ after the first call's last kernel has finished (no programmatic
 dependent launch crosses calls).
 
 For a CUDA tensor the wrapper launches ``csrc/quantize_layout.cu`` and
-adds one to ``quantize_layout.launches`` (one a call, whatever the path);
+adds one to ``quantize_layout.launches`` (one a call, whatever the path)
+and its device kernels to the counter ``trace.count(DEVICE_KERNELS)``;
 for a CPU tensor it computes the plain version, ``quantize_layout_ref``.
 Nothing falls back from the card to the plain version.  ``plan`` picks
 the kernel's path from the call's geometry, and ``device_kernels`` says
@@ -100,8 +101,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
+
 from . import _build
 from .crossbar_gemm import _branch, _kernel_k, _up32
+
+DEVICE_KERNELS = "device_kernels.quantize_layout"   # counter (``plan``)
 
 AMAX_FLOOR = 1e-8
 # the one-launch path: covered elements (a slice's, per slice) at most,
@@ -458,6 +463,7 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
             *head, a, b, r, kc, *v.stride(), int(per_slice), *layout)
     _build.check(lib, "quantize_layout", err)
     quantize_layout.launches += 1
+    trace.count(DEVICE_KERNELS, pl.kernels)
     return (out, amax) if requant is None else (out, amax, requant)
 
 

@@ -34,6 +34,14 @@ the contraction sized to the runtime head dim or sequence length):
 * one batched ``crossbar_gemm`` call and one batched ``fb_epilogue``
   call (no bias; the context stored with its heads merged).
 
+Each stage runs in a ``stage`` span (``repro_torch.trace``; its attr
+``layer`` the stage's GEMM layer), and with ``plan=`` a list
+``execute_packed`` appends the stage's ``PlanStep``: its layer, each
+counting wrapper's calls and their device kernels, from the wrappers'
+``.launches`` and ``quantize_layout``'s device-kernel counter (a CUDA
+run's; a CPU run launches nothing).  ``Executable`` keeps the plan of
+its capture.
+
 Buffers are dropped as soon as no later stage reads them.  On a CUDA
 device the three calls launch the hand-written kernels; on the CPU they
 take their plain PyTorch versions.  ``execute_program`` is the
@@ -43,16 +51,55 @@ params-consuming entry: it packs under the call, then runs
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels.crossbar_gemm import crossbar_gemm
 from repro_torch.kernels.fb_epilogue import fb_epilogue
-from repro_torch.kernels.quantize_layout import quantize_layout
+from repro_torch.kernels.quantize_layout import (DEVICE_KERNELS as
+                                                 QUANTIZE_KERNELS,
+                                                 quantize_layout)
 
 from .compile import CrossbarProgram, ProgramOp
 from .pack import PackedProgram, PackedStage, pack_program
 from .sequence import qkv_head_views, tokens
+
+
+WRAPPERS = (quantize_layout, crossbar_gemm, fb_epilogue)
+
+
+def _marks() -> tuple[dict[str, int], int]:
+    """The executor's wrappers' launches, and ``quantize_layout``'s
+    device kernels, so far."""
+    return ({fn.__name__: fn.launches for fn in WRAPPERS},
+            trace.counters().get(QUANTIZE_KERNELS, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanStep:
+    """One stage of a launch plan: its GEMM layer, each wrapper's calls
+    in it, and their device kernels (``crossbar_gemm`` and
+    ``fb_epilogue`` one a call; ``quantize_layout`` as its
+    ``device_kernels`` say)."""
+
+    layer: str
+    calls: dict[str, int]
+    kernels: dict[str, int]
+
+    @classmethod
+    def since(cls, layer: str, marks: tuple[dict[str, int], int]
+              ) -> "PlanStep":
+        """The step of the launches made since ``marks`` (``_marks``)."""
+        (calls0, kernels0), (calls1, kernels1) = marks, _marks()
+        calls = {w: calls1[w] - n for w, n in calls0.items()
+                 if calls1[w] > n}
+        kernels = dict(calls)
+        if "quantize_layout" in calls:
+            kernels["quantize_layout"] = kernels1 - kernels0
+        return cls(layer, calls, kernels)
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -205,14 +252,16 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
 
 
 def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
-                   return_logits: bool = False) -> torch.Tensor:
+                   return_logits: bool = False,
+                   plan: list | None = None) -> torch.Tensor:
     """Run a packed program on a batch ``x`` (B, H, W, C) float32 — or
     (B, F) features for fc-first programs, (B, T, D) tokens for
     sequence-input programs — on ``x``'s device.
 
     Returns the program's output buffer (softmax probabilities), or the
     pre-softmax logits with ``return_logits=True`` (the final stage is
-    fused without its softmax FB).
+    fused without its softmax FB).  With ``plan`` (a list) each stage's
+    ``PlanStep`` is appended to it, in order.
     """
     program = packed.program
     cfg = program.cfg
@@ -221,14 +270,18 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
     last = _last_reads(stages)
     ret = program.logits if return_logits else program.output
     for si, ((gemm, posts), st) in enumerate(zip(stages, packed.stages)):
-        if gemm.kind == "dyn_gemm":
-            dst = posts[-1].dst if posts else gemm.dst
-            bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg)
-        else:
-            dst, out = _static_stage(
-                gemm, posts, st, bufs, cfg,
-                drop_softmax=return_logits and si == len(stages) - 1)
-            bufs[dst] = out
+        marks = _marks() if plan is not None else None
+        with trace.span("stage", layer=gemm.name):
+            if gemm.kind == "dyn_gemm":
+                dst = posts[-1].dst if posts else gemm.dst
+                bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg)
+            else:
+                dst, out = _static_stage(
+                    gemm, posts, st, bufs, cfg,
+                    drop_softmax=return_logits and si == len(stages) - 1)
+                bufs[dst] = out
+        if plan is not None:
+            plan.append(PlanStep.since(gemm.name, marks))
         # drop buffers no later stage reads
         for name in [n for n, li in last.items() if li <= si]:
             if name != ret:

@@ -32,19 +32,19 @@ alike.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.simulator import ChipConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import COUNTED
 
 from .compile import CrossbarProgram, compile_network
-from .execute import execute_packed
+from .execute import QUANTIZE_KERNELS, execute_packed
 from .pack import PackedProgram, pack_program
 
 # powers of two cover varying traffic with at most 2x padding
@@ -95,7 +95,12 @@ class Executable:
     ``launches`` is each counting wrapper's launches per replay (what
     the capture recorded), added to its counter on every replay, so the
     counters count the launches the device performs; ``capture_s`` is
-    the host seconds of the eager warm-up and the capture.
+    the host seconds of the eager warm-up and the capture (the
+    ``capture`` span's clock).  ``plan`` is the replay's launch plan,
+    stage by stage in order (``execute.PlanStep``: the layer, each
+    wrapper's calls and their device kernels), and ``kernels`` its
+    device kernels of ``quantize_layout``, added to the
+    ``device_kernels.quantize_layout`` counter on every replay.
     """
 
     graph: torch.cuda.CUDAGraph
@@ -104,6 +109,8 @@ class Executable:
     pool: tuple
     launches: dict
     capture_s: float
+    plan: tuple = ()
+    kernels: int = 0
 
     @classmethod
     def capture(cls, packed: PackedProgram, x: torch.Tensor, *,
@@ -113,39 +120,50 @@ class Executable:
         side stream, then capture it over a copy of ``x`` into ``pool``
         (a new pool when None).  The counters are put back as they were
         before the warm-up."""
-        t0 = time.perf_counter()
         before = {fn: fn.launches for fn in COUNTED}
+        kernels0 = trace.counters().get(QUANTIZE_KERNELS, 0)
+        plan: list = []
         try:
-            with torch.cuda.device(x.device):
+            with trace.timed("capture") as timer, \
+                    torch.cuda.device(x.device):
                 static_x = x.clone()
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
+                with trace.span("capture.warm"), torch.cuda.stream(side):
                     execute_packed(packed, x, return_logits=return_logits)
                 torch.cuda.current_stream().wait_stream(side)
                 pool = pool or torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
                 start = {fn: fn.launches for fn in COUNTED}
-                with torch.cuda.graph(graph, pool=pool,
-                                      capture_error_mode="thread_local"):
+                with trace.span("capture.graph"), torch.cuda.graph(
+                        graph, pool=pool, capture_error_mode="thread_local"):
                     out = execute_packed(packed, static_x,
-                                         return_logits=return_logits)
+                                         return_logits=return_logits,
+                                         plan=plan)
                 launches = {fn: fn.launches - start[fn] for fn in COUNTED}
         finally:
             for fn, n in before.items():
                 fn.launches = n
+            trace.count(QUANTIZE_KERNELS,
+                        kernels0 - trace.counters().get(QUANTIZE_KERNELS, 0))
         return cls(graph=graph, x=static_x, out=out, pool=pool,
-                   launches=launches,
-                   capture_s=time.perf_counter() - t0)
+                   launches=launches, capture_s=timer.seconds,
+                   plan=tuple(plan),
+                   kernels=sum(p.kernels.get("quantize_layout", 0)
+                               for p in plan))
 
     def __call__(self, x: torch.Tensor, rows: int) -> torch.Tensor:
         """Replay on ``x`` (the key's padded batch): a new tensor holding
         the first ``rows`` rows of the output."""
-        self.x.copy_(x)
-        self.graph.replay()
-        for fn, n in self.launches.items():
-            fn.launches += n
-        return self.out[:rows].clone()
+        with trace.span("run.copy_in"):
+            self.x.copy_(x)
+        with trace.span("run.replay"):
+            self.graph.replay()
+            for fn, n in self.launches.items():
+                fn.launches += n
+            trace.count(QUANTIZE_KERNELS, self.kernels)
+        with trace.span("run.copy_out"):
+            return self.out[:rows].clone()
 
 
 def run_bucketed(packed: PackedProgram, x, *, device: torch.device,
@@ -159,18 +177,23 @@ def run_bucketed(packed: PackedProgram, x, *, device: torch.device,
     first request into the pool the entries of ``fns`` share; on the CPU
     it is ``execute_packed`` itself, and ``fns`` stays empty.
     """
-    x = torch.as_tensor(x, dtype=torch.float32).to(device)
-    b = x.shape[0]
-    x = pad_batch(x, bucket_batch(b, buckets))
-    if x.device.type != "cuda":
-        return execute_packed(packed, x, return_logits=return_logits)[:b]
-    key = executable_key(x.shape, buckets, return_logits)
-    fn = fns.get(key)
-    if fn is None:
-        pool = next(iter(fns.values())).pool if fns else None
-        fn = fns[key] = Executable.capture(
-            packed, x, return_logits=return_logits, pool=pool)
-    return fn(x, b)
+    with trace.span("run"):
+        with trace.span("run.stage_in"):
+            x = torch.as_tensor(x, dtype=torch.float32).to(device)
+            b = x.shape[0]
+            x = pad_batch(x, bucket_batch(b, buckets))
+        trace.count("rows", b)
+        trace.count("padded_rows", x.shape[0] - b)
+        if x.device.type != "cuda":
+            return execute_packed(packed, x, return_logits=return_logits)[:b]
+        key = executable_key(x.shape, buckets, return_logits)
+        fn = fns.get(key)
+        if fn is None:
+            pool = next(iter(fns.values())).pool if fns else None
+            with trace.span("run.capture"):
+                fn = fns[key] = Executable.capture(
+                    packed, x, return_logits=return_logits, pool=pool)
+        return fn(x, b)
 
 
 @dataclasses.dataclass
@@ -235,16 +258,21 @@ def make_server(net, params: dict | None = None, *,
     if config is not None:
         chip = chip or config.chip()
         cfg = cfg or config.crossbar()
-    program = compile_network(net, chip=chip, cfg=cfg)
-    if params is None:
-        if not isinstance(net, str):
-            raise ValueError("params are required for non-registry "
-                             "networks (only the named paper CNNs have "
-                             "a default init)")
-        from repro_torch.models.cnn import CNN_MODELS   # lazy: models
-        params = CNN_MODELS[net].init(torch.Generator().manual_seed(seed))
-    params = params_to(params, dev)
-    return ProgramServer(program=program, params=params,
-                         packed=pack_program(program, params), device=dev,
-                         return_logits=return_logits,
+    with trace.span("compile"):
+        with trace.span("compile.lower"):
+            program = compile_network(net, chip=chip, cfg=cfg)
+        with trace.span("compile.params"):
+            if params is None:
+                if not isinstance(net, str):
+                    raise ValueError("params are required for non-registry "
+                                     "networks (only the named paper CNNs "
+                                     "have a default init)")
+                from repro_torch.models.cnn import CNN_MODELS   # lazy
+                params = CNN_MODELS[net].init(
+                    torch.Generator().manual_seed(seed))
+            params = params_to(params, dev)
+        with trace.span("compile.pack"):
+            packed = pack_program(program, params)
+    return ProgramServer(program=program, params=params, packed=packed,
+                         device=dev, return_logits=return_logits,
                          buckets=tuple(buckets or ()))
