@@ -602,8 +602,12 @@ def fb_bound(M: int, N: int, out_rows: int, has_res: bool) -> float:
 
 
 def stage_shapes(model, batch: int) -> list[dict]:
-    """Per-stage (M, K, N, rows, epilogue kwargs) of a batch's forward."""
+    """Per-stage (M, K, N, rows, epilogue kwargs) of a batch's forward;
+    K is the stage's ``layout_k`` (the logical K on the exact branch) and
+    ``w8`` the planes' first K rows, which ``wt`` lays out."""
+    from repro_torch.program.pack import layout_k
     out = []
+    adc = model.program.cfg.adc_bits
     for (gemm, posts), st in zip(model.program.stages(), model.packed.stages):
         M = batch * gemm.out_hw ** 2 if gemm.is_conv else batch
         kw, has_res, n_out = {}, False, M
@@ -618,9 +622,10 @@ def stage_shapes(model, batch: int) -> list[dict]:
                 n_out = batch * op.out_hw ** 2
             elif op.kind == "softmax":
                 kw["softmax"] = True
-        out.append(dict(name=gemm.name, M=M, K=st.w8.shape[0],
-                        N=st.w8.shape[1], rows=gemm.tile_rows, fb=kw,
-                        res=has_res, out_rows=n_out, w8=st.w8, wt=st.wt))
+        K = layout_k(gemm, adc)
+        out.append(dict(name=gemm.name, M=M, K=K, N=st.w8.shape[1],
+                        rows=gemm.tile_rows, fb=kw, res=has_res,
+                        out_rows=n_out, w8=st.w8[:K], wt=st.wt))
     return out
 
 
@@ -3911,19 +3916,20 @@ def _branches(fn) -> tuple:
 def _check_branches(name: str, model, calls) -> dict:
     """Each stage's ``crossbar_gemm`` launched the branch that
     ``clip_possible(min(rows, K), adc_bits)`` predicts for it: the static
-    stages' K and rows those of the program (mounted K, ``tile_rows``),
+    stages' K and rows those of the program (``layout_k``, ``tile_rows``),
     the dynamic stages' the runtime head dim or sequence length.  Returns
     the launches per branch."""
     from repro_torch.kernels import clip_possible
-    stages = list(zip(model.program.stages(), model.packed.stages))
+    from repro_torch.program.pack import layout_k
+    stages = model.program.stages()
     check(len(calls) == len(stages) and all(c[3] is not None for c in calls),
           f"{name}: {len(calls)} crossbar_gemm calls for {len(stages)} "
           "stages, or one that launched no kernel")
-    for ((op, _), st), (K, rows, adc, exact) in zip(stages, calls):
+    for (op, _), (K, rows, adc, exact) in zip(stages, calls):
         if op.kind != "dyn_gemm":
-            check((K, rows) == (st.w8.shape[0], op.tile_rows),
-                  f"{name} {op.name}: K, rows {(K, rows)} are not the "
-                  f"program's {(st.w8.shape[0], op.tile_rows)}")
+            want = (layout_k(op, model.program.cfg.adc_bits), op.tile_rows)
+            check((K, rows) == want, f"{name} {op.name}: K, rows "
+                  f"{(K, rows)} are not the program's {want}")
         check(adc == model.program.cfg.adc_bits
               and exact == (not clip_possible(min(rows, K), adc)),
               f"{name} {op.name}: K {K} rows {rows} adc {adc} launched the "

@@ -66,15 +66,18 @@ def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
         execute.crossbar_gemm = real
     torch.cuda.synchronize()
     rows_out = []
-    for i, ((xq, w), kw) in enumerate(calls):
+    for i, (args, kw) in enumerate(calls):
+        # (x, w) or, where the executor passes wt and K alone, (x,)
+        xq, w = args[0], args[1] if len(args) > 1 else None
         wt = kw.get("wt")
         adc, rows = kw["adc_bits"], kw["rows"]
-        K, N = w.shape[-2:]
+        K, N = (w.shape[-2:] if w is not None
+                else (kw["K"], wt.shape[-2]))
         r = max(1, min(rows, K))
         exact = not cg_mod.clip_possible(r, adc)
         # the plain version on the same operands: the logical ones where
         # x came in the kernel layout (zero padding: same result)
-        if xq.shape[-1] != K:
+        if w is None or xq.shape[-1] != K:
             xp, wp = xq, wt.mT
             rows_p = -(-r // 32) * 32
         else:
@@ -101,7 +104,8 @@ def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
                    int_mm_kmajor_ms=None)
         if exact and S == 1:             # logical x: the first K columns
             row["int_mm_rowmajor_ms"], row["int_mm_kmajor_ms"] = \
-                chip_smoke.int_mm_ms(xq[:, :K], w)
+                chip_smoke.int_mm_ms(xq[:, :K], w if w is not None
+                                     else wt.mT[:K])
         rows_out.append(row)
         chip_smoke.detail(
             f"{net} b{batch} call {i}: {row['branch']} S={S} M={M} K={K} "

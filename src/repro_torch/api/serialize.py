@@ -24,7 +24,7 @@ package loads in the other.
 A loaded model serves from the saved planes directly: loading neither
 compiles nor quantizes.  The kernel-layout copy of each static stage's
 planes (``PackedStage.wt``) is derived, so it is not saved; the loader
-lays it out on the target device with ``mount_weight``, exactly as
+lays it out on the target device with ``pack.mount_stage``, as
 ``pack_program`` does.  Version-1 files (pre-packing) still load: the
 planes are re-derived once from the saved params (repack fallback).
 """
@@ -39,10 +39,10 @@ import torch
 
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.workload import LayerSpec
-from repro_torch.kernels.crossbar_gemm import mount_weight
 from repro_torch.program.compile import (GEMM_OPS, CrossbarProgram,
                                          MountRound, ProgramOp)
-from repro_torch.program.pack import PackedProgram, PackedStage, pack_program
+from repro_torch.program.pack import (PackedProgram, PackedStage,
+                                      mount_stage, pack_program)
 from repro_torch.program.serve import BUCKETS, params_to
 
 from .config import HurryConfig
@@ -128,8 +128,7 @@ def _stage(gemm: ProgramOp, arrays: dict, cfg: CrossbarConfig,
     t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     wt = None
     if gemm.kind != "dyn_gemm":
-        wt = mount_weight(t["w8"], rows=gemm.tile_rows,
-                          adc_bits=cfg.adc_bits)
+        wt = mount_stage(gemm, t["w8"], cfg.adc_bits)
     return PackedStage(wt=wt, **t)
 
 

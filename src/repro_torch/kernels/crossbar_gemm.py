@@ -32,7 +32,12 @@ count, so the padding is exact.  ``mount_weight`` builds that
 kernel-layout weight, and ``kernel_layout`` pads a K-major operand into
 it; the packer mounts each static stage's weight once
 (``PackedStage.wt``) and the executor quantizes activations straight
-into the layout.  Passed a plain (K, N) weight without ``wt``, the
+into the layout.  K is the call's own: a static stage passes its
+logical K on the exact branch, not the K of its whole mounts, so no
+zero rows of a part-filled mount are written or multiplied
+(``program.pack.layout_k``); the last TMA slab of a K that is no
+multiple of 128 is part-filled, and the tensor map fills the rest with
+zeros.  Passed a plain (K, N) weight without ``wt``, the
 wrapper lays it out itself in one extra launch (and pads x likewise where
 x is not already in the layout): those helper launches do not count as
 ``crossbar_gemm`` launches.

@@ -7,13 +7,16 @@ stage (``_static_stage``):
   stage input: the patches of a conv (``im2col``'s), an NHWC flatten for
   a spatial buffer entering an fc, or the tokens, quantized to symmetric
   int8 (the only quantization in the hot loop: weights were mounted by
-  ``pack.pack_program``) straight into the kernel layout of the mounts'
-  K (``kernels.crossbar_gemm.kernel_layout``: to a multiple of 32
-  bytes, or chunk by chunk where the ADC can clip), which the stage's
-  mounted ``wt`` shares, and the requant factor from the mount's
-  ``w_amax`` (``core.crossbar.dequant_scale``'s form) beside it;
+  ``pack.pack_program``) straight into the kernel layout
+  (``kernels.crossbar_gemm.kernel_layout``) of the stage's
+  ``pack.layout_k``, which the stage's mounted ``wt`` shares: the
+  logical K padded to a multiple of 32 where no ADC clip is possible,
+  the full mounts chunk by chunk where one is; and the requant factor
+  from the mount's ``w_amax`` (``core.crossbar.dequant_scale``'s form)
+  beside it.  The zero K bytes the operand still carries are counted in
+  ``layout.zero_k_bytes`` (``ZERO_K_BYTES``), at capture and eager runs;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
-  chunk of ``tile_rows`` rows is one array read);
+  chunk of ``tile_rows`` rows is one array read), on ``wt`` and that K;
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
   residual, ReLU, pooling, softmax) over the int32 GEMM output.
 
@@ -64,11 +67,14 @@ from repro_torch.kernels.quantize_layout import (DEVICE_KERNELS as
                                                  quantize_layout)
 
 from .compile import CrossbarProgram, ProgramOp
-from .pack import PackedProgram, PackedStage, pack_program
+from .pack import (PackedProgram, PackedStage, layout_k, logical_k,
+                   pack_program)
 from .sequence import qkv_head_views, tokens
 
 
 WRAPPERS = (quantize_layout, crossbar_gemm, fb_epilogue)
+# counter: the zero K bytes of the static stages' left operands, M * (Kk - K)
+ZERO_K_BYTES = "layout.zero_k_bytes"
 
 
 def _marks() -> tuple[dict[str, int], int]:
@@ -204,16 +210,19 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     else:
         xin = src.reshape(b, -1) if src.dim() == 4 else src   # NHWC flatten
 
-    # K was padded to full mounts at pack time and laid out for the
-    # kernel (``st.wt``); quantize the activations straight into that
-    # layout (the patches of a conv gathered on the way), the requant
-    # factor (``dequant_scale``'s form) written beside them
+    # the weight was laid out for the kernel at pack time (``st.wt``, at
+    # ``layout_k``); quantize the activations straight into that layout
+    # (the patches of a conv gathered on the way), the requant factor
+    # (``dequant_scale``'s form) written beside them
+    K = layout_k(gemm, cfg.adc_bits)
     xq, _, scale = quantize_layout(
-        xin, st.w8.shape[0], bits=cfg.input_bits, rows=gemm.tile_rows,
+        xin, K, bits=cfg.input_bits, rows=gemm.tile_rows,
         adc_bits=cfg.adc_bits, conv=conv, w_amax=st.w_amax,
         weight_bits=cfg.weight_bits)
-    y_int = crossbar_gemm(xq, st.w8, adc_bits=cfg.adc_bits,
-                          rows=gemm.tile_rows, wt=st.wt)
+    trace.count(ZERO_K_BYTES,
+                xq.shape[0] * (xq.shape[-1] - logical_k(gemm)))
+    y_int = crossbar_gemm(xq, adc_bits=cfg.adc_bits, rows=gemm.tile_rows,
+                          wt=st.wt, K=K)
 
     act, pool, window, img_hw, norm = "none", "none", 0, 0, "none"
     softmax, res = False, None

@@ -4,13 +4,22 @@ The port of ``repro.program.pack``.  ``pack_program`` is the numeric
 analogue of programming the crossbar conductances: per GEMM stage it
 quantizes the full weight matrix to symmetric int8 (``plane_pack``),
 applies the conv im2col layout (``w.permute(2, 0, 1, 3)``, patch order
-(C, kh, kw)), zero-pads K up to ``n_mounts * tile_rows`` so the kernel's
-chunks are exactly the stage's mount rounds, and keeps the f32 weight
+(C, kh, kw)), zero-pads K up to ``n_mounts * tile_rows`` so that the
+planes are exactly the stage's mount rounds, and keeps the f32 weight
 ``amax`` from which the executor derives the requant factor.  The int8
 planes and ``amax`` equal the JAX package's bit for bit.  Beside them it
-lays the planes out once for the CUDA kernel (``PackedStage.wt``: the
-planes transposed, K-major, K zero-padded per ``kernels.crossbar_gemm.
-mount_weight``), a derived copy that nothing compares or saves.
+lays the planes out once for the CUDA kernel (``PackedStage.wt``,
+``mount_stage``: the planes transposed, K-major, at the stage's
+``layout_k``), a derived copy that nothing compares or saves.
+
+``layout_k`` is the contraction length both of a static stage's
+``crossbar_gemm`` operands are laid out at.  On the exact branch (no ADC
+clip possible) it is the logical K, so the layout pads only to a
+multiple of 32: the zero rows of whole mounts would add nothing to an
+int32 sum, and the executor neither writes nor multiplies them.  On the
+sliced branch it is the full mounts' K, each ``tile_rows`` chunk padded
+to a multiple of 32 rows, because the chunk boundaries decide what an
+ADC read sums and clips.
 
 Packing runs on the device the parameters live on; the hot loop then
 only quantizes activations.  Dynamic-operand (attention) stages own no
@@ -27,9 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
-from repro_torch.kernels.crossbar_gemm import mount_weight
+from repro_torch.kernels.crossbar_gemm import clip_possible, mount_weight
 
-from .compile import CrossbarProgram
+from .compile import CrossbarProgram, ProgramOp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +49,10 @@ class PackedStage:
     the 0-d f32 ``max(|w|)``; ``bias`` the f32 per-column bias;
     ``ln_g``/``ln_b`` the fused layer-norm FB's gamma/beta (``None``
     without one).  ``wt`` is the kernel-layout weight derived from ``w8``
-    (``mount_weight``: (N, Kk) int8, K-major, zero-padded to a
-    multiple of 32 on the exact branch and chunk by chunk on the sliced
-    one); it is not compared and not saved.  Dynamic-operand stages hold
-    0-sized placeholders and no ``wt``.
+    (``mount_stage``: (N, Kk) int8, K-major; on the exact branch the
+    logical K rows padded to a multiple of 32, on the sliced one all
+    K_padded rows chunk by chunk); it is not compared and not saved.
+    Dynamic-operand stages hold 0-sized placeholders and no ``wt``.
     """
 
     w8: torch.Tensor
@@ -106,6 +115,34 @@ def pack_weight(w: torch.Tensor, *, is_conv: bool, tile_rows: int,
     return plane_pack(w, tile_rows=tile_rows, weight_bits=weight_bits)
 
 
+def logical_k(gemm: ProgramOp) -> int:
+    """A static stage's contraction length: the last mount round's
+    ``k1`` (C*k*k for a conv, the input features for an fc)."""
+    return gemm.mount_rounds[-1].k1
+
+
+def layout_k(gemm: ProgramOp, adc_bits: int) -> int:
+    """The K a static stage's ``crossbar_gemm`` operands are laid out at
+    (module docstring): ``logical_k`` on the exact branch, the full
+    mounts' K on the sliced one.  The branch is the mounts' (rows =
+    ``tile_rows``); on the exact branch the wrapper's ``min(rows, K)``
+    at the logical K is no taller, so it takes the same branch."""
+    k = logical_k(gemm)
+    if clip_possible(gemm.tile_rows, adc_bits):
+        return -(-k // gemm.tile_rows) * gemm.tile_rows
+    return k
+
+
+def mount_stage(gemm: ProgramOp, w8: torch.Tensor,
+                adc_bits: int) -> torch.Tensor:
+    """A static stage's ``PackedStage.wt``: the first ``layout_k`` rows
+    of its planes ``w8`` (K_padded, N) in the kernel layout
+    (``mount_weight``).  ``pack_program`` and the loader of saved models
+    both mount through it."""
+    return mount_weight(w8[:layout_k(gemm, adc_bits)], rows=gemm.tile_rows,
+                        adc_bits=adc_bits)
+
+
 def pack_program(program: CrossbarProgram, params: dict) -> PackedProgram:
     """Mount ``params`` (layer -> key -> float tensor) into ``program``.
 
@@ -127,7 +164,7 @@ def pack_program(program: CrossbarProgram, params: dict) -> PackedProgram:
         lp = params[ln.param] if ln is not None else None
         stages.append(PackedStage(
             w8=w8, w_amax=amax,
-            wt=mount_weight(w8, rows=gemm.tile_rows, adc_bits=cfg.adc_bits),
+            wt=mount_stage(gemm, w8, cfg.adc_bits),
             bias=p[gemm.b_key].float().contiguous(),
             ln_g=None if lp is None else lp["g"].float().contiguous(),
             ln_b=None if lp is None else lp["b"].float().contiguous()))

@@ -118,10 +118,12 @@ def test_pack_program_planes_equal_jax(net):
                                         ("alexnet", dict(adc_bits=8))])
 def test_packed_stage_wt_is_w8_transposed_and_padded(net, cfg_kw):
     """Each static stage's kernel-layout weight is its mount planes
-    transposed, K zero-padded to a multiple of 32 where the stage takes
-    the exact branch and chunk by chunk (each tile_rows-row chunk to a
-    multiple of 32 rows) where the ADC can clip; derived, so it is left
-    out of the dataclass comparison."""
+    transposed: where the stage takes the exact branch, only the logical
+    K rows (C*k*k, the fc's inputs), zero-padded to a multiple of 32, not
+    the zero rows of its whole mounts; where the ADC can clip, all the
+    mounts' rows chunk by chunk (each tile_rows-row chunk to a multiple
+    of 32 rows).  Derived, so it is left out of the dataclass
+    comparison."""
     _, tgraph = _graphs(net)
     cfg = tapi.HurryConfig(**cfg_kw)
     model = tapi.compile(tgraph, cfg, seed=3, device="cpu")
@@ -133,7 +135,10 @@ def test_packed_stage_wt_is_w8_transposed_and_padded(net, cfg_kw):
         rows = min(gemm.tile_rows, K)
         exact = rows <= (1 << cfg.adc_bits) - 1
         if exact:
-            want = np.pad(w8.T, ((0, 0), (0, up32(K) - K)))
+            k = gemm.mount_rounds[-1].k1                  # logical K
+            assert K == -(-k // gemm.tile_rows) * gemm.tile_rows
+            assert not w8[k:].any()
+            want = np.pad(w8[:k].T, ((0, 0), (0, up32(k) - k)))
         else:
             chunks = -(-K // rows)
             want = np.pad(w8.T.reshape(N, chunks, rows),
