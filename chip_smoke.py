@@ -306,7 +306,8 @@ each on standard output (the per-shape details go to standard error):
     ``widths_phase`` and ``lm_wide_phase`` from a script under ``build/``
     after the kernel build;
 27. the front door's executable per key: ResNet-18, AlexNet at
-    ``adc_bits=8``, VGG-16 and vit_tiny compiled afresh at batches 1, 3
+    ``adc_bits=8``, VGG-16, vit_tiny and the pre-norm ViT-S/16 at its
+    published geometry compiled afresh at batches 1, 3
     and 16 x (probs, logits) through ``run``, a token-input graph at T =
     16 and 32, ``make_server("resnet18")`` and a saved and loaded
     ResNet-18: at every key the first request captures and a second draw
@@ -318,8 +319,11 @@ each on standard output (the per-shape details go to standard error):
     the kernels its paths launch per stage (``device_kernels``), by name
     (``KERNEL_NAMES``), the other kernels by name (standard error and the
     line), vit_tiny's dynamic stages run again alone launching the
-    wrappers' kernels and nothing else (``dyn_stage_kernels``), and the
-    static stages dispatching no PyTorch op
+    wrappers' kernels and nothing else (``dyn_stage_kernels``), ViT-S/16's
+    tapped epilogues made again from their operands, one launch each, the
+    tap ``torch.equal`` to the plain path and the rows to the call without
+    a tap (``tapped_stages``), and the static stages dispatching no
+    PyTorch op
     of a requant factor (``static_stage_ops``); time per batch at 1, 4
     and 16
     through ``run`` (replay) beside eager ``execute_packed``, each with
@@ -334,8 +338,9 @@ each on standard output (the per-shape details go to standard error):
     cache tree (copied in), a call under a mesh context (raises), each
     answer ``torch.equal`` to the eager step;
 29. ``quantize_layout``, the executor's left operands
-    (``quantize_phase``): ResNet-18, AlexNet at ``adc_bits=8``, VGG-16
-    and vit_tiny at batches 1, 3 and 16, and ResNet-18 b16, AlexNet b4
+    (``quantize_phase``): ResNet-18, AlexNet at ``adc_bits=8``, VGG-16,
+    vit_tiny and ViT-S/16 at batches 1, 3 and 16, and ResNet-18 b16,
+    AlexNet b4
     and vit_tiny b16 at every ``WIDTHS`` row, driven eagerly
     (``record_stages``): one launch per static stage and two per dynamic
     stage (the right operand, then the left one given its amax), every
@@ -1498,7 +1503,8 @@ def record_stages(model, x) -> tuple:
     and result of each; a dynamic stage's right operand, then its left
     one), its ``crossbar_gemm`` operands (x8, and ``w`` or, where the
     call passes none, ``wt``) and int32 output and its ``fb_epilogue``
-    output and keyword arguments.  Returns (logits, records)."""
+    output and keyword arguments (``fb``) and its int32 input and
+    positional arguments (``fb_in``).  Returns (logits, records)."""
     import torch
     execute = importlib.import_module("repro_torch.program.execute")
     saved = (execute._static_stage, execute._dyn_stage,
@@ -1519,6 +1525,7 @@ def record_stages(model, x) -> tuple:
     def fb(y, *args, **kw):
         out = saved[3](y, *args, **kw)
         recs[-1]["fb"] = (out, kw)
+        recs[-1]["fb_in"] = (y, args)
         return out
 
     def static(*args, **kw):
@@ -4517,7 +4524,7 @@ def lm_wide_line(lp: dict, card: str) -> str:
 # ---------------------------------------------------------------------------
 
 EXEC_NETS = (("resnet18", {}), ("alexnet", dict(adc_bits=8)), ("vgg16", {}),
-             ("vit_tiny", {}))
+             ("vit_tiny", {}), ("vit_s16", {}))
 EXEC_BATCHES = (1, 3, 16)        # buckets 1, 4, 16
 EXEC_TOKENS = (16, 32)           # the token-input graph's T: a key each
 EXEC_TIMED = (1, 4, 16)          # 4: AlexNet adc8's batch in phases 6-7
@@ -4526,7 +4533,8 @@ EXEC_TIMED = (1, 4, 16)          # 4: AlexNet adc8's batch in phases 6-7
 KERNEL_NAMES = {"crossbar_gemm": ("exact_kernel", "sliced_kernel"),
                 "fb_epilogue": ("elementwise_kernel", "pool_kernel",
                                 "rows_warp_kernel", "seqmean_kernel",
-                                "rows_kernel"),
+                                "rows_kernel", "rows_warp_tap_kernel",
+                                "rows_tap_kernel"),
                 "quantize_layout": ("one_conv_kernel", "one_rows_kernel",
                                     "partials_conv_kernel",
                                     "partials_rows_kernel", "image_kernel",
@@ -4702,6 +4710,45 @@ def aten_ops(fn) -> dict:
 SCALE_OPS = ("clamp_min", "clamp", "mul", "maximum")
 
 
+def tapped_stages(model, x) -> list[tuple]:
+    """Each static stage of one eager forward of ``model`` on ``x`` whose
+    epilogue stores a tap (``CrossbarProgram.taps``), its ``fb_epilogue``
+    call made again from the recorded operands: the tap ``torch.equal``
+    to ``fb_epilogue_ref``'s, the normalized rows ``torch.equal`` to the
+    call without a tap and within ``FB_CASES``' layer-norm tolerance of
+    the plain version's.  Returns (layer, M, N, kernel launches of the
+    tapped call) a stage."""
+    import torch
+    from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
+    atol = next(c[3] for c in FB_CASES if c[0] == "layer")
+    _, recs = record_stages(model, x)
+    out = []
+    for (gemm, _), rec in zip(model.program.stages(), recs):
+        if not rec.get("fb", (None, {}))[1].get("tap"):
+            continue
+        (got, tap), kw = rec["fb"]
+        y, args = rec["fb_in"]
+        plain = {k: v for k, v in kw.items() if k != "tap"}
+        before = fb_epilogue.launches
+        again, again_tap = fb_epilogue(y, *args, **kw)
+        launched = fb_epilogue.launches - before
+        untapped = fb_epilogue(y, *args, **plain)
+        ref, ref_tap = fb_epilogue_ref(y, *args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(again, got) and torch.equal(again_tap, tap),
+              f"{gemm.name}: the tapped epilogue differs from its own "
+              "call in the forward")
+        check(torch.equal(tap, ref_tap), f"{gemm.name}: the tap differs "
+              "from the plain path's")
+        check(torch.equal(got, untapped), f"{gemm.name}: the normalized "
+              "rows differ from the call without a tap")
+        err = (got - ref).abs().max().item()
+        check(err <= atol, f"{gemm.name}: the normalized rows are {err} "
+              f"from the plain path's (tolerance {atol})")
+        out.append((gemm.name, *y.shape[-2:], launched))
+    return out
+
+
 def static_stage_ops(model, x) -> dict:
     """``SCALE_OPS`` that the static stages of one eager forward of
     ``model`` on ``x`` dispatch (``aten_ops`` around each
@@ -4742,7 +4789,9 @@ def executable_phase(api, dev) -> dict:
     ``EXEC_TOKENS``, ``make_server("resnet18")`` and a saved and loaded
     ResNet-18, each held by ``hold_replays``; one b16 replay of each net
     profiled (exactly one ``crossbar_gemm`` and one ``fb_epilogue``
-    kernel per stage and ``quant_kernels`` of ``quantize_layout``), and
+    kernel per stage and ``quant_kernels`` of ``quantize_layout``), each
+    tapped epilogue of a b16 forward against the plain path
+    (``tapped_stages``), and
     an eager b16 forward's static stages dispatching no PyTorch op of a
     scale (``SCALE_OPS``: ``dequant_scale``'s, which the kernel's requant
     factor replaced; a replay runs what eager launched); time per batch
@@ -4806,6 +4855,15 @@ def executable_phase(api, dev) -> dict:
                   f"each, {want_q} quantize_layout and no other")
         check(not scale_ops, f"{name} b16: the static stages dispatched "
               f"{scale_ops}: a requant factor computed by PyTorch")
+        taps = tapped_stages(model, x16)
+        check(len(taps) == len(model.program.taps())
+              and all(t[3] == 1 for t in taps),
+              f"{name} b16: {len(taps)} tapped epilogue calls for "
+              f"{len(model.program.taps())} taps, launches {taps}")
+        for t in taps:
+            detail(f"27 {name} b16 tapped epilogue {t[0]}: M={t[1]} "
+                   f"N={t[2]}, one launch, the tap torch.equal to the "
+                   "plain path")
         times = {}
         for b in EXEC_TIMED:
             xb = x16[:b].contiguous()
@@ -4821,7 +4879,7 @@ def executable_phase(api, dev) -> dict:
                            f"{k_ms:.4f} ms in {k_n} launches")
         caps = sorted(r["capture_s"].values())
         out["nets"][name] = dict(stages=n, kernels=kern, times=times,
-                                 others=others, dyn=dyn,
+                                 others=others, dyn=dyn, taps=len(taps),
                                  capture=(caps[0], statistics.median(caps),
                                           caps[-1]))
     tok = api.compile(token_graph(api), api.HurryConfig(), seed=0,
@@ -4864,6 +4922,9 @@ def executable_line(xp: dict, card: str) -> str:
         f"{r['kernels']}, the other ones {named(r) or 'none'}"
         + (f"; its dynamic stages run again alone: {r['dyn']}" if r["dyn"]
            else "")
+        + (f"; its {r['taps']} tapped epilogues again from their operands: "
+           "the tap torch.equal to the plain path, the rows to the "
+           "untapped call" if r["taps"] else "")
         + f"; capture s min/median/max {r['capture'][0]:.3f}/"
         f"{r['capture'][1]:.3f}/{r['capture'][2]:.3f}): " + ", ".join(
             f"b{b} replay {t['replay']['ms']:.3f} ms ({busy(t['replay'])}; "

@@ -22,6 +22,14 @@ is a run-time property of the batch (``T`` is tracked as 0 during
 inference of shapes).  The sequence FB chain order is ``residual ->
 gelu -> layernorm -> seqpool`` (post-norm transformer blocks).
 
+**Pre-norm blocks** (``x = x + f(LN(x))``, every published ViT): a
+residual may also read a *tap* of an earlier group, the value its
+chain holds before the layer norm that ends it
+(``core.workload.group_tap``), which the compiled stage stores as a
+second output; and a layer norm may close a conv-headed group, whose
+output it rasterizes into tokens (a ViT's normalized patch embedding).
+``zoo.vit_s16_graph`` is built that way.
+
 The resulting ``NetworkGraph`` is the one source of truth for layer
 shapes: the scheduler consumes its ``LayerSpec`` list, ``init_params``
 derives the parameter dict from it, and ``forward`` is a generic
@@ -34,7 +42,11 @@ evaluates the crossbar-quantized attention the compiled program
 executes.
 
 The port of ``repro.api.graph``: the builder and its validation are the
-JAX package's, line for line.  ``init_params`` draws He init from a
+JAX package's, line for line, except that the port's builder goes beyond
+it with the two pre-norm wirings above, which the JAX builder rejects
+(``residual source ... is not a materialized group output``, ``... is a
+sequence FB but its group head is a conv``).  ``init_params`` draws He
+init from a
 ``torch.Generator``, so its numbers differ from ``jax.random``'s; tests
 carry the JAX package's parameters over with ``convert.params_from_jax``.
 """
@@ -46,8 +58,8 @@ import math
 
 import torch
 
-from repro_torch.core.workload import (LayerSpec, POST_RANK, input_spec,
-                                       layer_groups)
+from repro_torch.core.workload import (LayerSpec, POST_RANK, group_tap,
+                                       input_spec, layer_groups)
 from repro_torch.kernels.fb_epilogue import (avg_windows, gelu,
                                              layer_norm_rows, softmax_rows)
 from repro_torch.models.cnn import MatmulFn, conv2d, fp_matmul, maxpool
@@ -268,6 +280,8 @@ class NetworkBuilder:
                       else (_SPATIAL, input_hw, input_ch))}
         self._cur = "input"
         self._finals = {"input"}      # materialized group-final buffers
+        self._taps: set[str] = set()  # closed groups' taps (group_tap)
+        self._group: list[LayerSpec] = []     # the open group's layers
         self._counts: dict[str, int] = {}
         self._has_gemm = False
         self._head_kind = ""          # kind of the current group's head
@@ -324,6 +338,9 @@ class NetworkBuilder:
         targets materialized group-final buffers.
         """
         self._finals = self._finals | {self._cur}
+        if self._group and (tap := group_tap(self._group)):
+            self._taps.add(tap)
+        self._group = []
         src = input_from or self._cur
         if input_from and input_from not in self._finals:
             raise ValueError(
@@ -335,6 +352,7 @@ class NetworkBuilder:
 
     def _add(self, spec: LayerSpec, shape: tuple) -> str:
         self._layers.append(spec)
+        self._group.append(spec)
         self._shapes[spec.name] = shape
         self._cur = spec.name
         return spec.name
@@ -420,9 +438,13 @@ class NetworkBuilder:
             LayerSpec(name, "gelu", features_out=shape[2]), shape)
 
     def layernorm(self, *, name: str | None = None) -> str:
-        """Layer norm FB over the feature axis of a token buffer."""
+        """Layer norm FB over the feature axis of a token buffer; after a
+        conv head, with no pool before it, the conv's pixels are the
+        tokens."""
         name = self._name("layernorm", name)
-        self._require_seq_head(name, "layernorm")
+        if not (self._head_kind == "conv" and not any(
+                l.kind in ("maxpool", "avgpool") for l in self._group)):
+            self._require_seq_head(name, "layernorm")
         shape = self._src_shape(name, self._cur, _SEQ)
         return self._add(
             LayerSpec(name, "layernorm", features_out=shape[2]), shape)
@@ -464,10 +486,12 @@ class NetworkBuilder:
     def residual(self, from_: str, *, name: str | None = None) -> str:
         name = self._name("residual", name)
         self._require_gemm(name, "residual")
-        if from_ not in self._finals:
+        if from_ not in self._finals and from_ not in self._taps:
             raise ValueError(
                 f"{name}: residual source {from_!r} is not a materialized "
-                "group output (it must be a previous group's final buffer)")
+                "group output (it must be a previous group's final buffer, "
+                "or its tap: the value before the layer norm that ends "
+                "it)")
         shape = self._shapes[self._cur]
         src_shape = self._shapes[from_]
         if shape[0] == _SEQ:           # spatial addends rasterize to tokens

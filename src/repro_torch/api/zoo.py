@@ -11,6 +11,10 @@ block built from the sequence ops the crossbar program stack lowers
 (attention expands into dynamic-operand GEMM stages).  The default is a
 CI-scale reduction (2 blocks of the ViT-Tiny geometry: dim 192, 3
 heads, MLP ratio 4); pass ``depth=12`` for the full-size model.
+
+``vit_s16`` is a published ViT at its own ImageNet geometry, with the
+pre-norm blocks every published ViT has; the port's builder wires them
+(the JAX package's builder has no taps, so the JAX zoo lacks it).
 """
 
 from __future__ import annotations
@@ -115,6 +119,40 @@ def vit_tiny_graph(depth: int = 2, dim: int = 192, heads: int = 3,
     return nb.build()
 
 
+def vit_s16_graph() -> NetworkGraph:
+    """ViT-S/16 as "Better plain ViT baselines for ImageNet-1k" (Beyer,
+    Zhai, Kolesnikov, arXiv:2205.01580) trains it: a 16x16 stride-16 conv
+    of 224x224 RGB images into 196 tokens of width 384, 12 **pre-norm**
+    blocks ``x = x + MHA(LN(x)); x = x + MLP(LN(x))`` (6 heads of 64, MLP
+    1536), a final layer norm, the tokens' mean (no class token) and a
+    1000-way head.  No position embedding (the harness has no layer kind
+    for the constant it adds).
+
+    Each layer norm closes the group before it, so the residual stream
+    ``x`` is that group's *tap* (``core.workload.group_tap``): ``b{i}_ln1``
+    follows the patch conv (block 0) or the previous block's ``res2``,
+    ``b{i}_res1`` reads that tap and ``b{i}_ln2`` follows it,
+    ``b{i}_res2`` reads ``b{i}_res1``.
+    """
+    dim = 384
+    nb = NetworkBuilder("vit_s16", input_hw=224, input_ch=3)
+    x = nb.conv(dim, k=16, stride=16, padding=0, name="patch")
+    for i in range(12):
+        nb.layernorm(name=f"b{i}_ln1")
+        nb.attention(6, name=f"b{i}_attn")
+        x = nb.residual(x, name=f"b{i}_res1")
+        nb.layernorm(name=f"b{i}_ln2")
+        nb.linear(4 * dim, name=f"b{i}_fc1")
+        nb.gelu(name=f"b{i}_gelu")
+        nb.linear(dim, name=f"b{i}_fc2")
+        x = nb.residual(x, name=f"b{i}_res2")
+    nb.layernorm(name="ln")
+    nb.seqpool(name="pool")
+    nb.fc(1000, name="head")
+    nb.softmax(name="softmax")
+    return nb.build()
+
+
 vit_tiny = vit_tiny_graph
 
 
@@ -123,4 +161,5 @@ GRAPHS = {
     "vgg16": vgg16_graph,
     "resnet18": resnet18_graph,
     "vit_tiny": vit_tiny_graph,
+    "vit_s16": vit_s16_graph,
 }

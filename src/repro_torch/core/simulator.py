@@ -126,6 +126,10 @@ class SimReport:
 # ---------------------------------------------------------------------------
 
 _RES_ROWS = 8         # residual input bit rows merged under the conv FB
+# a layer norm closing a conv group (a ViT's patch embedding): two 16-bit
+# statistic accumulators plus the scale/shift constants, the rows the
+# program compiler reserves for a sequence group's layer norm
+LN_ROWS = 34
 
 
 def _maxlogic_rows(window: int, bits: int) -> int:
@@ -150,7 +154,7 @@ def build_group_requests(group: list[LayerSpec], chip: ChipConfig
     res = next((l for l in group[1:] if l.kind == "residual"), None)
     smax = next((l for l in group[1:] if l.kind == "softmax"), None)
 
-    consumer_rows = 0
+    consumer_rows = LN_ROWS * any(l.kind == "layernorm" for l in group[1:])
     if res is not None:
         consumer_rows += _RES_ROWS
     if pool is not None:

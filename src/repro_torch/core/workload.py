@@ -22,6 +22,11 @@ Two layer vocabularies share this record:
   expands it into qkv/scores/context/projection stages), ``layernorm``
   / ``gelu`` are FB post-ops, and ``seqpool`` mean-pools the token axis
   into a flat feature vector (the classifier-head transition).
+
+Unlike the JAX package, a residual may read a group's *tap* (the value
+before its closing layer norm, ``group_tap``), which pre-norm
+transformer blocks need, and a layer norm may close a conv-headed
+group (a ViT's patch embedding, its output rasterized to tokens).
 """
 
 from __future__ import annotations
@@ -148,6 +153,21 @@ WORKLOADS = _WorkloadShim({
 # the api builder's build-time check.
 POST_RANK = {"residual": 0, "relu": 1, "gelu": 1, "maxpool": 2,
              "avgpool": 2, "layernorm": 3, "seqpool": 4, "softmax": 5}
+
+
+def group_tap(group: list[LayerSpec]) -> str:
+    """The layer of ``group`` whose buffer a later residual may read
+    besides the group's final one, or ``""``.
+
+    Pre-norm blocks (``x = x + f(LN(x))``) read the residual stream
+    *before* the layer norm that ends its group: a **tap**, the layer
+    before a closing ``layernorm`` (the head, a residual or an
+    activation: the chain orders them before it, and the builder refuses
+    a layer norm after a pool), which the epilogue stores beside the
+    normalized rows in the same pass."""
+    if len(group) > 1 and group[-1].kind == "layernorm":
+        return group[-2].name
+    return ""
 
 
 def input_spec(layers: list[LayerSpec]) -> tuple[int, int, int, int]:

@@ -64,6 +64,14 @@
 // of (B, slice_rows, heads * N), what the reference's `merge_heads`
 // after the vmapped epilogue computes (src/repro/program/execute.py:135).
 // A null bias adds nothing: fma(y, scale, +0) rounds as y * scale does.
+//
+// A tap (pre-norm transformer blocks, x = x + f(LN(x))): with a non-null
+// `tap`, a layer norm, no pool and no heads, the row's value before the
+// layer norm (the residual sum) is stored to tap, shaped as y, by the
+// same threads in the same pass: `rows_warp_tap_kernel` (N <= 1024) and
+// `rows_tap_kernel` (longer rows) are the row kernels' bodies
+// instantiated with the store, and calls without a tap launch the row
+// kernels as they were, with the same code.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -280,9 +288,11 @@ __device__ __forceinline__ float row_sum(const float* x, int lane, int N) {
 // Row r of the chain into registers (lane L: columns L + 32k, coalesced
 // 4-byte accesses across the warp), then the layer norm (if any) with
 // the first design's sums.
-template <int NV, int W>
+// With TAP the chain's values are stored to `tap` before the layer norm.
+template <int NV, int W, bool TAP = false>
 __device__ __forceinline__ void warp_row(const Chain& p, long long r,
-                                         int lane, int norm, float* x) {
+                                         int lane, int norm, float* x,
+                                         float* tap = nullptr) {
   const int N = p.N;
   const float scale = row_scale(p, r);
   const size_t row = (size_t)r * N;
@@ -290,6 +300,13 @@ __device__ __forceinline__ void warp_row(const Chain& p, long long r,
   for (int k = 0; k < NV; ++k) {
     const int c = lane + 32 * k;
     x[k] = c < N ? chain(p, (long long)(row + c), c, scale) : 0.0f;
+  }
+  if constexpr (TAP) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = lane + 32 * k;
+      if (c < N) tap[row + c] = x[k];
+    }
   }
   if (!norm) return;
   const float mean = __fdiv_rn(row_sum<NV, W>(x, lane, N), (float)N);
@@ -312,16 +329,17 @@ __device__ __forceinline__ void warp_row(const Chain& p, long long r,
 }
 
 // One warp per row (layer norm and / or softmax), blockDim.x / 32 rows a
-// block.
-template <int NV, int W>
-__global__ void rows_warp_kernel(Chain p, int norm, int softmax) {
+// block; with TAP the row before the layer norm to `tap`.
+template <int NV, int W, bool TAP>
+__device__ __forceinline__ void rows_warp(const Chain& p, int norm,
+                                          int softmax, float* tap) {
   const int lane = threadIdx.x % 32;
   const long long r = (long long)blockIdx.x * (blockDim.x / 32) +
                       threadIdx.x / 32;
   if (r >= p.M) return;
   const int N = p.N;
   float x[NV];
-  warp_row<NV, W>(p, r, lane, norm, x);
+  warp_row<NV, W, TAP>(p, r, lane, norm, x, tap);
   if (softmax) {
     float m = -CUDART_INF_F;
 #pragma unroll
@@ -341,6 +359,17 @@ __global__ void rows_warp_kernel(Chain p, int norm, int softmax) {
     const int c = lane + 32 * k;
     if (c < N) p.out[row + c] = x[k];
   }
+}
+
+template <int NV, int W>
+__global__ void rows_warp_kernel(Chain p, int norm, int softmax) {
+  rows_warp<NV, W, false>(p, norm, softmax, nullptr);
+}
+
+template <int NV, int W>
+__global__ void rows_warp_tap_kernel(Chain p, int norm, int softmax,
+                                     float* tap) {
+  rows_warp<NV, W, true>(p, norm, softmax, tap);
 }
 
 // One block per sequence of `group` token rows: warp w computes rows w,
@@ -395,9 +424,12 @@ __device__ float block_max(float v, float* red) {
 // Rows longer than 1024: one block per output row; `group` input rows per
 // output row (the sequence length for seq-mean, else 1).  Each thread
 // owns columns tid, tid + blockDim.x, ... of the shared row, so only the
-// reductions synchronise.
-__global__ void rows_kernel(Chain p, int group, int norm, int softmax,
-                            int seqmean) {
+// reductions synchronise.  With TAP (group 1) the row before its layer
+// norm to `tap`.
+template <bool TAP>
+__device__ __forceinline__ void rows_block(const Chain& p, int group,
+                                           int norm, int softmax,
+                                           int seqmean, float* tap) {
   extern __shared__ float smem[];
   __shared__ float red[32];
   float* row = smem;
@@ -409,8 +441,10 @@ __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
   for (int t = 0; t < group; ++t) {
     const long long r = o * group + t;
     const float scale = row_scale(p, r);
-    for (int c = threadIdx.x; c < N; c += blockDim.x)
+    for (int c = threadIdx.x; c < N; c += blockDim.x) {
       row[c] = chain(p, r * N + c, c, scale);
+      if constexpr (TAP) tap[r * N + c] = row[c];
+    }
     if (norm) {
       float s = 0.0f;
       for (int c = threadIdx.x; c < N; c += blockDim.x) s = __fadd_rn(s, row[c]);
@@ -452,6 +486,15 @@ __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
   if (seqmean)
     for (int c = threadIdx.x; c < N; c += blockDim.x)
       p.out[o * N + c] = __fdiv_rn(acc[c], (float)group);
+}
+
+__global__ void rows_kernel(Chain p, int group, int norm, int softmax,
+                            int seqmean) {
+  rows_block<false>(p, group, norm, softmax, seqmean, nullptr);
+}
+
+__global__ void rows_tap_kernel(Chain p, int norm, int softmax, float* tap) {
+  rows_block<true>(p, 1, norm, softmax, 0, tap);
 }
 
 constexpr int kThreads = 256;
@@ -506,8 +549,13 @@ int launch_pool(const Chain& p, int pool, int window, int img_hw,
 
 template <int NV, int W>
 int launch_rows(const Chain& p, int norm, int softmax, int seqmean,
-                int window, cudaStream_t s) {
-  if (seqmean) {
+                int window, float* tap, cudaStream_t s) {
+  if (tap) {
+    const long long blocks = ((long long)p.M + kRowWarps - 1) / kRowWarps;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    rows_warp_tap_kernel<NV, W><<<(unsigned)blocks, kRowWarps * 32, 0, s>>>(
+        p, norm, softmax, tap);
+  } else if (seqmean) {
     const int smem = window * p.N * (int)sizeof(float);
     static bool attr_set = false;
     if (!attr_set) {
@@ -531,16 +579,21 @@ int launch_rows(const Chain& p, int norm, int softmax, int seqmean,
 // NV = 32-column chunks a lane holds; W = the first design's warps for N
 // (64, 128 or 256 threads: N < 65, N < 256, else).
 int dispatch_rows(const Chain& p, int norm, int softmax, int seqmean,
-                  int window, cudaStream_t s) {
+                  int window, float* tap, cudaStream_t s) {
   const int N = p.N;
-  if (N <= 32) return launch_rows<1, 2>(p, norm, softmax, seqmean, window, s);
-  if (N <= 64) return launch_rows<2, 2>(p, norm, softmax, seqmean, window, s);
-  if (N <= 128) return launch_rows<4, 4>(p, norm, softmax, seqmean, window, s);
-  if (N < 256) return launch_rows<8, 4>(p, norm, softmax, seqmean, window, s);
-  if (N <= 256) return launch_rows<8, 8>(p, norm, softmax, seqmean, window, s);
+  if (N <= 32)
+    return launch_rows<1, 2>(p, norm, softmax, seqmean, window, tap, s);
+  if (N <= 64)
+    return launch_rows<2, 2>(p, norm, softmax, seqmean, window, tap, s);
+  if (N <= 128)
+    return launch_rows<4, 4>(p, norm, softmax, seqmean, window, tap, s);
+  if (N < 256)
+    return launch_rows<8, 4>(p, norm, softmax, seqmean, window, tap, s);
+  if (N <= 256)
+    return launch_rows<8, 8>(p, norm, softmax, seqmean, window, tap, s);
   if (N <= 512)
-    return launch_rows<16, 8>(p, norm, softmax, seqmean, window, s);
-  return launch_rows<32, 8>(p, norm, softmax, seqmean, window, s);
+    return launch_rows<16, 8>(p, norm, softmax, seqmean, window, tap, s);
+  return launch_rows<32, 8>(p, norm, softmax, seqmean, window, tap, s);
 }
 
 bool aligned16(const void* ptr) {
@@ -562,15 +615,18 @@ int fb_epilogue_rows_smem(int N, int seqmean) {
 // null.  M counts the rows of all slices; each slice of slice_rows rows
 // has its own scale, and no pool window or sequence crosses a slice.
 // heads > 0 (no pool; the slice count a multiple of it): out is (S /
-// heads, slice_rows, heads * N), the heads merged.
+// heads, slice_rows, heads * N), the heads merged.  tap, non-null (a
+// layer norm, no pool, no heads): the rows before the norm, (M, N).
 int fb_epilogue(const void* y, const void* scale, const void* bias,
                 const void* res, const void* gamma, const void* beta,
-                void* out, int M, int N, int slice_rows, int act,
+                void* out, void* tap, int M, int N, int slice_rows, int act,
                 float post_scale, int norm, int pool, int window, int img_hw,
                 int softmax, int heads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (heads < 0 || (heads > 0 && (pool != POOL_NONE ||
                                   (M / slice_rows) % heads != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (tap && (pool != POOL_NONE || heads > 0 || !norm))
     return (int)cudaErrorInvalidValue;
   Chain p{(const int32_t*)y, (const float*)scale, (const float*)bias,
           (const float*)res,  (const float*)gamma, (const float*)beta,
@@ -595,19 +651,25 @@ int fb_epilogue(const void* y, const void* scale, const void* bias,
   }
   if (norm || softmax || pool == POOL_SEQMEAN) {
     const int seqmean = pool == POOL_SEQMEAN;
+    float* t = (float*)tap;
     if (N <= kWarpRowMax &&
         (!seqmean || (long long)window * N * sizeof(float) <= kSeqSmemMax))
-      return dispatch_rows(p, norm, softmax, seqmean, window, s);
+      return dispatch_rows(p, norm, softmax, seqmean, window, t, s);
     const int group = seqmean ? window : 1;
     const int smem = fb_epilogue_rows_smem(N, seqmean);
     if (smem > 48 * 1024) {
+      const void* kernel = t ? (const void*)rows_tap_kernel
+                             : (const void*)rows_kernel;
       cudaError_t e = cudaFuncSetAttribute(
-          rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
     }
     const int row_threads = N >= 256 ? 256 : (N > 64 ? 128 : 64);
-    rows_kernel<<<M / group, row_threads, smem, s>>>(p, group, norm, softmax,
-                                                     seqmean);
+    if (t)
+      rows_tap_kernel<<<M, row_threads, smem, s>>>(p, norm, softmax, t);
+    else
+      rows_kernel<<<M / group, row_threads, smem, s>>>(p, group, norm,
+                                                       softmax, seqmean);
     return (int)cudaGetLastError();
   }
   return vec ? launch_elementwise<4>(p, s) : launch_elementwise<1>(p, s);

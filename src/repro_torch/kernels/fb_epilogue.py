@@ -17,6 +17,12 @@ heads * N): the reference's ``merge_heads`` after the context stage
 of None adds nothing (the dynamic stages' zero bias): ``fma(y, scale,
 +0)`` rounds as ``y * scale``.
 
+With ``tap=True`` (a layer norm, no pool and no ``heads``) the call
+also returns the chain's value before the layer norm, the residual sum
+of a pre-norm block, stored in the same pass beside the normalized row
+(``program.compile.CrossbarProgram.taps``); calls without a tap launch
+the kernels they launched before it existed.
+
 For a CUDA tensor ``fb_epilogue`` launches the hand-written kernel in
 ``csrc/fb_epilogue.cu`` (its header says what bounds it on the H100) and
 adds one to ``fb_epilogue.launches``; for a CPU tensor it computes the
@@ -72,8 +78,16 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_modes(y: torch.Tensor, *, act, pool, window, img_hw, softmax,
-                 norm, gamma, beta, heads) -> None:
+                 norm, gamma, beta, heads, tap) -> None:
     M, N = y.shape[-2:]
+    if tap and not (norm == "layer" and pool == "none" and not heads):
+        raise ValueError("fb_epilogue: a tap stores the row before its "
+                         "layer norm; it needs one, and no pool or heads "
+                         f"(got norm {norm!r}, pool {pool!r}, heads "
+                         f"{heads})")
+    if norm == "layer" and pool in ("max", "avg"):
+        raise ValueError(f"fb_epilogue: a layer norm does not meet a "
+                         f"{pool} pool in one chain")
     if heads and not (heads > 0 and y.dim() == 3 and pool == "none"
                       and y.shape[0] % heads == 0):
         raise ValueError(f"fb_epilogue: heads={heads} merges the slices of "
@@ -145,14 +159,17 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
                     img_hw: int = 0, softmax: bool = False,
                     norm: str = "none", gamma: torch.Tensor | None = None,
                     beta: torch.Tensor | None = None,
-                    post_scale: float = 0.0, heads: int = 0) -> torch.Tensor:
+                    post_scale: float = 0.0, heads: int = 0,
+                    tap: bool = False):
     """The plain PyTorch composition the kernel must equal.
 
     Average pooling sums each window in row-major order and multiplies
     by ``f32(1 / window^2)``, the order the kernel uses
     (``avg_windows``).  A 3-D ``y`` (S, M, N) takes a (S, 1, 1)
     ``scale``; no pool window or sequence crosses a slice, so the rest
-    of the chain runs on the (S*M, N) rows.
+    of the chain runs on the (S*M, N) rows.  With ``tap`` it returns
+    ``(out, tap)``, ``tap`` the rows before the layer norm, shaped as
+    ``y``.
     """
     N = y.shape[-1]
     out = dequant(y, scale.reshape(-1, 1, 1) if y.dim() == 3
@@ -166,6 +183,7 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
         out = torch.relu(out)
     elif act == "gelu":
         out = gelu(out)
+    tapped = out.reshape(y.shape) if tap else None
     if norm == "layer":
         out = layer_norm_rows(out, gamma, beta)
     if pool == "seqmean":
@@ -178,6 +196,8 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
     if softmax:
         out = softmax_rows(out)
     out = out.reshape(*y.shape[:-2], -1, N)
+    if tap:
+        return out, tapped
     return merge_heads(out, heads) if heads else out
 
 
@@ -189,8 +209,8 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fb_epilogue")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, i, i,
-                                i, i, i, p]
+    lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i,
+                                i, i, i, i, p]
     lib.fb_epilogue.restype = i
     lib.fb_epilogue_rows_smem.argtypes = [i, i]
     lib.fb_epilogue_rows_smem.restype = i
@@ -210,7 +230,7 @@ def _operand(t: torch.Tensor | None, name: str, dtype: torch.dtype,
 
 
 def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
-            norm, gamma, beta, post_scale, heads) -> torch.Tensor:
+            norm, gamma, beta, post_scale, heads, tap):
     M, N = y.shape[-2:]
     S = y.shape[0] if y.dim() == 3 else 1
     lead = y.shape[:-2]
@@ -239,19 +259,22 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
     shape = ((S // heads, out_rows, heads * N) if heads
              else (*lead, out_rows, N))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
+    tapped = torch.empty_like(y, dtype=torch.float32) if tap else None
     if out.numel() == 0:
-        return out
+        return (out, tapped) if tap else out
     lib = _lib()
     if lib.fb_epilogue_rows_smem(N, int(pool == "seqmean")) > _MAX_SMEM:
         raise ValueError(f"fb_epilogue: a {N}-column row does not fit a "
                          "block's shared memory")
-    err = lib.fb_epilogue(*ptrs, out.data_ptr(), S * M, N, M, _ACTS[act],
+    err = lib.fb_epilogue(*ptrs, out.data_ptr(),
+                          None if tapped is None else tapped.data_ptr(),
+                          S * M, N, M, _ACTS[act],
                           float(post_scale), int(has_norm), _POOLS[pool],
                           int(window), int(img_hw), int(softmax), int(heads),
                           _build.stream_handle())
     _build.check(lib, "fb_epilogue", err)
     fb_epilogue.launches += 1
-    return out
+    return (out, tapped) if tap else out
 
 
 def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
@@ -261,7 +284,7 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
                 softmax: bool = False, norm: str = "none",
                 gamma: torch.Tensor | None = None,
                 beta: torch.Tensor | None = None,
-                post_scale: float = 0.0, heads: int = 0) -> torch.Tensor:
+                post_scale: float = 0.0, heads: int = 0, tap: bool = False):
     """y (M, N) int32 crossbar output -> fused FB chain -> f32.
 
     ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,) or None; a
@@ -273,18 +296,20 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
     (B * (img_hw // window)^2, N)); ``seqmean`` averages each sequence's
     ``window`` rows (output (M // window, N)).  ``norm="layer"`` applies
     ``layer_norm_rows`` with ``gamma``/``beta`` (N,); ``softmax=True``
-    normalizes each row.  CUDA tensors run the kernel, CPU tensors the
-    plain version.
+    normalizes each row.  ``tap=True`` returns ``(out, tap)``: ``tap``
+    (shaped as ``y``, f32) the rows before the layer norm, stored by the
+    same launch.  CUDA tensors run the kernel, CPU tensors the plain
+    version.
     """
     if y.dim() not in (2, 3):
         raise ValueError(f"fb_epilogue: y must be (M, N) or (S, M, N), got "
                          f"{tuple(y.shape)}")
     _check_modes(y, act=act, pool=pool, window=window, img_hw=img_hw,
                  softmax=softmax, norm=norm, gamma=gamma, beta=beta,
-                 heads=heads)
+                 heads=heads, tap=tap)
     kw = dict(act=act, pool=pool, window=window, img_hw=img_hw,
               softmax=softmax, norm=norm, gamma=gamma, beta=beta,
-              post_scale=post_scale, heads=heads)
+              post_scale=post_scale, heads=heads, tap=tap)
     if y.is_cuda:
         return _launch(y, scale, bias, residual, **kw)
     return fb_epilogue_ref(y, scale, bias, residual, **kw)

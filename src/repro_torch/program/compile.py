@@ -48,6 +48,13 @@ layernorm -> seqpool -> softmax`` (``core.workload.POST_RANK``).
 
 The port of ``repro.program.compile``, line for line: it is pure Python,
 and its ``ProgramOp`` lists equal the JAX package's field for field.
+Beyond it, for pre-norm transformer blocks: a residual may read an
+earlier group's **tap** (``core.workload.group_tap``, the value its chain
+holds before the layer norm that ends it), which makes that buffer a
+second materialized output of the stage (``CrossbarProgram.taps``; no
+``ProgramOp`` field, so a program without taps is the JAX package's);
+and a layer norm may close a conv group, lowered with the CNN groups
+(its rows reserved below the GEMM slice, ``simulator.LN_ROWS``).
 """
 
 from __future__ import annotations
@@ -57,9 +64,10 @@ import math
 
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.scheduling import ArrayPlan, plan_array
-from repro_torch.core.simulator import ChipConfig, build_group_requests
-from repro_torch.core.workload import (POST_RANK, SEQ_KINDS, input_spec,
-                                       layer_groups)
+from repro_torch.core.simulator import (LN_ROWS, ChipConfig,
+                                        build_group_requests)
+from repro_torch.core.workload import (POST_RANK, SEQ_KINDS, group_tap,
+                                       input_spec, layer_groups)
 
 from .sequence import attn_scale
 
@@ -75,7 +83,7 @@ _FB_KIND = {"maxpool": ("max",), "relu": ("relu", "max"),
 # the scale/shift constants; softmax = the fp16 max/exp tournament
 # budget.  A dynamic P·V stage with no consumer still reserves
 # ``_SEQ_OR_ROWS`` output-register staging rows.
-_SEQ_FB_ROWS = {"residual": 8, "relu": 18, "gelu": 18, "layernorm": 34,
+_SEQ_FB_ROWS = {"residual": 8, "relu": 18, "gelu": 18, "layernorm": LN_ROWS,
                 "seqpool": 18, "softmax": 26}
 _SEQ_OR_ROWS = 8
 
@@ -183,6 +191,19 @@ class CrossbarProgram:
     def has_dynamic_stages(self) -> bool:
         return any(op.kind == "dyn_gemm" for op in self.ops)
 
+    def taps(self) -> dict[str, str]:
+        """Stage (its GEMM op's name) -> its tap: the buffer of its FB
+        chain, short of the last, that a later residual reads, which
+        the stage stores as a second output.  Derived from the ops, so
+        a saved program keeps it."""
+        read = {op.res_src for op in self.ops if op.kind == "residual"}
+        out = {}
+        for gemm, posts in self.stages():
+            for op in [gemm, *posts][:-1]:
+                if op.dst in read:
+                    out[gemm.name] = op.dst
+        return out
+
     def stages(self) -> list[tuple[ProgramOp, list[ProgramOp]]]:
         """Group the op list into (gemm, fused post-op chain) stages."""
         out: list[tuple[ProgramOp, list[ProgramOp]]] = []
@@ -197,13 +218,15 @@ class CrossbarProgram:
         lines = [f"CrossbarProgram({self.net}): {len(self.ops)} FB ops, "
                  f"{self.n_mount_rounds} mount rounds"
                  + (" + dynamic mounts" if self.has_dynamic_stages else "")]
+        taps = self.taps()
         for gemm, posts in self.stages():
             chain = "+".join([gemm.kind] + [p.kind for p in posts])
             mounts = (f"mounts {len(gemm.mount_rounds)}"
                       if gemm.kind == "gemm" else f"dyn[{gemm.dyn}]")
+            tap = f" tap {taps[gemm.name]}" if gemm.name in taps else ""
             lines.append(
                 f"  {gemm.name:14s} {chain:32s} "
-                f"tile {gemm.tile_rows}x{gemm.tile_cols} {mounts}")
+                f"tile {gemm.tile_rows}x{gemm.tile_cols} {mounts}{tap}")
         return "\n".join(lines)
 
 
@@ -229,13 +252,18 @@ def _mount_rounds(K: int, N: int, tile_rows: int,
 
 
 def _is_seq_group(group) -> bool:
+    """Linear/attention heads, and CNN heads with sequence FBs other
+    than a conv's closing layer norm (which the sequence path rejects)."""
+    conv = group[0].kind == "conv"
     return (group[0].kind in ("linear", "attention")
-            or any(l.kind in SEQ_KINDS for l in group))
+            or any(l.kind in SEQ_KINDS
+                   and not (conv and l.kind == "layernorm") for l in group))
 
 
-def _seq_posts(group, head_dst: str, finals: set[str],
+def _seq_posts(group, head_dst: str, readable: set[str],
                ops: list[ProgramOp]) -> str:
-    """Emit the sequence group's post-op chain; returns the final buffer."""
+    """Emit the sequence group's post-op chain; returns the final buffer.
+    A residual reads a buffer of ``readable`` (finals and taps)."""
     rank = -1
     cur = head_dst
     for l in group[1:]:
@@ -249,7 +277,7 @@ def _seq_posts(group, head_dst: str, finals: set[str],
         rank = POST_RANK[l.kind]
         extra: dict = {}
         if l.kind == "residual":
-            if l.residual_from not in finals:
+            if l.residual_from not in readable:
                 raise ValueError(f"{l.name} residual source "
                                  f"{l.residual_from!r} not materialized")
             extra = {"res_src": l.residual_from}
@@ -263,8 +291,9 @@ def _seq_posts(group, head_dst: str, finals: set[str],
 
 
 def _lower_seq_group(group, chip: ChipConfig, finals: set[str], prev: str,
-                     ops: list[ProgramOp]) -> str:
-    """Lower one sequence group; returns its final buffer name."""
+                     ops: list[ProgramOp], taps: set[str]) -> str:
+    """Lower one sequence group; returns its final buffer name.  Its
+    input is a final buffer, a residual's addend a final or a tap."""
     head = group[0]
     planes = chip.weight_planes
     reserve = sum(_SEQ_FB_ROWS[l.kind] for l in group[1:]
@@ -287,7 +316,7 @@ def _lower_seq_group(group, chip: ChipConfig, finals: set[str], prev: str,
     if head.kind == "linear":
         ops.append(seq_gemm(head.name, src, head.name,
                             K=head.features_in, N=head.features_out))
-        return _seq_posts(group, head.name, finals, ops)
+        return _seq_posts(group, head.name, finals | taps, ops)
 
     if head.kind != "attention":
         # raw LayerSpec lists can still reach here (the builder rejects
@@ -327,7 +356,7 @@ def _lower_seq_group(group, chip: ChipConfig, finals: set[str], prev: str,
     #    post-ops (residual/layernorm/...) fuse onto this stage
     ops.append(seq_gemm(head.name, ctx, head.name, K=d, N=d,
                         w_key="wo", b_key="bo"))
-    return _seq_posts(group, head.name, finals, ops)
+    return _seq_posts(group, head.name, finals | taps, ops)
 
 
 def compile_network(net, *, config=None,
@@ -365,13 +394,16 @@ def compile_network(net, *, config=None,
     ops: list[ProgramOp] = []
     plans: list[ArrayPlan] = []
     finals: set[str] = {"input"}
+    taps: set[str] = set()          # earlier groups' taps (residuals only)
     prev = "input"
     for group in layer_groups(layers):
         head = group[0]
         if _is_seq_group(group):
-            cur = _lower_seq_group(group, chip, finals, prev, ops)
+            cur = _lower_seq_group(group, chip, finals, prev, ops, taps)
             prev = cur
             finals.add(cur)
+            if tap := group_tap(group):
+                taps.add(tap)
             continue
         if head.kind not in ("conv", "fc"):
             raise ValueError(f"group head {head.name} is {head.kind}, "
@@ -417,10 +449,15 @@ def compile_network(net, *, config=None,
                 extra = {"window": l.ksize, "in_hw": l.in_hw,
                          "out_hw": l.out_hw}
             if l.kind == "residual":
-                if l.residual_from not in finals:
+                if l.residual_from not in finals | taps:
                     raise ValueError(f"{l.name} residual source "
                                      f"{l.residual_from!r} not materialized")
                 extra = {"res_src": l.residual_from}
+            if l.kind == "layernorm":       # tokens: the conv's pixels
+                if any(p.kind in ("maxpool", "avgpool") for p in group):
+                    raise ValueError(f"{l.name}: a conv group's layer norm "
+                                     "cannot follow a pool")
+                extra = {"param": l.name, "seq": True}
             ops.append(ProgramOp(
                 kind=l.kind, name=l.name, src=cur, dst=l.name,
                 out_ch=l.out_ch or l.features_out, **extra,
@@ -428,6 +465,8 @@ def compile_network(net, *, config=None,
             cur = l.name
         prev = cur
         finals.add(cur)
+        if tap := group_tap(group):
+            taps.add(tap)
 
     logits = next(op.dst for op in reversed(ops) if op.kind == "gemm")
     if hasattr(net, "input_shape"):       # a NetworkGraph carries its spec

@@ -18,7 +18,11 @@ stage (``_static_stage``):
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read), on ``wt`` and that K;
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
-  residual, ReLU, pooling, softmax) over the int32 GEMM output.
+  residual, ReLU, pooling, softmax) over the int32 GEMM output; where
+  the stage has a tap (``CrossbarProgram.taps``: a pre-norm block's
+  residual sum, which a later residual reads), the same call stores it
+  beside the normalized rows as the stage's second output, its bytes
+  counted in ``fb.tap_bytes`` (``TAP_BYTES``), at capture and eager runs.
 
 Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
 activations instead of weights, per (batch, head) slice, in four kernel
@@ -37,17 +41,18 @@ the contraction sized to the runtime head dim or sequence length):
 * one batched ``crossbar_gemm`` call and one batched ``fb_epilogue``
   call (no bias; the context stored with its heads merged).
 
-Each stage runs in a ``stage`` span (``repro_torch.trace``; its attr
-``layer`` the stage's GEMM layer), and with ``plan=`` a list
-``execute_packed`` appends the stage's ``PlanStep``: its layer, each
-counting wrapper's calls and their device kernels, from the wrappers'
-``.launches`` and ``quantize_layout``'s device-kernel counter (a CUDA
-run's; a CPU run launches nothing).  ``Executable`` keeps the plan of
-its capture.
+Each stage runs in a ``stage`` span (``repro_torch.trace``; its attrs
+``layer``, the stage's GEMM layer, and ``tap``, its tap or ``""``), and
+with ``plan=`` a list ``execute_packed`` appends the stage's
+``PlanStep``: its layer, its tap, each counting wrapper's calls and
+their device kernels, from the wrappers' ``.launches`` and
+``quantize_layout``'s device-kernel counter (a CUDA run's; a CPU run
+launches nothing).  ``Executable`` keeps the plan of its capture.
 
-Buffers are dropped as soon as no later stage reads them.  On a CUDA
-device the three calls launch the hand-written kernels; on the CPU they
-take their plain PyTorch versions.  ``execute_program`` is the
+Buffers are dropped as soon as no later stage reads them (a tap after
+the stage of its residual).  On a CUDA device the three calls launch
+the hand-written kernels; on the CPU they take their plain PyTorch
+versions.  ``execute_program`` is the
 params-consuming entry: it packs under the call, then runs
 ``execute_packed``.
 """
@@ -75,6 +80,8 @@ from .sequence import qkv_head_views, tokens
 WRAPPERS = (quantize_layout, crossbar_gemm, fb_epilogue)
 # counter: the zero K bytes of the static stages' left operands, M * (Kk - K)
 ZERO_K_BYTES = "layout.zero_k_bytes"
+# counter: the bytes the epilogue's second stores (the taps) write
+TAP_BYTES = "fb.tap_bytes"
 
 
 def _marks() -> tuple[dict[str, int], int]:
@@ -89,15 +96,17 @@ class PlanStep:
     """One stage of a launch plan: its GEMM layer, each wrapper's calls
     in it, and their device kernels (``crossbar_gemm`` and
     ``fb_epilogue`` one a call; ``quantize_layout`` as its
-    ``device_kernels`` say)."""
+    ``device_kernels`` say); ``tap`` the buffer its epilogue also
+    stores, or ``""``."""
 
     layer: str
     calls: dict[str, int]
     kernels: dict[str, int]
+    tap: str = ""
 
     @classmethod
-    def since(cls, layer: str, marks: tuple[dict[str, int], int]
-              ) -> "PlanStep":
+    def since(cls, layer: str, marks: tuple[dict[str, int], int],
+              tap: str = "") -> "PlanStep":
         """The step of the launches made since ``marks`` (``_marks``)."""
         (calls0, kernels0), (calls1, kernels1) = marks, _marks()
         calls = {w: calls1[w] - n for w, n in calls0.items()
@@ -105,7 +114,7 @@ class PlanStep:
         kernels = dict(calls)
         if "quantize_layout" in calls:
             kernels["quantize_layout"] = kernels1 - kernels0
-        return cls(layer, calls, kernels)
+        return cls(layer, calls, kernels, tap)
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -194,9 +203,11 @@ def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
 
 
 def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
-                  st: PackedStage, bufs: dict, cfg, *,
-                  drop_softmax: bool) -> tuple[str, torch.Tensor]:
-    """One weight-mounted GEMM stage + fused epilogue -> (dst, buffer)."""
+                  st: PackedStage, bufs: dict, cfg, *, drop_softmax: bool,
+                  tap: str = "") -> tuple[str, torch.Tensor]:
+    """One weight-mounted GEMM stage + fused epilogue -> (dst, buffer);
+    with ``tap`` (a buffer of its chain) the epilogue's second output
+    goes to ``bufs[tap]``."""
     src = bufs[gemm.src]
     b = src.shape[0]
     t = 0
@@ -252,9 +263,17 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
         dst = gemm.dst
     out = fb_epilogue(y_int, scale, st.bias, res, act=act, pool=pool,
                       window=window, img_hw=img_hw, softmax=softmax,
-                      norm=norm, gamma=st.ln_g, beta=st.ln_b)
-    if gemm.is_conv:
+                      norm=norm, gamma=st.ln_g, beta=st.ln_b,
+                      tap=bool(tap))
+    if tap:
+        out, tapped = out
+        trace.count(TAP_BYTES, tapped.numel() * tapped.element_size())
+        bufs[tap] = (tapped.reshape(b, out_hw, out_hw, -1) if gemm.is_conv
+                     else tapped.reshape(b, t, -1))
+    if gemm.is_conv and norm == "none":
         out = out.reshape(b, out_hw, out_hw, -1)
+    elif gemm.is_conv:                   # a layer norm's tokens
+        out = out.reshape(b, out_hw * out_hw, -1)
     elif gemm.seq and pool != "seqmean":
         out = out.reshape(b, t, -1)
     return dst, out
@@ -277,20 +296,23 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
     bufs: dict[str, torch.Tensor] = {program.input: x}
     stages = program.stages()
     last = _last_reads(stages)
+    taps = program.taps()
     ret = program.logits if return_logits else program.output
     for si, ((gemm, posts), st) in enumerate(zip(stages, packed.stages)):
         marks = _marks() if plan is not None else None
-        with trace.span("stage", layer=gemm.name):
+        tap = taps.get(gemm.name, "")
+        with trace.span("stage", layer=gemm.name, tap=tap):
             if gemm.kind == "dyn_gemm":
                 dst = posts[-1].dst if posts else gemm.dst
                 bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg)
             else:
                 dst, out = _static_stage(
                     gemm, posts, st, bufs, cfg,
-                    drop_softmax=return_logits and si == len(stages) - 1)
+                    drop_softmax=return_logits and si == len(stages) - 1,
+                    tap=tap)
                 bufs[dst] = out
         if plan is not None:
-            plan.append(PlanStep.since(gemm.name, marks))
+            plan.append(PlanStep.since(gemm.name, marks, tap))
         # drop buffers no later stage reads
         for name in [n for n, li in last.items() if li <= si]:
             if name != ret:

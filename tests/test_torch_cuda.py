@@ -26,6 +26,7 @@ from repro_torch.kernels import (COUNTED, clip_possible, crossbar_gemm,
                                  packed_gemm_tiles_ref, pad_groups,
                                  quantize_layout, quantize_layout_ref,
                                  tile_group_map)
+from test_torch_prenorm import small_graph
 
 
 @pytest.fixture
@@ -113,6 +114,34 @@ def test_fb_epilogue_kernel_matches_plain(cuda, mode, N):
     ("seqmean", 1024, {"window": 64})])
 def test_fb_epilogue_long_rows(cuda, mode, N, over):
     _fb_against_plain(cuda, mode, 128, N, seed=N, **over)
+
+
+# the tap (pre-norm blocks): the row before the layer norm, stored by the
+# same launch, bit for bit the plain path's; the normalized rows bit for
+# bit those of the call without a tap.  Widths: ViT-S/16's 384, vit_tiny's
+# 192, an odd one, and past a warp's row (the block-per-row kernel)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [384, 192, 19, 1000, 1025, 1536])
+def test_fb_epilogue_tap_equals_plain(cuda, N):
+    kw, _, atol = FB_CASES["layer"]
+    M = 3 * 196
+    g = torch.Generator(device=cuda).manual_seed(N)
+    y = torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=g, device=cuda,
+                      dtype=torch.int32)
+    scale = torch.full((1, 1), 3.1e-6, device=cuda)
+    bias = torch.randn(N, generator=g, device=cuda)
+    res = torch.randn(M, N, generator=g, device=cuda)
+    kw = dict(kw, gamma=torch.randn(N, generator=g, device=cuda),
+              beta=torch.randn(N, generator=g, device=cuda))
+    before = fb_epilogue.launches
+    out, tap = fb_epilogue(y, scale, bias, res, tap=True, **kw)
+    assert fb_epilogue.launches == before + 1
+    untapped = fb_epilogue(y, scale, bias, res, **kw)
+    ref_out, ref_tap = fb_epilogue_ref(y, scale, bias, res, tap=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tap, ref_tap)
+    assert torch.equal(out, untapped)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=atol)
 
 
 # a pool window other than the programs' 2 and 4
@@ -713,6 +742,8 @@ EXECUTABLE_CASES = {
     "alexnet-adc8": (lambda: api.GRAPHS["alexnet"](), dict(adc_bits=8), ()),
     "vit": (lambda: api.vit_tiny_graph(depth=1, dim=48, heads=3), {}, ()),
     "tokens": (_token_graph, {}, (16, 32)),
+    # pre-norm blocks: a tap a stage, stored by the captured epilogues
+    "vit-prenorm": (small_graph, {}, ()),
 }
 
 

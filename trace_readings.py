@@ -21,7 +21,8 @@ Per cell, set up as ``bench/harness/cell.py`` does (seed 1), then:
 * **the launch plan**: the executable's plan (``Executable.plan``) laid
   over each replay's device ops, wrapper by wrapper in order, so each
   stage's busy time of ``quantize_layout``, ``crossbar_gemm`` and
-  ``fb_epilogue`` stands beside that stage's bound (``bench/counts``).
+  ``fb_epilogue`` stands beside that stage's bound (``bench/counts``,
+  which counts no tap's store), with the stage's tap where it has one.
 
 Prints a summary; the whole record goes to ``--out``.  Needs a GPU.
 """
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -212,15 +214,32 @@ def _idle(ops, spans, ext, start, end) -> dict:
     return out
 
 
+def _kernel_wrappers() -> dict[str, str]:
+    """Kernel function -> wrapper, from the ``__global__`` functions each
+    wrapper's ``csrc/<wrapper>.cu`` defines: the kernels of shapes the
+    benchmark's map (``bench/kernels.json``) has not seen."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    return {fn: w for w in WRAPPERS for fn in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        (csrc / f"{w}.cu").read_text())}
+
+
+def _wrapper_of(name: str, names: dict, defined: dict) -> str | None:
+    if name in names:
+        return names[name]
+    m = re.search(r"\(anonymous namespace\)::(\w+)", name)
+    return defined.get(m.group(1)) if m else None
+
+
 def _plan_table(ops, ext, plan, layers, batch) -> list[dict]:
     """Each stage's busy seconds a replay per wrapper (union of its
     kernels' intervals), beside its bound."""
-    names = json.loads(KERNELS.read_text())
+    names, defined = json.loads(KERNELS.read_text()), _kernel_wrappers()
     busy = [{w: [] for w in WRAPPERS} for _ in plan]
     for a, b, _ in ext:
         seq = {w: [] for w in WRAPPERS}
         for s, e, n in sorted(o for o in ops if o[0] >= a and o[1] <= b):
-            w = names.get(n)
+            w = _wrapper_of(n, names, defined)
             if w in seq:
                 seq[w].append((s, e))
         for w in WRAPPERS:
@@ -238,7 +257,8 @@ def _plan_table(ops, ext, plan, layers, batch) -> list[dict]:
         s = stage[step.layer]
         nbytes = counts.stage_bytes(s, batch)
         ops_ = 2 * s.S * batch * s.M * s.K * s.N
-        row = {"layer": step.layer, "kernels": step.kernels}
+        row = {"layer": step.layer, "tap": step.tap, "calls": step.calls,
+               "kernels": step.kernels}
         for w in WRAPPERS:
             bound = max(nbytes[w] / counts.HBM_BYTES_PER_S,
                         (ops_ if w == "crossbar_gemm" else 0)
@@ -292,7 +312,8 @@ def main(argv=None) -> int:
         for row in table:
             print(f"  {row['layer']:16s} " + "  ".join(
                 f"{w} {row[w]['busy_ms']:.3f}/{row[w]['bound_ms']:.3f}"
-                for w in ("quantize_layout", "crossbar_gemm")))
+                for w in WRAPPERS)
+                + (f"  tap {row['tap']}" if row["tap"] else ""))
         model._fns.clear()
         del model, loop
         torch.cuda.empty_cache()
