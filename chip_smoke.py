@@ -19,7 +19,10 @@ each on standard output (the per-shape details go to standard error):
    (``torch.equal``): ResNet-18's stage shapes (batch 16) in the main
    path's form (x in the kernel layout, the packed ``wt``), ragged
    shapes, M in 1/4/16 x K in 27/101/988/1458/4860 x N in 10/19/77,
-   all -128 operands, and the K split on and off for one shape;
+   all -128 operands, and the K split on and off for one shape (all on
+   the 64 x 64 tiles); then the wide tiles (``WIDE_CASES``: 2-D calls
+   that fill the card, each of the four widths, ragged M, N and K) in
+   the main path's form, each under its wide plan and one launch;
 3. ``crossbar_gemm`` sliced branch (8-bit ADC / 494 rows, 9-bit / 512,
    every chunk height 247/486/494/511/512 at M = 1, 4, 16) on inputs
    where clips fire, all -1 operands, and the chunk split on and off,
@@ -46,7 +49,8 @@ each on standard output (the per-shape details go to standard error):
    ``device_ms``), beside its bound, its plain version and, for the GEMM,
    ``torch._int_mm`` with the weight row-major and K-major; the five
    stages furthest from their bound at each batch, for the GEMM and for
-   ``fb_epilogue``; and
+   ``fb_epilogue``; the wide tiles at vit_s16's b1024 fc1 (``WIDE_TIMED``)
+   beside its bound, its plain version and ``torch._int_mm`` K-major; and
    ResNet-18's end-to-end time per batch at 1 and 16 (host clock around
    ``run``, a graph replay, and a device synchronize, median of 10), with
    the device's busy time (profiler device events) and idle share of
@@ -887,6 +891,36 @@ EDGE_M = (1, 4, 16)
 EDGE_K = (27, 101, 988, 1458, 4860)
 EDGE_N = (10, 19, 77)
 EDGE_ROWS = (247, 486, 494, 511, 512)
+# the exact static stages of the benchmark's b1024 cells: (stage, M, K, N),
+# K the logical one (vit_s16: 1024 x 196 tokens; resnet18: 32x32 images);
+# every one takes the wide tiles
+CELL_SHAPES = (("vit_s16 patch", 200704, 768, 384),
+               ("vit_s16 qkv", 200704, 384, 1152),
+               ("vit_s16 proj", 200704, 384, 384),
+               ("vit_s16 fc1", 200704, 384, 1536),
+               ("vit_s16 fc2", 200704, 1536, 384),
+               ("resnet18 s0 conv", 1048576, 576, 64),
+               ("resnet18 s1 conv", 262144, 1152, 128),
+               ("resnet18 s2 conv", 65536, 2304, 256),
+               ("resnet18 s3 conv", 16384, 4608, 512))
+# 2-D calls that fill the card, each width of the wide tiles (M, K, N, bn):
+# ragged M, N and K, vit_s16's fc2 and head widths, resnet18's s3 conv
+WIDE_CASES = ((16891, 300, 10, 64), (16891, 1152, 128, 128),
+              (16896, 1536, 384, 192), (17000, 384, 1000, 256),
+              (16384, 4608, 512, 256))
+WIDE_TIMED = "vit_s16 fc1"       # the CELL_SHAPES stage phase 7 times
+
+
+def cell_operands(gen, M: int, K: int, N: int) -> tuple:
+    """Seeded operands of an exact 2-D call, (x, w, xk, wt): x (M, K) and
+    w (K, N), and the main path's form of them, x in the kernel layout
+    and the mounted ``wt``."""
+    import torch
+    from repro_torch.kernels import kernel_layout, mount_weight
+    x, w = (torch.randint(-128, 128, shape, generator=gen, device=gen.device,
+                          dtype=torch.int8) for shape in ((M, K), (K, N)))
+    return (x, w, kernel_layout(x, K, rows=511, exact=True).contiguous(),
+            mount_weight(w, rows=511, exact=True))
 
 
 def _gemm_err(y, ref) -> int:
@@ -916,19 +950,68 @@ def _split_on_and_off(dev, gen, exact: bool, M: int, K: int, N: int,
     check(split > 1, f"no K split at M={M} K={K} N={N} exact={exact}")
     ref = crossbar_gemm_exact_ref(x, w) if exact else \
         crossbar_gemm_ref(x, w, adc_bits=adc, rows=rows)
-    for forced in (0, 1):
+    for forced in (0, 1):            # 0: the kernel's own split
+        force = (dict(plan=module.ExactPlan(64, 64, 1) if forced else None)
+                 if exact else dict(split=forced))
         y = module._launch(xk, wt, N, exact=exact, rows=r, adc_bits=adc,
-                           split=forced)
+                           **force)
         check(torch.equal(y, ref), f"crossbar_gemm exact={exact} M={M} "
               f"K={K} N={N} split={'auto' if forced == 0 else 1} differs")
     return split
+
+
+def wide_phase(gen) -> dict:
+    """Phase 2's wide tiles: ``WIDE_CASES`` in the main path's form, each
+    under the wide plan of its width and equal to the plain version, one
+    ``crossbar_gemm`` launch a call.  Returns the cases, launches and max
+    error."""
+    from repro_torch.kernels import crossbar_gemm, crossbar_gemm_exact_ref
+    module = importlib.import_module("repro_torch.kernels.crossbar_gemm")
+    worst, before = 0, crossbar_gemm.launches
+    for M, K, N, bn in WIDE_CASES:
+        x, w, xk, wt = cell_operands(gen, M, K, N)
+        plan = module.exact_plan(1, M, N, xk.shape[1])
+        check(plan == module.ExactPlan(128, bn, 1), f"crossbar_gemm M={M} "
+              f"K={K} N={N} plans {plan}, not the {bn}-wide tiles")
+        err = _gemm_err(crossbar_gemm(xk, rows=511, wt=wt, K=K),
+                        crossbar_gemm_exact_ref(x, w))
+        worst = max(worst, err)
+        check(err == 0, f"crossbar_gemm wide tiles differ at M={M} K={K} "
+              f"N={N}")
+    launches = crossbar_gemm.launches - before
+    check(launches == len(WIDE_CASES), f"{launches} crossbar_gemm launches "
+          f"for {len(WIDE_CASES)} wide calls")
+    return dict(cases=len(WIDE_CASES), launches=launches, err=worst)
+
+
+def wide_times(gen) -> dict:
+    """Phase 7's wide tiles at a b1024 cell's shape (``WIDE_TIMED``): the
+    kernel's device time, its plain version's, its bound and
+    ``torch._int_mm`` with the weight K-major."""
+    import torch
+    from repro_torch.kernels import crossbar_gemm, crossbar_gemm_exact_ref
+    stage, M, K, N = next(c for c in CELL_SHAPES if c[0] == WIDE_TIMED)
+    x, w, xk, wt = cell_operands(gen, M, K, N)
+
+    def run():
+        return crossbar_gemm(xk, rows=511, wt=wt, K=K)
+    check(torch.equal(run(), crossbar_gemm_exact_ref(x, w)),
+          f"crossbar_gemm wide tiles differ at {stage} b1024")
+    b_ms, o_ms = gemm_bound(M, N, K, sliced=False)
+    return dict(stage=stage, M=M, K=K, N=N, ms=device_ms(run),
+                plain=device_ms(lambda: crossbar_gemm_exact_ref(x, w),
+                                calls=5),
+                bound=max(b_ms, o_ms),
+                by="bytes" if b_ms >= o_ms else "operations",
+                lib=int_mm_ms(x, w)[1])
 
 
 def gemm_exact_phase(dev, gen, shapes) -> tuple[int, int, int]:
     """Phase 2: the exact branch against its plain version: ResNet-18's
     stages in the main path's form (x laid out by ``kernel_layout``, the
     packed ``wt``), ragged shapes through a plain (K, N) weight, the edge
-    shapes, all -128 (the largest |y|), and the K split on and off.
+    shapes, all -128 (the largest |y|), and the K split on and off; all
+    these take the 64 x 64 tiles (``wide_phase`` holds the wide ones).
     Returns (max error, cases, the split of the split-on case)."""
     import torch
     from repro_torch.kernels import (crossbar_gemm, crossbar_gemm_exact_ref,
@@ -5545,11 +5628,15 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 2. crossbar_gemm, exact branch ----------------------------------
     gemm_err, n_exact, ex_splits = gemm_exact_phase(dev, gen, shapes)
+    wide = wide_phase(gen)
     torch.cuda.synchronize()
     log(f"[2 crossbar_gemm exact] {n_exact} cases equal to the plain version "
         f"(torch.equal): ResNet-18 b16 stages through the mounted wt, ragged "
         f"and edge shapes (M 1/4/16 x K {'/'.join(map(str, EDGE_K))} x N "
-        f"{'/'.join(map(str, EDGE_N))}), all -128, K split {ex_splits} and 1")
+        f"{'/'.join(map(str, EDGE_N))}), all -128, K split {ex_splits} and 1;"
+        f" wide tiles {wide['cases']} cases (bn "
+        f"{'/'.join(str(c[3]) for c in WIDE_CASES)}) in {wide['launches']} "
+        f"launches, equal")
 
     # -- 3. crossbar_gemm, sliced branch ---------------------------------
     sliced_err, n_sliced, clipped, sl_splits = gemm_sliced_phase(dev, gen)
@@ -5704,6 +5791,11 @@ def main(argv: list[str] | None = None) -> int:
     def bound(by: dict) -> tuple[float, str]:
         return sum(by.values()), max(by, key=by.get)
 
+    wd = wide_times(gen)
+    detail(f"time {wd['stage']} b1024: M={wd['M']} K={wd['K']} N={wd['N']} "
+           f"wide tiles {wd['ms']:.4f} ms (bound {wd['bound']:.4f} by "
+           f"{wd['by']}, plain {wd['plain']:.4f}, _int_mm K-major "
+           f"{wd['lib']:.4f})")
     g_bound, g_by = bound(g[16]["by"])
     g1_bound, g1_by = bound(g[1]["by"])
     s_bound, s_by = bound(sl["by"])
@@ -5721,6 +5813,8 @@ def main(argv: list[str] | None = None) -> int:
         f"{f['ms']:.3f} ms (bound {f['bound']:.4f} by bytes, plain "
         f"{f['plain']:.3f}); AlexNet adc8 b4 crossbar_gemm {sl['ms']:.3f} ms "
         f"(bound {s_bound:.4f} by {s_by}, plain {sl['plain']:.3f}); "
+        f"{wd['stage']} b1024 wide tiles {wd['ms']:.3f} ms (bound "
+        f"{wd['bound']:.4f} by {wd['by']}, _int_mm K-major {wd['lib']:.3f}); "
         f"resnet18 end to end {e2e[1]:.3f} ms at b=1, {e2e[16]:.3f} ms at "
         f"b=16; device idle {idle[1]} at b=1, {idle[16]} at b=16")
 
@@ -5962,6 +6056,12 @@ def main(argv: list[str] | None = None) -> int:
              launches=path_launches["crossbar_gemm"], max_abs_err=gemm_err,
              ms=g[16]["ms"], plain_ms=g[16]["plain"], bound_ms=g_bound,
              bound_by=g_by, library_ms=g_lib),
+        dict(name="crossbar_gemm (wide tiles)", route="cuda",
+             source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
+             replaces="src/repro/kernels/crossbar_gemm.py:116",
+             launches=wide["launches"], max_abs_err=wide["err"],
+             ms=wd["ms"], plain_ms=wd["plain"], bound_ms=wd["bound"],
+             bound_by=wd["by"], library_ms=wd["lib"]),
         dict(name="crossbar_gemm (sliced path)", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_gemm.cu",
              replaces="src/repro/kernels/crossbar_gemm.py:77",

@@ -24,10 +24,14 @@ trees that mount a kernel-layout weight, the laid-out activations and
 
 Paths: ResNet-18 at batches 16 and 1 (default ``HurryConfig``), AlexNet
 under ``HurryConfig(adc_bits=8)`` at batch 4 (sliced branch), vit_tiny
-at batch 16 (static and batched dynamic stages).  The card's name and
-power limit come first; the last line of standard output is a JSON
-summary, and ``--out`` keeps every call's numbers.  Without a CUDA
-device it exits 1 and prints no result.
+at batch 16 (static and batched dynamic stages).  Then the exact static
+stages of the benchmark's b1024 cells (``chip_smoke.CELL_SHAPES``:
+vit_s16's patch, qkv, projection, fc1 and fc2, a conv of each of
+resnet18's four stages) on seeded operands, each beside its bound and
+``torch._int_mm`` with the weight K-major.  The card's name and power
+limit come first; the last line of standard output is a JSON summary,
+and ``--out`` keeps every call's numbers.  Without a CUDA device it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ PATHS = (("resnet18", {}, 16), ("resnet18", {}, 1),
          ("alexnet", {"adc_bits": 8}, 4), ("vit_tiny", {}, 16))
 
 
-def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
-              batch: int) -> list[dict]:
+def record_calls(api, execute, net: str, cfg_kw: dict,
+                 batch: int) -> list[tuple]:
+    """The ``crossbar_gemm`` calls of one request of ``batch`` through
+    the executor: (args, kwargs) each, with their operands."""
     import numpy as np
     import torch
     model = api.compile(net, api.HurryConfig(**cfg_kw), seed=0,
@@ -65,30 +71,44 @@ def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
     finally:
         execute.crossbar_gemm = real
     torch.cuda.synchronize()
+    return calls
+
+
+def call_shape(cg_mod, args, kw) -> tuple:
+    """(xq, w, K, N, rows, exact, plain) of a recorded call: ``plain``
+    computes the plain version on the same operands, the logical ones
+    where x came in the kernel layout (zero padding: the same result)."""
+    # (x, w) or, where the executor passes wt and K alone, (x,)
+    xq, w = args[0], args[1] if len(args) > 1 else None
+    wt = kw.get("wt")
+    adc, rows = kw["adc_bits"], kw["rows"]
+    K, N = (w.shape[-2:] if w is not None else (kw["K"], wt.shape[-2]))
+    r = max(1, min(rows, K))
+    exact = not cg_mod.clip_possible(r, adc)
+    if w is None or xq.shape[-1] != K:
+        xp, wp = xq, wt.mT
+        rows_p = -(-r // 32) * 32
+    else:
+        xp, wp, rows_p = xq, w, r
+    if exact:
+        def plain():
+            return cg_mod.crossbar_gemm_exact_ref(xp, wp)
+    else:
+        def plain():
+            return cg_mod.crossbar_gemm_ref(xp, wp, adc_bits=adc,
+                                            rows=rows_p)
+    return xq, w, K, N, r, exact, plain
+
+
+def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
+              batch: int) -> list[dict]:
+    import torch
+    real = execute.crossbar_gemm
     rows_out = []
-    for i, (args, kw) in enumerate(calls):
-        # (x, w) or, where the executor passes wt and K alone, (x,)
-        xq, w = args[0], args[1] if len(args) > 1 else None
+    for i, (args, kw) in enumerate(record_calls(api, execute, net, cfg_kw,
+                                                batch)):
+        xq, w, K, N, r, exact, plain = call_shape(cg_mod, args, kw)
         wt = kw.get("wt")
-        adc, rows = kw["adc_bits"], kw["rows"]
-        K, N = (w.shape[-2:] if w is not None
-                else (kw["K"], wt.shape[-2]))
-        r = max(1, min(rows, K))
-        exact = not cg_mod.clip_possible(r, adc)
-        # the plain version on the same operands: the logical ones where
-        # x came in the kernel layout (zero padding: same result)
-        if w is None or xq.shape[-1] != K:
-            xp, wp = xq, wt.mT
-            rows_p = -(-r // 32) * 32
-        else:
-            xp, wp, rows_p = xq, w, r
-        if exact:
-            def plain():
-                return cg_mod.crossbar_gemm_exact_ref(xp, wp)
-        else:
-            def plain():
-                return cg_mod.crossbar_gemm_ref(xp, wp, adc_bits=adc,
-                                                rows=rows_p)
         got = real(xq, w, **kw)
         equal = bool(torch.equal(got, plain()))
         ms = chip_smoke.device_ms(lambda: real(xq, w, **kw))
@@ -114,6 +134,36 @@ def time_path(api, execute, cg_mod, net: str, cfg_kw: dict,
             f"{row['int_mm_rowmajor_ms']}, K-major "
             f"{row['int_mm_kmajor_ms']}), equal {equal}")
     return rows_out
+
+
+def time_cells(cg_mod) -> list[dict]:
+    """``chip_smoke.CELL_SHAPES`` on seeded operands in the main path's
+    form (``chip_smoke.cell_operands``): the kernel's time, equal to the
+    plain version or not, the bound and ``torch._int_mm`` with the weight
+    K-major (the faster layout; the port never calls it)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for stage, M, K, N in chip_smoke.CELL_SHAPES:
+        x, w, xk, wt = chip_smoke.cell_operands(gen, M, K, N)
+
+        def run():
+            return cg_mod.crossbar_gemm(xk, rows=511, wt=wt, K=K)
+        equal = bool(torch.equal(run(), cg_mod.crossbar_gemm_exact_ref(x,
+                                                                       w)))
+        ms = chip_smoke.device_ms(run)
+        b_ms, o_ms = chip_smoke.gemm_bound(M, N, K, sliced=False)
+        _, int_mm = chip_smoke.int_mm_ms(x, w)
+        row = dict(stage=stage, M=M, K=K, N=N, ms=ms,
+                   bound_ms=max(b_ms, o_ms), int_mm_kmajor_ms=int_mm,
+                   equal=equal)
+        rows.append(row)
+        chip_smoke.detail(
+            f"{stage}: M={M} K={K} N={N}: {ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ({100 * row['bound_ms'] / ms:.1f}%), "
+            f"_int_mm K-major {int_mm:.4f}, equal {equal}")
+        del x, w, xk, wt
+    return rows
 
 
 def main() -> int:
@@ -157,12 +207,23 @@ def main() -> int:
               f"{s['int_mm_kmajor_ms']:.4f} / best {s['int_mm_best_ms']:.4f} "
               f"over the 2-D exact calls), all equal {s['all_equal']}",
               flush=True)
+    cells = time_cells(cg_mod)
+    for r in cells:
+        print(f"[{args.label}] {r['stage']} b1024: crossbar_gemm "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%; _int_mm K-major "
+              f"{r['int_mm_kmajor_ms']:.4f}), equal {r['equal']}",
+              flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"label": args.label, "card": chip_smoke.nvidia_smi(),
-                       "calls": everything}, f, indent=1)
-    print(json.dumps({"label": args.label, "summary": summary}))
-    return 0 if all(s["all_equal"] for s in summary.values()) else 2
+                       "calls": everything, "cells_b1024": cells}, f,
+                      indent=1)
+    print(json.dumps({"label": args.label, "summary": summary,
+                      "cells_b1024": cells}))
+    equal = all(s["all_equal"] for s in summary.values()) and all(
+        r["equal"] for r in cells)
+    return 0 if equal else 2
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ Pallas call computes for attention's per-(batch, head) mounts.
 
 For a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/crossbar_gemm.cu`` (its header says what bounds it on the H100)
-and adds one to ``crossbar_gemm.launches``; for a CPU tensor it computes
+under the plan ``exact_plan`` picks from the shape on the exact branch
+(64 x 64 tiles with a K split, or wide tiles in N-first order, which
+read x from device memory once) and adds one to
+``crossbar_gemm.launches``; for a CPU tensor it computes
 the plain PyTorch version (``crossbar_gemm_exact_ref`` /
 ``crossbar_gemm_ref``).  Nothing falls back from the card to the plain
 version.
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -190,17 +194,77 @@ def mount_weight(w: torch.Tensor, *, rows: int = 512, adc_bits: int = 9,
 # the kernel
 # ---------------------------------------------------------------------------
 
+SM_COUNT = 132               # H100 SXM
+_BK = 128                    # bytes of K a k-slab
+_WIDE_BN = (256, 192, 128, 64)
+
+
+class ExactPlan(NamedTuple):
+    """How an exact call runs: output tiles of ``bm`` x ``bn`` and
+    ``splits`` blocks sharing a tile along K.  ``bm`` 64 is the 64 x 64
+    design (a slice axis, a K split); ``bm`` 128 the wide persistent
+    tiles of a 2-D call, walked in N-first order (``csrc/crossbar_gemm.cu``'s
+    header)."""
+
+    bm: int
+    bn: int
+    splits: int
+
+
+def exact_plan(S: int, M: int, N: int, kk: int) -> ExactPlan:
+    """The plan of an exact call of S slices of (M, kk) x (kk, N), kk the
+    kernel layout's K, from the shape alone.
+
+    A 2-D call whose wide tiles fill the SMs (at least one tile an SM)
+    takes them, at the width among 256, 192, 128 and 64 that needs the
+    fewest column tiles, each of which loads every x strip, and of those
+    pads N least; the N-first order then reads x from device memory once.
+    Every other call takes ``tile64_plan``: on an H100 the wide tiles of
+    calls that fill fewer SMs take up to 1.5 times as long (PERF.md
+    section 5)."""
+    if S == 1:
+        plan = wide_plan(N)
+        if -(-M // 128) * -(-N // plan.bn) >= SM_COUNT:
+            return plan
+    return tile64_plan(S, M, N, kk)
+
+
+def wide_plan(N: int) -> ExactPlan:
+    """The wide tiles for N columns: the width among 256, 192, 128 and 64
+    that needs the fewest column tiles and, of those, pads N least."""
+    return ExactPlan(128, min(_WIDE_BN, key=lambda b: (-(-N // b),
+                                                       -(-N // b) * b)), 1)
+
+
+def tile64_plan(S: int, M: int, N: int, kk: int) -> ExactPlan:
+    """64 x 64 tiles: where they fill at most a quarter of the SMs and K
+    has at least 8 slabs, K split into enough parts to fill every SM
+    once, at least 2 slabs each, with no empty part."""
+    tiles = S * -(-M // 64) * -(-N // 64)
+    nk = -(-kk // _BK)
+    if 4 * tiles > SM_COUNT or nk < 8:
+        return ExactPlan(64, 64, 1)
+    split = max(1, min(-(-SM_COUNT // tiles), nk // 2))
+    kps = -(-nk // split)
+    return ExactPlan(64, 64, -(-nk // kps))
+
+
+def x_load_bytes(S: int, M: int, N: int, kk: int) -> int:
+    """The bytes of x that an exact call's plan loads into shared memory:
+    each x strip once for each column tile that reads it."""
+    return S * M * kk * -(-N // exact_plan(S, M, N, kk).bn)
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C entries' argument and result types on a loaded
     ``crossbar_gemm`` library (also a variant build of it)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crossbar_gemm_exact.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.crossbar_gemm_exact.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.crossbar_gemm_exact.restype = i
     lib.crossbar_gemm_sliced.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.crossbar_gemm_sliced.restype = i
-    for name in ("crossbar_gemm_exact_splits", "crossbar_gemm_sliced_splits"):
-        getattr(lib, name).argtypes = [i, i, i, i]
-        getattr(lib, name).restype = i
+    lib.crossbar_gemm_sliced_splits.argtypes = [i, i, i, i]
+    lib.crossbar_gemm_sliced_splits.restype = i
     return lib
 
 
@@ -242,17 +306,20 @@ def splits(S: int, M: int, N: int, kk: int, *, exact: bool,
            rows32: int = 32) -> int:
     """The K split (blocks sharing one output tile) that the kernel takes
     for a call of this shape in the kernel layout: slabs of K on the exact
-    branch, ADC chunks of ``rows32`` on the sliced branch."""
-    lib = _lib()
+    branch (``exact_plan``), ADC chunks of ``rows32`` on the sliced
+    branch."""
     if exact:
-        return lib.crossbar_gemm_exact_splits(S, M, N, kk)
-    return lib.crossbar_gemm_sliced_splits(S, M, N, kk // rows32)
+        return exact_plan(S, M, N, kk).splits
+    return _lib().crossbar_gemm_sliced_splits(S, M, N, kk // rows32)
 
 
 def _launch(x: torch.Tensor, wt: torch.Tensor, N: int, *, exact: bool,
-            rows: int, adc_bits: int, split: int = 0) -> torch.Tensor:
-    """One kernel launch on operands already in the kernel layout;
-    ``split`` > 0 forces the K split (0: the kernel's own choice)."""
+            rows: int, adc_bits: int, split: int = 0,
+            plan: ExactPlan | None = None) -> torch.Tensor:
+    """One kernel launch on operands already in the kernel layout; on the
+    exact branch ``plan`` forces the plan (None: ``exact_plan``), on the
+    sliced branch ``split`` > 0 forces the chunk split (0: the kernel's
+    own choice)."""
     if not (x.is_contiguous() and wt.is_contiguous()):
         raise ValueError("crossbar_gemm: the CUDA kernel takes contiguous "
                          "operands")
@@ -267,8 +334,9 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, N: int, *, exact: bool,
     lib = _lib()
     stream = _build.stream_handle()
     if exact:
+        plan = plan or exact_plan(S, M, N, kk)
         err = lib.crossbar_gemm_exact(x.data_ptr(), wt.data_ptr(),
-                                      y.data_ptr(), S, M, N, kk, split,
+                                      y.data_ptr(), S, M, N, kk, *plan,
                                       stream)
     else:
         err = lib.crossbar_gemm_sliced(

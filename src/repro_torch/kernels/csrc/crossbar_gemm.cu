@@ -23,23 +23,47 @@
 // bit-sliced pipeline is a plain int8 GEMM and the chunk structure drops
 // out (int32 addition is associative).  |y| <= Kk * 2^14 < 2^31 for Kk
 // below 131072 (the program's K is at most 4940), so int32 cannot
-// overflow.  At the program's shapes (M from 1 to 16k, N 10 to 512, K 27
-// to 4940) a call is small (<= 2.1 GOP), and its bound is the operand
-// and output bytes; what held the CUDA-core version back was latency and
-// too few blocks.  Design: one warpgroup per 64 x 64 output tile,
-// `wgmma.mma_async m64n64k32.s32.s8.s8` with both operands K-major in
-// shared memory (128-byte swizzle) and int32 accumulators in registers;
-// operands come in by TMA (one thread, two 64 x 128-byte boxes a slab,
-// swizzled and zero-filled past M, N and Kk by the copy engine) into a
-// 4-slot ring of k-slabs with one mbarrier each, so four slabs are in
-// flight while the tensor cores work.  64-column tiles (66 KB of shared
-// memory, three blocks an SM) give the program's small stages more blocks
-// than wider ones.  Where the tiles fill at most a quarter of the SMs and
-// K is long, K is split across blocks (split-K, chosen from S, M, N and
-// Kk alone); the partial sums meet in the zeroed output (one memset)
-// through int32 atomic adds: exact and deterministic, since integer
-// addition is associative.  Unsplit tiles store column pairs as 8-byte
-// words, so every warp store fills whole 32-byte sectors.
+// overflow.  Both operands are K-major in shared memory (128-byte
+// swizzle), brought in by TMA (swizzled and zero-filled past M, N and Kk
+// by the copy engine) into a ring of k-slabs with an mbarrier a slot, and
+// multiplied by `wgmma.mma_async m64nNk32.s32.s8.s8` into int32
+// accumulators in registers.  At the program's shapes K is short (27 to
+// 4940) and the int32 output four times an input byte a column, so a
+// call is bound by device memory: x (M x Kk), read once, and y (M x N x
+// 4).  The weight (at most 2.4 MB) stays in the 50 MB L2.
+//
+// Two designs, chosen a call by `exact_plan` (kernels/crossbar_gemm.py)
+// from the shape alone:
+//
+// * 64 x 64 tiles (`exact_kernel<true>`), one warpgroup a block, 66 KB of
+//   shared memory, three blocks an SM: the slice axis (attention's 196 x
+//   64 x 196 slices, whose x strip is read once anyway) and 2-D calls
+//   whose tiles fill few SMs.  Where the tiles fill at most a quarter of
+//   the SMs and K is long, K is split across blocks; the partial sums
+//   meet in the zeroed output (one memset) through int32 atomic adds:
+//   exact and deterministic, since integer addition is associative.
+//   Launched as (M / 64, N / 64, S x splits) blocks, the M tile varying
+//   fastest, the blocks in flight sit in one column of tiles and sweep
+//   down M, so a 2-D call reads the whole of x once per 64 output
+//   columns: ceil(N / 64) times from device memory once x outgrows L2
+//   (a b1024 vit_s16 fc1: 24 passes over 77 MB).
+// * Wide tiles (`exact_kernel<false>`), for 2-D calls that fill the card:
+//   128 x bn tiles, bn in {64, 128, 192, 256}, so that one or a few
+//   column tiles cover N; one persistent block an SM walks the tiles in
+//   N-first order, so every column tile of an x strip runs while the
+//   strip is in L2 and x leaves device memory once.  Warp-specialised: a
+//   producer warp keeps up to 8 slabs in flight across tiles (192 KB of
+//   ring), two consumer warpgroups take 64 rows each and hand a slot back
+//   through its "empty" mbarrier as soon as its products are done, so one
+//   slab's wgmma overlaps the next slab's wait and a tile's stores
+//   overlap the next tile's loads.
+//
+// Unsplit tiles store column pairs as 8-byte words, so every warp store
+// fills whole 32-byte sectors.  Where the int32 output outweighs x (N
+// above ~K / 4), the wide tiles' stores set the pace: on an H100 a b1024
+// vit_s16 fc1 takes the same time without its products and a quarter of
+// it without its stores; 4-byte stores take twice as long, 16-byte ones
+// no less.
 //
 // Sliced branch (`crossbar_gemm_sliced`): the paper-faithful ADC
 // semantics.  For every (input bit i, weight bit j) the {0,1} bitline
@@ -108,11 +132,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// mbarrier: init (one arrival expected), arrive with an expected byte
-// count, and wait for a phase.  The wait traps after about 2^26 polls
-// (seconds) instead of hanging the device if a copy never lands.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
+// mbarrier: init (`count` arrivals expected), arrive, arrive with an
+// expected byte count, and wait for a phase.  The wait traps after about
+// 2^26 polls (seconds) instead of hanging the device if a copy never
+// lands.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
                : "memory");
 }
 
@@ -234,47 +264,177 @@ __device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da,
 }
 
 
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n192(int (&d)[96], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
 // ---- exact branch -----------------------------------------------------------
 
+// The 64 x 64 design (`exact_kernel<true>`): one warpgroup a block, the
+// slice axis and the K split.
 constexpr int EX_BM = 64;          // output rows per block (one wgmma M)
 constexpr int EX_BN = 64;          // output columns per block
 constexpr int EX_STAGES = 4;       // k-slabs in the ring, 3 in flight
-constexpr int EX_MIN_SLABS = 2;    // slabs of K a split keeps at least
-constexpr int EX_SPLIT_FROM = 8;   // slabs of K from which a split pays
 
 constexpr int EX_SLAB_BYTES = (EX_BM + EX_BN) * BK;  // one slab, x + wt
 constexpr int EX_SMEM = EX_STAGES * EX_SLAB_BYTES + 8 * EX_STAGES + 1024;
 
-// x (S, M, Kk), wt (S, N, Kk) -> y (S, M, N), read through the 3-D tensor
-// maps tx (Kk, M, S) and tw (Kk, N, S), whose boxes are 128 bytes of K x
-// 64 rows, 128-byte swizzled (the wgmma layout) and zero-filled past M,
-// N and Kk.  Block (bx, by, bz): output rows bx * 64.., columns by *
+// The wide design (`exact_kernel<false>`): 128 x bn tiles, bn one of
+// 64, 128, 192, 256; two consumer warpgroups of 64 rows and one producer
+// warp, one persistent block an SM.
+constexpr int WD_BM = 128;
+constexpr int WD_CONSUMERS = 2 * THREADS;          // warps 0-7
+constexpr int WD_THREADS = WD_CONSUMERS + 32;      // warp 8: the producer
+constexpr int WD_MAX_STAGES = 8;
+constexpr int WD_RING_BYTES = 192 * 1024;
+constexpr int WD_SMEM = WD_RING_BYTES + 16 * WD_MAX_STAGES + 1024;
+
+// Slots of the wide ring at tile width bn: as many slabs as fit.
+__host__ __device__ constexpr int wide_stages(int bn) {
+  return WD_RING_BYTES / ((WD_BM + bn) * BK) < WD_MAX_STAGES
+             ? WD_RING_BYTES / ((WD_BM + bn) * BK)
+             : WD_MAX_STAGES;
+}
+
+// The wgmma of a tile BN columns wide: m64nBNk32, accumulating.
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db, 1);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db, 1);
+  else if constexpr (BN == 192) wgmma_n192(d, da, db, 1);
+  else wgmma_n256(d, da, db, 1);
+}
+
+// A warpgroup's 64 x BN accumulators into y, warp w's 16 rows from `row`
+// (the warpgroup's first row + 16 w).  Thread t holds columns 2 * (t %
+// 4) + {0, 1} of each 8-column group: one 8-byte store a pair where N is
+// even (full 32-byte sectors a warp), int32 atomic adds where a K split
+// shares the tile.
+template <int BN>
+__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
+                                           int32_t* y, int row, int n0,
+                                           int M, int N, bool atomic) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < BN / 2; r += 2) {
+    const int m = row + (lane >> 2) + 8 * ((r >> 1) & 1);
+    const int n = n0 + 8 * (r >> 2) + 2 * (lane & 3);
+    if (m >= M) continue;
+    int32_t* out = y + (size_t)m * N + n;
+    if (atomic) {
+      if (n < N) atomicAdd(out, acc[r]);
+      if (n + 1 < N) atomicAdd(out + 1, acc[r + 1]);
+    } else if ((N & 1) == 0) {
+      if (n < N) *reinterpret_cast<int2*>(out) = make_int2(acc[r],
+                                                           acc[r + 1]);
+    } else {
+      if (n < N) out[0] = acc[r];
+      if (n + 1 < N) out[1] = acc[r + 1];
+    }
+  }
+}
+
+// The 64 x 64 block (bx, by, bz): output rows bx * 64.., columns by *
 // 64.., slice bz / splits, k-slabs [split * kps, split * kps + kps) with
 // split = bz % splits.  Thread 0 keeps EX_STAGES slabs in flight; each
 // slot has an mbarrier, and a slot is refilled once every warp's wgmma
 // on it has completed.
-template <bool kSlices>
-__global__ void __launch_bounds__(THREADS)
-exact_kernel(const __grid_constant__ CUtensorMap tx,
-             const __grid_constant__ CUtensorMap tw,
-             int32_t* __restrict__ y, int M, int N, int Kk, int splits,
-             int kps) {
+__device__ __forceinline__ void tile64(const CUtensorMap* tx,
+                                       const CUtensorMap* tw, int32_t* y,
+                                       int M, int N, int Kk, int splits) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   const uint32_t a_base = smem_u32(smem);
   const uint32_t b_base = a_base + EX_STAGES * EX_BM * BK;
   const uint32_t bar0 = a_base + EX_STAGES * EX_SLAB_BYTES;
   const int split = blockIdx.z % splits;
-  const int slice = kSlices ? blockIdx.z / splits : 0;
-  if (kSlices) y += (size_t)slice * M * N;
+  const int slice = blockIdx.z / splits;       // 0 on a 2-D call
+  y += (size_t)slice * M * N;
   const int m0 = blockIdx.x * EX_BM, n0 = blockIdx.y * EX_BN;
   const int nk = (Kk + BK - 1) / BK;
+  const int kps = (nk + splits - 1) / splits;
   const int kt0 = split * kps;
   const int T = min(nk, kt0 + kps) - kt0;       // >= 1 (host's split)
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    for (int st = 0; st < EX_STAGES; ++st) mbar_init(bar0 + 8 * st);
+    for (int st = 0; st < EX_STAGES; ++st) mbar_init(bar0 + 8 * st, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -282,8 +442,8 @@ exact_kernel(const __grid_constant__ CUtensorMap tx,
     const int st = t % EX_STAGES, k0 = (kt0 + t) * BK;
     const uint32_t bar = bar0 + 8 * st;
     mbar_expect_tx(bar, EX_SLAB_BYTES);
-    tma_load_3d(a_base + st * EX_BM * BK, &tx, bar, k0, m0, slice);
-    tma_load_3d(b_base + st * EX_BN * BK, &tw, bar, k0, n0, slice);
+    tma_load_3d(a_base + st * EX_BM * BK, tx, bar, k0, m0, slice);
+    tma_load_3d(b_base + st * EX_BN * BK, tw, bar, k0, n0, slice);
   };
   if (tid == 0)
     for (int t = 0; t < min(T, EX_STAGES); ++t) issue(t);
@@ -306,26 +466,115 @@ exact_kernel(const __grid_constant__ CUtensorMap tx,
     __syncthreads();                   // every warp is done with slot st
     if (tid == 0 && t + EX_STAGES < T) issue(t + EX_STAGES);
   }
+  store_tile<EX_BN>(acc, y, m0 + 16 * (tid >> 5), n0, M, N, splits > 1);
+}
 
-  // Thread t holds columns 2 * (t % 4) + {0, 1} of each 8-column group:
-  // one 8-byte store a pair where N is even (full 32-byte sectors a warp),
-  // int32 atomic adds where the K split shares the tile.
-  const int warp = tid >> 5, lane = tid & 31;
+// The wide blocks walk the 128 x BN tiles in N-first order: tile i is
+// output rows (i / tiles_n) * 128.., columns (i % tiles_n) * BN.., and
+// block b takes tiles b, b + gridDim.x, ...  The blocks in flight hold
+// consecutive tiles, i.e. every column tile of a few x strips, so a
+// strip leaves device memory once and its other reads hit L2.  Warp 8's
+// lane 0 keeps the ring full across tiles: a slot is refilled once its
+// "empty" mbarrier has seen all eight consumer warps release it.  Each
+// consumer warpgroup multiplies its 64 rows of the slab, releases the
+// slot of the slab before once that slab's wgmma has completed (so one
+// slab's products overlap the wait for the next), and after the last
+// slab of a tile stores its 64 x BN int32 while the producer already
+// fetches the next tile.
+template <int BN>
+__device__ __forceinline__ void wide_tiles(const CUtensorMap* tx,
+                                           const CUtensorMap* tw, int32_t* y,
+                                           int M, int N, int Kk) {
+  constexpr int STAGES = wide_stages(BN);
+  constexpr int X_BYTES = WD_BM * BK, SLAB = (WD_BM + BN) * BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full0 = ring + WD_RING_BYTES;
+  const uint32_t empty0 = full0 + 8 * WD_MAX_STAGES;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = ((M + WD_BM - 1) / WD_BM) * tiles_n;
+  const int nk = (Kk + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, WD_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WD_CONSUMERS / 32) {         // the producer
+    if ((tid & 31) != 0) return;
+    int st = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * WD_BM, n0 = (tile % tiles_n) * BN;
+      for (int t = 0; t < nk; ++t) {
+        const uint32_t slot = ring + st * SLAB, bar = full0 + 8 * st;
+        mbar_wait(empty0 + 8 * st, phase ^ 1);
+        mbar_expect_tx(bar, SLAB);
+        tma_load_3d(slot, tx, bar, t * BK, m0, 0);
+        tma_load_3d(slot + X_BYTES, tw, bar, t * BK, n0, 0);
+        if (++st == STAGES) st = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;                // consumer warpgroup: rows 64 wg..
+  int st = 0, phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * WD_BM, n0 = (tile % tiles_n) * BN;
+    int acc[BN / 2];
 #pragma unroll
-  for (int r = 0; r < EX_BN / 2; r += 2) {
-    const int m = m0 + 16 * warp + (lane >> 2) + 8 * ((r >> 1) & 1);
-    const int n = n0 + 8 * (r >> 2) + 2 * (lane & 3);
-    if (m >= M) continue;
-    int32_t* out = y + (size_t)m * N + n;
-    if (splits > 1) {
-      if (n < N) atomicAdd(out, acc[r]);
-      if (n + 1 < N) atomicAdd(out + 1, acc[r + 1]);
-    } else if ((N & 1) == 0) {
-      if (n < N) *reinterpret_cast<int2*>(out) = make_int2(acc[r],
-                                                           acc[r + 1]);
-    } else {
-      if (n < N) out[0] = acc[r];
-      if (n + 1 < N) out[1] = acc[r + 1];
+    for (int r = 0; r < BN / 2; ++r) acc[r] = 0;
+    int prev = -1;                         // the slot of the slab before
+    for (int t = 0; t < nk; ++t) {
+      mbar_wait(full0 + 8 * st, phase);
+      const uint32_t a_st = ring + st * SLAB + wg * (WD_BM / 2) * BK;
+      const uint32_t b_st = ring + st * SLAB + X_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmma_s8<BN>(acc, sw128_desc(a_st + 32 * kk),
+                     sw128_desc(b_st + 32 * kk));
+      wgmma_commit();
+      wgmma_wait<1>();                     // the slab before is multiplied
+      if (prev >= 0 && (tid & 31) == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = st;
+      if (++st == STAGES) st = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * prev);
+    store_tile<BN>(acc, y, m0 + (WD_BM / 2) * wg + 16 * (warp & 3), n0, M, N,
+                   false);
+  }
+}
+
+// x (S, M, Kk), wt (S, N, Kk) -> y (S, M, N), read through the 3-D tensor
+// maps tx (Kk, M, S) and tw (Kk, N, S), whose boxes are 128 bytes of K x
+// the tile's rows (tx) and columns (tw), 128-byte swizzled (the wgmma
+// layout) and zero-filled past M, N and Kk.  The two instantiations are
+// the two designs (the file's header): `true` the 64 x 64 tiles (bn =
+// 64) over S slices and `splits` blocks along K, `false` the persistent
+// 128 x bn tiles of a 2-D call (splits = 1).
+template <bool kTile64>
+__global__ void __launch_bounds__(kTile64 ? THREADS : WD_THREADS,
+                                  kTile64 ? 3 : 1)
+exact_kernel(const __grid_constant__ CUtensorMap tx,
+             const __grid_constant__ CUtensorMap tw,
+             int32_t* __restrict__ y, int M, int N, int Kk, int bn,
+             int splits) {
+  if constexpr (kTile64) {
+    tile64(&tx, &tw, y, M, N, Kk, splits);
+  } else {
+    switch (bn) {
+      case 64: wide_tiles<64>(&tx, &tw, y, M, N, Kk); break;
+      case 128: wide_tiles<128>(&tx, &tw, y, M, N, Kk); break;
+      case 192: wide_tiles<192>(&tx, &tw, y, M, N, Kk); break;
+      default: wide_tiles<256>(&tx, &tw, y, M, N, Kk); break;
     }
   }
 }
@@ -375,27 +624,20 @@ int make_map(CUtensorMap* map, const void* base, int S, int rows, int Kk,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The K split of an exact call: where the output tiles fill at most a
-// quarter of the SMs and K has at least EX_SPLIT_FROM slabs, enough
-// blocks to fill every SM once, at least EX_MIN_SLABS slabs each (where
-// the tiles fill more, the memset and the atomic adds cost more than the
-// split gains).  Depends on the shape only.
-int exact_splits(int S, int M, int N, int Kk) {
-  const long long tiles =
-      (long long)S * ((M + EX_BM - 1) / EX_BM) * ((N + EX_BN - 1) / EX_BN);
-  const int nk = (Kk + BK - 1) / BK;
-  if (4 * tiles > SM_COUNT || nk < EX_SPLIT_FROM) return 1;
-  int splits = (int)((SM_COUNT + tiles - 1) / tiles);
-  splits = max(1, min(splits, nk / EX_MIN_SLABS));
-  const int kps = (nk + splits - 1) / splits;
-  return (nk + kps - 1) / kps;
-}
-
+// One exact call under the plan the wrapper chose (`exact_plan` in
+// kernels/crossbar_gemm.py, from the shape alone): bm = 64 takes the 64 x
+// 64 tiles with `splits` blocks along K, bm = 128 the wide persistent
+// tiles of width bn on a 2-D call.
 int launch_exact(const int8_t* x, const int8_t* wt, int32_t* y, int S, int M,
-                 int N, int Kk, int splits, cudaStream_t stream) {
+                 int N, int Kk, int bm, int bn, int splits,
+                 cudaStream_t stream) {
   const int nk = (Kk + BK - 1) / BK;
-  if (splits <= 0) splits = exact_splits(S, M, N, Kk);
-  splits = min(splits, nk);
+  const bool tile64 = bm == EX_BM;
+  if (tile64) splits = min(splits, nk);
+  if (tile64 ? bn != EX_BN || splits < 1
+             : bm != WD_BM || S != 1 || splits != 1 ||
+                   (bn != 64 && bn != 128 && bn != 192 && bn != 256))
+    return (int)cudaErrorInvalidValue;
   const int kps = (nk + splits - 1) / splits;
   splits = (nk + kps - 1) / kps;                // no empty split
   if ((long long)S * splits > 65535 || (N + EX_BN - 1) / EX_BN > 65535)
@@ -406,22 +648,30 @@ int launch_exact(const int8_t* x, const int8_t* wt, int32_t* y, int S, int M,
     if (e != cudaSuccess) return (int)e;
   }
   CUtensorMap tx, tw;
-  int err = make_map(&tx, x, S, M, Kk, EX_BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  int err = make_map(&tx, x, S, M, Kk, bm, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == 0)
-    err = make_map(&tw, wt, S, N, Kk, EX_BN, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = make_map(&tw, wt, S, N, Kk, bn, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  auto kernel = S == 1 ? exact_kernel<false> : exact_kernel<true>;
+  auto kernel = tile64 ? exact_kernel<true> : exact_kernel<false>;
+  const int smem = tile64 ? EX_SMEM : WD_SMEM;
   static bool opted_in[2];            // the >48 KB opt-in, once a kernel
-  if (!opted_in[S == 1]) {
+  if (!opted_in[tile64]) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, EX_SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    opted_in[S == 1] = true;
+    opted_in[tile64] = true;
   }
-  const dim3 grid((M + EX_BM - 1) / EX_BM, (N + EX_BN - 1) / EX_BN,
-                  S * splits);
-  kernel<<<grid, THREADS, EX_SMEM, stream>>>(tx, tw, y, M, N, Kk, splits,
-                                             kps);
+  if (tile64) {
+    const dim3 grid((M + EX_BM - 1) / EX_BM, (N + EX_BN - 1) / EX_BN,
+                    S * splits);
+    kernel<<<grid, THREADS, smem, stream>>>(tx, tw, y, M, N, Kk, bn,
+                                            splits);
+  } else {
+    const long long tiles =
+        (long long)((M + WD_BM - 1) / WD_BM) * ((N + bn - 1) / bn);
+    const int grid = (int)(tiles < SM_COUNT ? tiles : SM_COUNT);
+    kernel<<<grid, WD_THREADS, smem, stream>>>(tx, tw, y, M, N, Kk, bn, 1);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -505,7 +755,7 @@ sliced_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t rb1 = (SL_BM + qb1) * BK + cu * 16;
 
   if (tid == 0) {
-    for (int st = 0; st < SL_RAW; ++st) mbar_init(bar0 + 8 * st);
+    for (int st = 0; st < SL_RAW; ++st) mbar_init(bar0 + 8 * st, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -610,7 +860,8 @@ sliced_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// The chunk split of a sliced call: as `exact_splits`, chunk by chunk.
+// The chunk split of a sliced call: where the tiles fill fewer than all
+// the SMs, enough blocks to fill them twice, at most one a chunk.
 int sliced_splits(int S, int M, int N, int C) {
   const long long tiles =
       (long long)S * ((M + SL_BM - 1) / SL_BM) * ((N + SL_BN - 1) / SL_BN);
@@ -624,17 +875,14 @@ int sliced_splits(int S, int M, int N, int C) {
 extern "C" {
 
 // x (S, M, Kk), wt (S, N, Kk), y (S, M, N); S = 1 is the 2-D GEMM.
-// Kk is a multiple of 32.  splits <= 0 picks the K split from the shape.
+// Kk is a multiple of 32.  (bm, bn, splits) is the call's plan
+// (`launch_exact`).
 int crossbar_gemm_exact(const void* x, const void* wt, void* y, int S, int M,
-                        int N, int Kk, int splits, void* stream) {
+                        int N, int Kk, int bm, int bn, int splits,
+                        void* stream) {
   if (Kk % 32 != 0) return (int)cudaErrorInvalidValue;
   return launch_exact((const int8_t*)x, (const int8_t*)wt, (int32_t*)y, S, M,
-                      N, Kk, splits, (cudaStream_t)stream);
-}
-
-// The split an exact call of this shape takes (splits <= 0 above).
-int crossbar_gemm_exact_splits(int S, int M, int N, int Kk) {
-  return exact_splits(S, M, N, Kk);
+                      N, Kk, bm, bn, splits, (cudaStream_t)stream);
 }
 
 // x (S, M, Kk), wt (S, N, Kk) in the chunk-padded layout: Kk = C * r32,

@@ -14,7 +14,10 @@ stage (``_static_stage``):
   the full mounts chunk by chunk where one is; and the requant factor
   from the mount's ``w_amax`` (``core.crossbar.dequant_scale``'s form)
   beside it.  The zero K bytes the operand still carries are counted in
-  ``layout.zero_k_bytes`` (``ZERO_K_BYTES``), at capture and eager runs;
+  ``layout.zero_k_bytes`` (``ZERO_K_BYTES``), and on the exact branch
+  the bytes of it the GEMM's plan loads (``kernels.crossbar_gemm.
+  x_load_bytes``: once a column tile) in ``gemm.x_load_bytes``
+  (``X_LOAD_BYTES``), both at capture and eager runs;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read), on ``wt`` and that K;
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -65,7 +68,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import trace
-from repro_torch.kernels.crossbar_gemm import crossbar_gemm
+from repro_torch.kernels.crossbar_gemm import (clip_possible, crossbar_gemm,
+                                              x_load_bytes)
 from repro_torch.kernels.fb_epilogue import fb_epilogue
 from repro_torch.kernels.quantize_layout import (DEVICE_KERNELS as
                                                  QUANTIZE_KERNELS,
@@ -82,6 +86,9 @@ WRAPPERS = (quantize_layout, crossbar_gemm, fb_epilogue)
 ZERO_K_BYTES = "layout.zero_k_bytes"
 # counter: the bytes the epilogue's second stores (the taps) write
 TAP_BYTES = "fb.tap_bytes"
+# counter: the bytes of the exact static stages' left operands that the
+# GEMM's plan loads into shared memory, once a column tile
+X_LOAD_BYTES = "gemm.x_load_bytes"
 
 
 def _marks() -> tuple[dict[str, int], int]:
@@ -232,6 +239,10 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
         weight_bits=cfg.weight_bits)
     trace.count(ZERO_K_BYTES,
                 xq.shape[0] * (xq.shape[-1] - logical_k(gemm)))
+    if not clip_possible(gemm.tile_rows, cfg.adc_bits):
+        trace.count(X_LOAD_BYTES, x_load_bytes(1, xq.shape[0],
+                                               st.wt.shape[-2],
+                                               xq.shape[-1]))
     y_int = crossbar_gemm(xq, adc_bits=cfg.adc_bits, rows=gemm.tile_rows,
                           wt=st.wt, K=K)
 

@@ -608,12 +608,74 @@ def test_crossbar_gemm_split_k_on_and_off(cuda, exact, M, K, N, rows,
                                rows32=r32) > 1
     ref = (crossbar_gemm_exact_ref(x, w) if exact
            else crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows))
-    for split in (0, 1):
+    for split in (0, 1):     # 0: the kernel's own split
+        force = (dict(plan=_gemm_module.ExactPlan(64, 64, 1) if split
+                      else None) if exact else dict(split=split))
         got = _gemm_module._launch(xk.contiguous(), wt, N, exact=exact,
                                    rows=min(rows, K), adc_bits=adc_bits,
-                                   split=split)
+                                   **force)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), f"split={split}"
+
+
+# (M, K, N, the plan's bm, bn): every regime ``exact_plan`` picks.  vit_s16's
+# widths at a reduced M, resnet18's s1-s3, ragged N, an M and a K that are
+# no multiple of the tile or of a slab, and the 64 x 64 tiles below a card.
+EXACT_PLAN_CASES = [
+    (16896, 384, 384, 128, 192), (16901, 768, 1152, 128, 256),
+    (17000, 384, 1536, 128, 256), (16896, 1536, 384, 128, 192),
+    (16891, 1152, 128, 128, 128), (16891, 2304, 256, 128, 256),
+    (16384, 4608, 512, 128, 256), (16891, 300, 10, 128, 64),
+    (33000, 27, 196, 128, 256), (17000, 384, 1000, 128, 256),
+    (33001, 576, 64, 128, 64), (1024, 384, 1000, 64, 64),
+    (256, 4608, 512, 64, 64), (16383, 576, 64, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bm,bn", EXACT_PLAN_CASES)
+def test_crossbar_gemm_exact_plans(cuda, M, K, N, bm, bn):
+    """The kernel under the plan the shape picks, equal bit for bit to the
+    plain version and to the 64 x 64 tiles (and, on the wide tiles, to
+    every other width): tile shape and order cannot change an integer
+    sum.  All -128 rows reach the largest |y|."""
+    rng = np.random.default_rng(M + 7 * K + 31 * N)
+    x, w = _int8((M, K), rng).to(cuda), _int8((K, N), rng).to(cuda)
+    x[:5] = -128
+    w[:, :3] = -128
+    wt = mount_weight(w, rows=511, exact=True)
+    xk = kernel_layout(x, K, rows=511, exact=True).contiguous()
+    plan = _gemm_module.exact_plan(1, M, N, xk.shape[1])
+    assert (plan.bm, plan.bn) == (bm, bn)
+    ref = crossbar_gemm_exact_ref(x, w)
+    got = crossbar_gemm(xk, w, rows=511, wt=wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    others = [_gemm_module.tile64_plan(1, M, N, xk.shape[1])]
+    if bm == 128:
+        others += [_gemm_module.ExactPlan(128, b, 1)
+                   for b in (64, 128, 192, 256) if b != bn]
+    for other in others:
+        y = _gemm_module._launch(xk, wt, N, exact=True, rows=511,
+                                 adc_bits=9, plan=other)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), other
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M,K,N", [(6, 196, 64, 196), (6, 196, 196, 64),
+                                     (3, 1000, 1001, 300)])
+def test_crossbar_gemm_exact_slices_take_64_tiles(cuda, S, M, K, N):
+    """Slice calls (attention's scores and contexts) keep the 64 x 64
+    tiles, one launch for every slice, each equal to its 2-D call."""
+    rng = np.random.default_rng(S * M + K + N)
+    x, w = _int8((S, M, K), rng).to(cuda), _int8((K, N), rng)
+    w = torch.stack([w.roll(s, 0) for s in range(S)]).to(cuda)
+    wt = mount_weight(w, rows=511, exact=True)
+    xk = kernel_layout(x, K, rows=511, exact=True).contiguous()
+    assert _gemm_module.exact_plan(S, M, N, xk.shape[-1]).bm == 64
+    got = crossbar_gemm(xk, rows=511, wt=wt, K=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, crossbar_gemm_exact_ref(x, w))
 
 
 @pytest.mark.cuda

@@ -18,6 +18,8 @@ Per cell, set up as ``bench/harness/cell.py`` does (seed 1), then:
   last, inside the device copy of its ``repro.run.replay`` span, and
   the idle inside the extents over their sum is the executor's idle
   share (``replay_idle_pct``);
+* **the bytes of x the exact GEMMs load** (``gemm.x_load_bytes``) in one
+  eager pass of a batch;
 * **the launch plan**: the executable's plan (``Executable.plan``) laid
   over each replay's device ops, wrapper by wrapper in order, so each
   stage's busy time of ``quantize_layout``, ``crossbar_gemm`` and
@@ -140,6 +142,18 @@ def _setup(name: str, device):
     loop.warm()
     torch.cuda.synchronize(device)
     return layers, mix, model, loop
+
+
+def _x_load_bytes(model, batch: int, device) -> int | None:
+    """``gemm.x_load_bytes`` of one eager pass of a batch (None where the
+    program has no such counter)."""
+    from repro_torch.program import execute
+    x = torch.randn(model.graph.input_shape(batch), device=device,
+                    generator=torch.Generator(device).manual_seed(SEED))
+    trace.reset()
+    execute.execute_packed(model.packed, x)
+    torch.cuda.synchronize(device)
+    return trace.counters().get("gemm.x_load_bytes")
 
 
 def _cost(loop, model, seconds: float, device) -> list[dict]:
@@ -283,6 +297,7 @@ def main(argv=None) -> int:
     record = {"device": torch.cuda.get_device_name(device)}
     for name in args.cells:
         layers, mix, model, loop = _setup(name, device)
+        x_load = _x_load_bytes(model, mix["batch"], device)
         cost = _cost(loop, model, args.seconds, device)
         ops, spans, ext, start, end = _slice(loop, device, loop.n)
         (exe,) = model._fns.values()
@@ -293,8 +308,9 @@ def main(argv=None) -> int:
             print(f"  no plan table: {e}")
             table = []
         record[name] = {"cost": cost, "idle": idle, "plan": table,
-                        "replays": len(ext)}
-        print(f"== {name}: {len(ext)} replays, {len(exe.plan)} stages")
+                        "replays": len(ext), "x_load_bytes": x_load}
+        print(f"== {name}: {len(ext)} replays, {len(exe.plan)} stages, "
+              f"gemm.x_load_bytes {x_load} a batch")
         for r in cost:
             print(f"  tracing {'on ' if r['tracing'] else 'off'}: host "
                   f"{r['host_clock_us']:.1f} us a run, span "
