@@ -37,10 +37,10 @@ each on standard output (the per-shape details go to standard error):
    against the same weights run on the CPU's plain path; the three
    program kernels' launch counters (``quantize_layout``,
    ``crossbar_gemm``, ``fb_epilogue``: ``PROGRAM_KERNELS``) must each grow
-   by one per stage and request, ``quantize_layout`` by two per dynamic
-   stage (``forward_launches``; ``run`` captures a CUDA graph at each
-   key's first request and replays it: the counters count the launches
-   of the replays, ``program.serve.Executable``);
+   by one per stage and forward, ``quantize_layout`` by two per dynamic
+   stage (``forward_launches``; ``run`` warms each key up eagerly at its
+   first request, captures a CUDA graph and replays it: the counters
+   count the warm-up and each replay, ``program.serve.Executable``);
 6. the sliced branch end to end: AlexNet under ``HurryConfig(adc_bits=8)``
    at batch 4 against the CPU's plain path;
 7. times: each kernel summed over one batch-16 forward's shapes, and
@@ -91,7 +91,7 @@ each on standard output (the per-shape details go to standard error):
     dynamic stage makes exactly two ``quantize_layout`` launches (its
     right operand, then its left one with the requant factor), one
     ``crossbar_gemm`` and one ``fb_epilogue`` launch (read from each
-    key's capture); time per
+    key's warm-up); time per
     batch at 1 and 16 and the device's
     idle share, as in 7; then batch 16 on three further input draws
     (``VIT_DRAWS``), each draw's max relative logit gap and argmax
@@ -317,7 +317,7 @@ each on standard output (the per-shape details go to standard error):
     ResNet-18: at every key the first request captures and a second draw
     replays, both answers kept and each ``torch.equal`` to eager
     ``execute_packed`` on the card on its own draw (no aliasing),
-    ``forward_launches`` per request on the counters;
+    ``forward_launches`` per request and key warm-up on the counters;
     one b16 replay of each net profiled: exactly one ``crossbar_gemm``
     and one ``fb_epilogue`` kernel per stage and, of ``quantize_layout``,
     the kernels its paths launch per stage (``device_kernels``), by name
@@ -967,7 +967,7 @@ def wide_phase(gen) -> dict:
     error."""
     from repro_torch.kernels import crossbar_gemm, crossbar_gemm_exact_ref
     module = importlib.import_module("repro_torch.kernels.crossbar_gemm")
-    worst, before = 0, crossbar_gemm.launches
+    worst, before = 0, launches_of(crossbar_gemm)
     for M, K, N, bn in WIDE_CASES:
         x, w, xk, wt = cell_operands(gen, M, K, N)
         plan = module.exact_plan(1, M, N, xk.shape[1])
@@ -978,7 +978,7 @@ def wide_phase(gen) -> dict:
         worst = max(worst, err)
         check(err == 0, f"crossbar_gemm wide tiles differ at M={M} K={K} "
               f"N={N}")
-    launches = crossbar_gemm.launches - before
+    launches = launches_of(crossbar_gemm) - before
     check(launches == len(WIDE_CASES), f"{launches} crossbar_gemm launches "
           f"for {len(WIDE_CASES)} wide calls")
     return dict(cases=len(WIDE_CASES), launches=launches, err=worst)
@@ -1134,9 +1134,9 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
     w[:, :, :8] = -1
     gemm_err = {}
     for adc in (9, 5):                   # 64 rows: exact; then sliced
-        before = crossbar_gemm.launches
+        before = launches_of(crossbar_gemm)
         y = crossbar_gemm(x, w, adc_bits=adc, rows=hd)
-        check(crossbar_gemm.launches - before == 1,
+        check(launches_of(crossbar_gemm) - before == 1,
               "batched crossbar_gemm is not one launch")
         ref = crossbar_gemm_ref(x, w, adc_bits=adc, rows=hd)
         gemm_err[adc] = (y.long() - ref.long()).abs().max().item()
@@ -1176,9 +1176,9 @@ def batched_phase(dev, gen) -> tuple[int, int, float]:
     # the FMA dequant with the same roundings
     for kw, atol in ((dict(softmax=True, post_scale=0.125), 1e-6),
                      (dict(), 0.0)):
-        before = fb_epilogue.launches
+        before = launches_of(fb_epilogue)
         out = fb_epilogue(y32, scale, bias, **kw)
-        check(fb_epilogue.launches - before == 1,
+        check(launches_of(fb_epilogue) - before == 1,
               "batched fb_epilogue is not one launch")
         err = (out - fb_epilogue_ref(y32, scale, bias, **kw)).abs().max()
         fb_err = max(fb_err, err.item())
@@ -1499,12 +1499,12 @@ VIT_PROB_ATOL = 1e-3
 def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     """Phase 12: vit_tiny serving batches 1, 3, 16 (probs and logits),
     the launch counts read just after, against the CPU plain path.  Each
-    request is its key's first, so ``run`` captures its graph: the
-    per-dynamic-stage launches are read from the capture (what every
-    replay launches), the totals from the counters (replays)."""
+    request is its key's first, so ``run`` warms it up eagerly, captures
+    its graph and replays it: the per-dynamic-stage launches are read in
+    the warm-up (what every replay launches again), the totals from the
+    counters (warm-ups and replays)."""
     import torch
     execute = importlib.import_module("repro_torch.program.execute")
-    wrappers = _program_wrappers()
     stages = vit_dev.program.stages()
     n_dyn = sum(g.kind == "dyn_gemm" for g, _ in stages)
     requests = [rng.standard_normal((b, 32, 32, 3)).astype("float32")
@@ -1513,11 +1513,12 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
     dyn_stage = execute._dyn_stage
 
     def count_dyn(*args, **kw):
-        before = [w.launches for w in wrappers]
+        before = _launch_counts()
         out = dyn_stage(*args, **kw)
-        if torch.cuda.is_current_stream_capturing():
-            per_dyn.append(tuple(w.launches - b
-                                 for w, b in zip(wrappers, before)))
+        if not torch.cuda.is_current_stream_capturing():
+            after = _launch_counts()
+            per_dyn.append(tuple(after[w] - before[w]
+                                 for w in PROGRAM_KERNELS))
         return out
 
     execute._dyn_stage = count_dyn
@@ -1527,16 +1528,16 @@ def vit_phase(vit_dev, vit_cpu, rng) -> dict:
                      for x in requests])
     finally:
         execute._dyn_stage = dyn_stage
-    runs = 2 * len(requests)
-    want = forward_launches(vit_dev.program, runs)
+    runs = 2 * len(requests)          # each its key's first: one warm-up
+    want = forward_launches(vit_dev.program, 2 * runs)
     check(launches == want,
           f"vit_tiny launch counts {launches}, expected {want}")
-    per_stage = tuple(2 if w.__name__ == "quantize_layout" else 1
-                      for w in wrappers)
+    per_stage = tuple(2 if w == "quantize_layout" else 1
+                      for w in PROGRAM_KERNELS)
     check(len(per_dyn) == n_dyn * runs
           and all(d == per_stage for d in per_dyn),
         f"vit_tiny dynamic stages launched {per_dyn}, expected {per_stage} "
-        f"of {[w.__name__ for w in wrappers]}")
+        f"of {PROGRAM_KERNELS}")
     agree, worst_rel, worst_prob = [], 0.0, 0.0
     for x, (probs, logits) in zip(requests, served):
         ref = vit_cpu.run(x, logits=True)
@@ -1736,7 +1737,7 @@ def attention_phase(model, dev, gen) -> tuple[dict, list]:
     from repro_torch.program.sequence import split_qkv_heads
     p = model.params["attn"]
     cases = []
-    flash_attention.launches = 0
+    before = launches_of(flash_attention)
     for T in ATTN_T:
         x = torch.randn(1, T, 64, generator=gen, device=dev)
         y_cb = model.run(x)
@@ -1751,10 +1752,10 @@ def attention_phase(model, dev, gen) -> tuple[dict, list]:
         check(rel < 0.12 and corr > 0.99, f"crossbar attention T={T} vs "
               f"flash_attention: rel {rel}, corr {corr}")
         cases.append((T, x, q, k, v, rel, corr))
-    check(flash_attention.launches == len(ATTN_T),
-          f"attention path: flash_attention launched "
-          f"{flash_attention.launches} times, expected {len(ATTN_T)}")
-    return {"flash_attention": flash_attention.launches}, cases
+    n = launches_of(flash_attention) - before
+    check(n == len(ATTN_T), f"attention path: flash_attention launched "
+          f"{n} times, expected {len(ATTN_T)}")
+    return {"flash_attention": n}, cases
 
 
 def ops_phase(dev, gen) -> dict:
@@ -1784,15 +1785,16 @@ def ops_phase(dev, gen) -> dict:
     kernels = (crossbar_gemm, fb_epilogue, flash_attention,
                fused_gemm_epilogue, packed_gemm)
     torch.cuda.synchronize()
-    for kern in kernels:
-        kern.launches = 0
+    before = _launch_counts()
     y = ops.crossbar_matmul_int8(x8, w8, rows=256)
     post = ops.fb_postops(y, scale, bf, act="relu")
     att = ops.attention(q, k, v)
     lin = ops.linear_fused(xf, wf, bf, act="silu")
     grp = ops.grouped_gemm(xg, wg, sizes)
     torch.cuda.synchronize()
-    launches = {kern.__name__: kern.launches for kern in kernels}
+    after = _launch_counts()
+    launches = {k.__name__: after[k.__name__] - before[k.__name__]
+                for k in kernels}
     check(all(n == 1 for n in launches.values()),
           f"ops entry point launches {launches}, expected 1 each")
     check(torch.equal(y, crossbar_gemm_ref(x8, w8, rows=256)),
@@ -1834,23 +1836,32 @@ def forward_launches(program, runs: int = 1) -> dict:
                 quantize_layout=(len(stages) + n_dyn) * runs)
 
 
-def _program_wrappers() -> list:
-    from repro_torch.kernels import COUNTED
-    return [fn for fn in COUNTED if fn.__name__ in PROGRAM_KERNELS]
+def _launch_counts() -> dict:
+    """Each of the six kernel wrappers' launches so far, by name
+    (``launches.<wrapper>`` in ``repro_torch.trace``: every eager call
+    and key warm-up, and each replay what its recording counted)."""
+    from repro_torch import trace
+    from repro_torch.kernels._build import SOURCES
+    counters = trace.counters()
+    return {w: counters.get(f"launches.{w}", 0) for w in SOURCES}
+
+
+def launches_of(fn) -> int:
+    """A kernel wrapper's launches so far (``_launch_counts``)."""
+    return _launch_counts()[fn.__name__]
 
 
 def counted(fn) -> tuple:
-    """(fn(), launches): the program kernels' launch counters set to 0
-    just before ``fn`` and read just after (device synchronized on both
-    sides)."""
+    """(fn(), launches): the program kernels' launches while ``fn`` runs
+    (device synchronized on both sides).  A ``run`` that is its key's
+    first counts the key's warm-up and its replay."""
     import torch
-    wrappers = _program_wrappers()
     torch.cuda.synchronize()
-    for w in wrappers:
-        w.launches = 0
+    before = _launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {w.__name__: w.launches for w in wrappers}
+    after = _launch_counts()
+    return out, {w: after[w] - before[w] for w in PROGRAM_KERNELS}
 
 
 def vgg_phase(api, rng) -> dict:
@@ -1865,7 +1876,8 @@ def vgg_phase(api, rng) -> dict:
                 for b in (1, 16)]
     served, launches = counted(lambda: [(gpu.run(x), gpu.run(x, logits=True))
                                         for x in requests])
-    want = n_stages * 2 * len(requests)
+    # each run its key's first: its warm-up and its replay
+    want = n_stages * 4 * len(requests)
     check(launches == each(want),
           f"VGG-16 launch counts {launches}, expected {want} each")
     for x, (probs, logits) in zip(requests, served):
@@ -1909,7 +1921,8 @@ def save_load_phase(api, models: dict, gen) -> dict:
                             device="cuda")
             got, n = counted(lambda: (loaded.run(x), loaded.run(
                 x, logits=True)))
-            want = forward_launches(model.program, 2)
+            # two keys' first requests: each its warm-up and its replay
+            want = forward_launches(model.program, 4)
             check(n == want,
                   f"loaded {name}: launch counts {n}, expected {want}")
             check(torch.equal(got[0], model.run(x))
@@ -1926,7 +1939,7 @@ def server_phase(api, model, rng) -> dict:
     """Phase 18: ``make_server("resnet18")`` (the zoo init from seed 0,
     the weights of ``model``) at batches 1, 3 and 16, ``torch.equal`` to
     ``CompiledModel.run``; the three counters grow by one per stage and
-    request.  Time per batch at 16 beside ``run``'s."""
+    request and key warm-up.  Time per batch at 16 beside ``run``'s."""
     import torch
     from repro_torch.program.serve import make_server
     server = make_server("resnet18", config=api.HurryConfig(), seed=0,
@@ -1934,7 +1947,8 @@ def server_phase(api, model, rng) -> dict:
     requests = [torch.from_numpy(rng.standard_normal(
         (b, 32, 32, 3)).astype("float32")).cuda() for b in (1, 3, 16)]
     answers, launches = counted(lambda: [server(x) for x in requests])
-    want = len(server.program.stages()) * len(requests)
+    # each request its key's first: its warm-up and its replay
+    want = len(server.program.stages()) * 2 * len(requests)
     check(launches == each(want),
           f"server launch counts {launches}, expected {want} each")
     for x, a in zip(requests, answers):
@@ -2428,14 +2442,13 @@ def lm_phase(dev) -> dict:
     """Phase 21: (a)-(e) above, with (f) the six kernel-launch counters
     unchanged across the whole phase (the LM path is plain PyTorch)."""
     import torch
-    from repro_torch.kernels import COUNTED as kernels
-    before = {k.__name__: k.launches for k in kernels}
+    before = _launch_counts()
     t0 = time.perf_counter()
     out = dict(reduced=lm_reduced(dev), depth2=qwen_depth2(dev))
     out["full"] = qwen_full_f32(dev)
     out["serve"] = qwen_serve(dev)
     out["kv_shape"], out["kv_equal"] = kv_quant_phase(dev)
-    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
     check(not any(launched.values()),
           f"the LM path launched kernels of repro_torch.kernels: {launched}")
     # both thresholds held in float32 compute; in bfloat16 compute the
@@ -3039,13 +3052,12 @@ def _capture_line(text: str) -> str | None:
 def train_phase(dev) -> dict:
     """Phase 22: (a)-(d) above, with (e) the six kernel-launch counters
     unchanged across it (the training path is plain PyTorch)."""
-    from repro_torch.kernels import COUNTED as kernels
-    before = {k.__name__: k.launches for k in kernels}
+    before = _launch_counts()
     t0 = time.perf_counter()
     out = dict(reduced=train_reduced(dev), micro=train_micro(dev),
                depth2=train_depth2(dev), full=train_full(dev),
                cli=train_cli(dev))
-    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
     check(not any(launched.values()),
           f"the training path launched kernels of repro_torch.kernels: "
           f"{launched}")
@@ -3378,15 +3390,14 @@ def shard_phase(dev, dryrun=None) -> dict:
     unchanged across (a) and (c) (the sharded paths are plain PyTorch).
     ``dryrun``, where given, is the future of a ``timed_dryrun`` started
     earlier; (b) is its result."""
-    from repro_torch.kernels import COUNTED as kernels
-    before = {k.__name__: k.launches for k in kernels}
+    before = _launch_counts()
     t0 = time.perf_counter()
     out = dict(mesh=shard_mesh_phase(dev))
     out["mesh_s"] = time.perf_counter() - t0
     out["dryrun"], out["dryrun_s"] = (timed_dryrun() if dryrun is None
                                       else dryrun.result())
     out["count"] = count_phase()
-    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
     check(not any(launched.values()),
           f"the sharded paths launched kernels of repro_torch.kernels: "
           f"{launched}")
@@ -3490,11 +3501,6 @@ def _run(argv: list, timeout: int = 300) -> str:
     for ln in p.stdout.splitlines():
         detail(f"  24 {argv[1] if argv[0] == '-m' else argv[0]}: {ln}")
     return p.stdout
-
-
-def _launch_counts() -> dict:
-    from repro_torch.kernels import COUNTED
-    return {k.__name__: k.launches for k in COUNTED}
 
 
 def quickstart_phase() -> dict:
@@ -4075,7 +4081,7 @@ def widths_phase(dev, gen, meanwhile=None) -> dict:
             model = api.compile(net, cfg, seed=0, device="cuda")
             (logits, calls), n = counted(lambda: _branches(
                 lambda: model.run(x, logits=True)))
-            want = forward_launches(model.program)
+            want = forward_launches(model.program, 2)   # warm-up, replay
             check(n == want, f"{net} launches {n}, expected {want}")
             for k in n:
                 out["launches"][k] += n[k]
@@ -4661,9 +4667,10 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
     captures the key, the second replays it; both answers kept, then each
     ``torch.equal`` to eager ``execute_packed`` on its own draw (the
     first read after the second ran: no aliasing), finite, and the
-    counters one launch of each kernel per stage and request (two of
-    ``quantize_layout`` a dynamic stage: ``forward_launches``).  Returns
-    the launches and the keys' capture seconds."""
+    counters one launch of each kernel per stage for each request and
+    each key's warm-up (two of ``quantize_layout`` a dynamic stage:
+    ``forward_launches``).  Returns the launches and the keys' capture
+    seconds."""
     import torch
     n = len(model.program.stages())
     launches = each(0)
@@ -4671,10 +4678,12 @@ def hold_replays(name: str, model, answer, shapes, flavors, gen) -> dict:
         for logits in flavors:
             xs = [torch.randn(shape, generator=gen, device="cuda")
                   for _ in range(2)]
+            keys = len(model._fns)
             got, c = counted(lambda: [answer(x, logits) for x in xs])
-            check(c == forward_launches(model.program, 2),
+            warm = len(model._fns) - keys
+            check(c == forward_launches(model.program, 2 + warm),
                   f"{name} {shape} logits={logits}: launches {c} for two "
-                  f"requests of {n} stages")
+                  f"requests and {warm} warm-up of {n} stages")
             for i, (x, r) in enumerate(zip(xs, got)):
                 want = eager_run(model, x, logits)
                 check(r.shape == want.shape and torch.equal(r, want)
@@ -4812,9 +4821,9 @@ def tapped_stages(model, x) -> list[tuple]:
         (got, tap), kw = rec["fb"]
         y, args = rec["fb_in"]
         plain = {k: v for k, v in kw.items() if k != "tap"}
-        before = fb_epilogue.launches
+        before = launches_of(fb_epilogue)
         again, again_tap = fb_epilogue(y, *args, **kw)
-        launched = fb_epilogue.launches - before
+        launched = launches_of(fb_epilogue) - before
         untapped = fb_epilogue(y, *args, **plain)
         ref, ref_tap = fb_epilogue_ref(y, *args, **kw)
         torch.cuda.synchronize()
@@ -5021,7 +5030,8 @@ def executable_line(xp: dict, card: str) -> str:
             f"{'/'.join(map(str, EXEC_TOKENS))}, make_server(resnet18), a "
             "loaded resnet18): every replay torch.equal to eager "
             "execute_packed on the card on two draws, both answers kept; "
-            f"launches {xp['launches']} = one per stage and request; "
+            f"launches {xp['launches']} = one per stage for each request "
+            "and key warm-up; "
             f"{nets} (host clock + synchronize, median of 10); phase "
             f"{xp['s']:.1f} s | {card}")
 
@@ -5664,10 +5674,11 @@ def main(argv: list[str] | None = None) -> int:
     served, main_launches = counted(
         lambda: [(resnet_gpu.run(x), resnet_gpu.run(x, logits=True))
                  for x in requests])
-    want = n_stages * 2 * len(requests)
+    want = n_stages * 4 * len(requests)     # each run its key's first
     check(main_launches == each(want),
           f"launch counts {main_launches}, expected {want} each "
-          f"({n_stages} stages x {2 * len(requests)} runs)")
+          f"({n_stages} stages x {2 * len(requests)} runs, each a key's "
+          "warm-up and its replay)")
     worst_rel, agree, exact = 0.0, [], True
     for x, (probs, logits) in zip(requests, served):
         ref_logits = resnet_cpu.run(x, logits=True)
@@ -5689,7 +5700,8 @@ def main(argv: list[str] | None = None) -> int:
           f"ResNet-18 GPU vs CPU: argmax agreement {agree}, max rel error "
           f"{worst_rel}")
     log(f"[5 resnet18 main path] batches 1,3,16 x (probs, logits): launches "
-        f"{main_launches} = {n_stages} stages each run; vs CPU plain path "
+        f"{main_launches} = {n_stages} stages each run and warm-up; vs CPU "
+        "plain path "
         f"argmax agreement {min(agree)}, max rel logit error {worst_rel:.2e}, "
         f"bit-exact {exact}")
 
@@ -5704,8 +5716,8 @@ def main(argv: list[str] | None = None) -> int:
     got, alex_launches = counted(lambda: alex_gpu.run(x4, logits=True))
     sliced_launches = alex_launches["crossbar_gemm"]
     n_alex = len(alex_gpu.program.stages())
-    check(alex_launches == each(n_alex),
-          f"AlexNet launches {alex_launches}, expected {n_alex} each")
+    check(alex_launches == each(2 * n_alex),    # the key's warm-up, replay
+          f"AlexNet launches {alex_launches}, expected {2 * n_alex} each")
     ref = alex_cpu.run(x4, logits=True)
     got = got.cpu()
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
@@ -5864,7 +5876,8 @@ def main(argv: list[str] | None = None) -> int:
         for ms, n, name in top:
             detail(f"  {name}: {ms:.4f} ms in {n} launches")
     log(f"[12 vit_tiny main path] batches 1,3,16 x (probs, logits): launches "
-        f"{vit['launches']} = {vit['n_stages']} stages each run, "
+        f"{vit['launches']} = {vit['n_stages']} stages each run and "
+        "warm-up, "
         f"{vit['n_dyn']} dynamic stages per run with two quantize_layout, "
         f"one crossbar_gemm and one fb_epilogue each ({vit['dyn_runs']} "
         "dynamic-stage calls); vs "
@@ -5968,7 +5981,8 @@ def main(argv: list[str] | None = None) -> int:
     rng2 = np.random.default_rng(16)
     vgg = vgg_phase(api, rng2)
     log(f"[16 vgg16 main path] batches 1,16 x (probs, logits): launches "
-        f"{vgg['launches']} = {vgg['n_stages']} stages each run; logits "
+        f"{vgg['launches']} = {vgg['n_stages']} stages each run and "
+        "warm-up; logits "
         "torch.equal to the CPU plain path at both batches, probabilities "
         f"within 1e-6; end to end {vgg['ms'][1]:.3f} ms at b=1, "
         f"{vgg['ms'][16]:.3f} ms at b=16 (host clock + synchronize, median "

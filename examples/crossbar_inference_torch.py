@@ -26,9 +26,10 @@ import time
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import clip_possible, crossbar_gemm
+from repro_torch.kernels import clip_possible
 from repro_torch.models.cnn import CNN_MODELS, make_crossbar_matmul
 from repro_torch.program.serve import params_to
 
@@ -67,7 +68,7 @@ def evaluate(net: str, params: dict, x: torch.Tensor, *,
         def mm(a, w, bias=None):
             ks.append(w.shape[-2])
             return xbar(a, w, bias)
-        before = crossbar_gemm.launches
+        before = trace.counters().get("launches.crossbar_gemm", 0)
         y, s = _forward(net, params, x, mm)
         if cfg.has_noise(gen):
             branches = {"plain sliced model": len(ks)}
@@ -77,7 +78,8 @@ def evaluate(net: str, params: dict, x: torch.Tensor, *,
             branches = {"exact branch": len(ks) - sliced,
                         "sliced branch": sliced}
         out[label] = dict(
-            logits=y, s=s, launches=crossbar_gemm.launches - before,
+            logits=y, s=s, launches=trace.counters().get(
+                "launches.crossbar_gemm", 0) - before,
             gemms=len(ks), branches=branches,
             agree=(y_fp.argmax(1) == y.argmax(1)).float().mean().item(),
             rel=(torch.linalg.norm(y - y_fp)

@@ -34,10 +34,9 @@ import time
 
 import torch
 
-from repro_torch import api
+from repro_torch import api, trace
 from repro_torch.api import HurryConfig, NetworkBuilder
 from repro_torch.device import resolve_device
-from repro_torch.kernels import crossbar_gemm, fb_epilogue
 from repro_torch.models.cnn import make_crossbar_matmul
 
 NETS = ["alexnet", "vgg16", "resnet18", "vit-tiny", "custom"]
@@ -134,13 +133,15 @@ def main(argv=None) -> dict:
     x = torch.randn(graph.input_shape(args.batch),
                     generator=torch.Generator().manual_seed(0)).to(dev)
     model.warmup(args.batch, logits=True)     # builds, captures the graph
-    launched = crossbar_gemm.launches, fb_epilogue.launches
+    launched = trace.counters()
     t0 = time.perf_counter()
-    y_prog = model.run(x, logits=True)
+    y_prog = model.run(x, logits=True)        # a replay: no warm-up in it
     _sync(dev)
     us = (time.perf_counter() - t0) * 1e6
-    out["launches"] = {"crossbar_gemm": crossbar_gemm.launches - launched[0],
-                       "fb_epilogue": fb_epilogue.launches - launched[1]}
+    counted = trace.counters()
+    out["launches"] = {w: counted.get(f"launches.{w}", 0)
+                       - launched.get(f"launches.{w}", 0)
+                       for w in ("crossbar_gemm", "fb_epilogue")}
     mm = make_crossbar_matmul(config.crossbar())
     y_fn = graph.forward(model.params, x, mm=mm, logits=True)
     exact = torch.equal(y_fn, y_prog)

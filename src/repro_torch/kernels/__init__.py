@@ -9,10 +9,9 @@ ports no Pallas kernel but XLA's fusion of the JAX executor's im2col,
 quantize and pad: it makes each stage's left operand for
 ``crossbar_gemm``.  For a CUDA tensor a wrapper launches its kernel
 (built with ``nvcc`` for ``sm_90a`` at first use, see ``_build``) and
-counts the launch in ``<wrapper>.launches``; for a CPU tensor it
-computes the plain PyTorch version.  ``COUNTED`` lists the six counting
-wrappers (a captured CUDA graph's replays add to the same counters,
-``program.serve.Executable``).
+counts the launch in ``launches.<wrapper>`` (``repro_torch.trace``,
+where a captured CUDA graph's replays add to the same counters); for a
+CPU tensor it computes the plain PyTorch version.
 """
 
 from .crossbar_gemm import (clip_possible, crossbar_gemm, crossbar_gemm_ref,
@@ -27,11 +26,7 @@ from .packed_gemm import (packed_gemm, packed_gemm_ref, packed_gemm_tiles_ref,
                           pad_groups, tile_group_map)
 from .quantize_layout import quantize_layout, quantize_layout_ref
 
-COUNTED = (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
-           packed_gemm, quantize_layout)
-
 __all__ = [
-    "COUNTED",
     "clip_possible", "crossbar_gemm", "crossbar_gemm_ref",
     "crossbar_gemm_exact_ref", "kernel_layout", "mount_weight",
     "LN_EPS", "fb_epilogue", "fb_epilogue_ref",

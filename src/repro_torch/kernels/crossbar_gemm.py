@@ -19,9 +19,9 @@ For a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/crossbar_gemm.cu`` (its header says what bounds it on the H100)
 under the plan ``exact_plan`` picks from the shape on the exact branch
 (64 x 64 tiles with a K split, or wide tiles in N-first order, which
-read x from device memory once) and adds one to
-``crossbar_gemm.launches``; for a CPU tensor it computes
-the plain PyTorch version (``crossbar_gemm_exact_ref`` /
+read x from device memory once) and counts it in
+``launches.crossbar_gemm`` (``repro_torch.trace``); for a CPU tensor it
+computes the plain PyTorch version (``crossbar_gemm_exact_ref`` /
 ``crossbar_gemm_ref``).  Nothing falls back from the card to the plain
 version.
 
@@ -33,16 +33,17 @@ the exact branch, chunk by chunk on the sliced branch (each
 an ADC chunk).  Zero rows add nothing to a product or to a bitline
 count, so the padding is exact.  ``mount_weight`` builds that
 kernel-layout weight, and ``kernel_layout`` pads a K-major operand into
-it; the packer mounts each static stage's weight once
-(``PackedStage.wt``) and the executor quantizes activations straight
-into the layout.  K is the call's own: a static stage passes its
-logical K on the exact branch, not the K of its whole mounts, so no
-zero rows of a part-filled mount are written or multiplied
-(``program.pack.layout_k``); the last TMA slab of a K that is no
-multiple of 128 is part-filled, and the tensor map fills the rest with
-zeros.  Passed a plain (K, N) weight without ``wt``, the
-wrapper lays it out itself in one extra launch (and pads x likewise where
-x is not already in the layout): those helper launches do not count as
+it.  ``call_layout`` alone decides a call's branch and Kk, for the
+wrapper and for what lays operands out ahead of it: the packer mounts
+each static stage's weight once (``PackedStage.wt``) and the executor
+quantizes activations straight into the layout.  K is the call's own: a
+static stage passes its logical K on the exact branch, not the K of its
+whole mounts, so no zero rows of a part-filled mount are written or
+multiplied (``program.pack.layout_k``); the last TMA slab of a K that is
+no multiple of 128 is part-filled, and the tensor map fills the rest
+with zeros.  Passed a plain (K, N) weight without ``wt``, the wrapper
+lays it out itself in one extra launch (and pads x likewise where x is
+not already in the layout): those helper launches do not count as
 ``crossbar_gemm`` launches.
 """
 
@@ -54,6 +55,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import trace
 
 from . import _build
 
@@ -128,38 +131,42 @@ def _sliced_ref(x: torch.Tensor, w: torch.Tensor, adc_bits: int,
 # the kernel layout
 # ---------------------------------------------------------------------------
 
-def _branch(K: int, rows: int, adc_bits: int,
-            exact: bool | None) -> tuple[int, bool]:
-    """(rows = min(rows, K), exact?) as the wrapper dispatches a call of
-    contraction length K (module docstring); raises for ``exact=True``
-    where a clip could fire."""
+class CallLayout(NamedTuple):
+    """How ``crossbar_gemm`` runs a call of contraction length K
+    (``call_layout``)."""
+
+    rows: int       # min(rows, K): the rows an ADC read sums
+    exact: bool     # the branch
+    kk: int         # the kernel layout's K
+    rows32: int     # a chunk's rows in the sliced layout: up32(rows)
+
+
+def call_layout(K: int, rows: int = 512, adc_bits: int = 9,
+                exact: bool | None = None) -> CallLayout:
+    """The layout of a call of contraction length K, as the wrapper
+    dispatches it (module docstring): rows = min(rows, K), the branch,
+    Kk (up32(K) on the exact branch, chunks * up32(rows) on the sliced
+    one) and up32(rows); raises for ``exact=True`` where a clip could
+    fire.  The one place the branch and the layout are decided."""
     rows = max(1, min(rows, K))
     if exact is None:
-        return rows, not clip_possible(rows, adc_bits)
-    if exact and clip_possible(rows, adc_bits):
+        exact = not clip_possible(rows, adc_bits)
+    elif exact and clip_possible(rows, adc_bits):
         raise ValueError(
             f"exact=True but ADC clipping can fire: rows={rows} > "
             f"2^{adc_bits} - 1 = {(1 << adc_bits) - 1}; use the sliced path")
-    return rows, exact
+    rows32 = -(-rows // 32) * 32
+    kk = -(-K // 32) * 32 if exact else -(-K // rows) * rows32
+    return CallLayout(rows, exact, kk, rows32)
 
 
-def _up32(n: int) -> int:
-    return -(-n // 32) * 32
-
-
-def _kernel_k(K: int, rows: int, exact: bool) -> int:
-    return _up32(K) if exact else -(-K // rows) * _up32(rows)
-
-
-def _layout(t: torch.Tensor, K: int, rows: int,
-            exact: bool) -> torch.Tensor:
-    """(..., R, k) K-major, k <= K, -> (..., R, _kernel_k(K, rows, exact)),
-    zero-padded; ``t`` itself where nothing needs padding."""
-    k = t.shape[-1]
-    if exact:
-        pad = _up32(K) - k
-        return F.pad(t, (0, pad)) if pad else t
-    chunks, r32 = -(-K // rows), _up32(rows)
+def _layout(t: torch.Tensor, lay: CallLayout) -> torch.Tensor:
+    """(..., R, k) K-major, k <= K, -> (..., R, lay.kk), zero-padded;
+    ``t`` itself where nothing needs padding."""
+    k, rows, r32 = t.shape[-1], lay.rows, lay.rows32
+    if lay.exact:
+        return F.pad(t, (0, lay.kk - k)) if lay.kk != k else t
+    chunks = lay.kk // r32
     if r32 == rows and k == chunks * rows:
         return t
     t = F.pad(t, (0, chunks * rows - k)).unflatten(-1, (chunks, rows))
@@ -177,8 +184,7 @@ def kernel_layout(t: torch.Tensor, K: int, *, rows: int = 512,
     x of a call goes in as it is; a (K, N) weight goes in transposed
     (``mount_weight``).  Returns ``t`` itself where no padding is needed.
     """
-    rows, exact = _branch(K, rows, adc_bits, exact)
-    return _layout(t, K, rows, exact)
+    return _layout(t, call_layout(K, rows, adc_bits, exact))
 
 
 def mount_weight(w: torch.Tensor, *, rows: int = 512, adc_bits: int = 9,
@@ -341,9 +347,9 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, N: int, *, exact: bool,
     else:
         err = lib.crossbar_gemm_sliced(
             x.data_ptr(), wt.data_ptr(), y.data_ptr(), S, M, N, kk,
-            _up32(rows), (1 << adc_bits) - 1, split, stream)
+            -(-rows // 32) * 32, (1 << adc_bits) - 1, split, stream)
     _build.check(lib, "crossbar_gemm", err)
-    crossbar_gemm.launches += 1
+    trace.count("launches.crossbar_gemm")
     return y
 
 
@@ -371,22 +377,19 @@ def crossbar_gemm(x: torch.Tensor, w: torch.Tensor | None = None, *,
         K = w.shape[-2]
     N = w.shape[-1] if w is not None else wt.shape[-2]
     _check_operands(x, w, wt, K)
-    rows, exact = _branch(K, rows, adc_bits, exact)
-    kk = _kernel_k(K, rows, exact)
+    lay = call_layout(K, rows, adc_bits, exact)
     if wt is not None:
-        _check_wt(wt, x, N, kk)
+        _check_wt(wt, x, N, lay.kk)
     if x.is_cuda:
         if wt is None:        # lay the weight out here: one helper launch
-            wt = _layout(w.mT, K, rows, exact).contiguous()
-        if x.shape[-1] != kk:
-            x = _layout(x, K, rows, exact)
-        return _launch(x.contiguous(), wt, N, exact=exact, rows=rows,
-                       adc_bits=adc_bits)
+            wt = _layout(w.mT, lay).contiguous()
+        if x.shape[-1] != lay.kk:
+            x = _layout(x, lay)
+        return _launch(x.contiguous(), wt, N, exact=lay.exact,
+                       rows=lay.rows, adc_bits=adc_bits)
+    rows = lay.rows
     if w is None or x.shape[-1] != K:   # x in the kernel layout: chunks of
-        w, rows = wt.mT, _up32(rows)    # r32 rows
-    if exact:
+        w, rows = wt.mT, lay.rows32     # up32(rows) rows
+    if lay.exact:
         return crossbar_gemm_exact_ref(x, w)
     return crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)
-
-
-crossbar_gemm.launches = 0

@@ -25,9 +25,9 @@ the kernels they launched before it existed.
 
 For a CUDA tensor ``fb_epilogue`` launches the hand-written kernel in
 ``csrc/fb_epilogue.cu`` (its header says what bounds it on the H100) and
-adds one to ``fb_epilogue.launches``; for a CPU tensor it computes the
-plain PyTorch version ``fb_epilogue_ref``.  Nothing falls back from the
-card to the plain version.
+counts it in ``launches.fb_epilogue`` (``repro_torch.trace``); for a CPU
+tensor it computes the plain PyTorch version ``fb_epilogue_ref``.
+Nothing falls back from the card to the plain version.
 
 **Numerics.** Jitted XLA contracts the dequant ``y*scale + bias`` into
 one fused multiply-add; the kernel calls ``__fmaf_rn`` and the plain
@@ -45,6 +45,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch import trace
 
 from . import _build
 
@@ -273,7 +275,7 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
                           int(window), int(img_hw), int(softmax), int(heads),
                           _build.stream_handle())
     _build.check(lib, "fb_epilogue", err)
-    fb_epilogue.launches += 1
+    trace.count("launches.fb_epilogue")
     return (out, tapped) if tap else out
 
 
@@ -313,6 +315,3 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
     if y.is_cuda:
         return _launch(y, scale, bias, residual, **kw)
     return fb_epilogue_ref(y, scale, bias, residual, **kw)
-
-
-fb_epilogue.launches = 0

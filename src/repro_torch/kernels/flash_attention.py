@@ -11,8 +11,9 @@ blocks, and ``hd`` at most 128 here.  GQA kv heads are expanded by
 
 For a CUDA tensor ``flash_attention`` launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (its header says what bounds it on the H100)
-and adds one to ``flash_attention.launches``; for a CPU tensor it
-computes the plain PyTorch version ``flash_attention_ref``.  Nothing
+and counts it in ``launches.flash_attention`` (``repro_torch.trace``);
+for a CPU tensor it computes the plain PyTorch version
+``flash_attention_ref``.  Nothing
 falls back from the card to the plain version.
 
 Where ``B * H * q_tiles`` blocks would leave SMs idle the kernel splits
@@ -31,6 +32,8 @@ import functools
 import math
 
 import torch
+
+from repro_torch import trace
 
 from . import _build
 
@@ -234,7 +237,7 @@ def _launch(q, k, v, *, causal: bool, window: int,
         1.0 / math.sqrt(hd), int(causal), int(window), query_tile(sq),
         splits, int(vec), _DTYPES[q.dtype], _build.stream_handle())
     _build.check(lib, "flash_attention", err)
-    flash_attention.launches += 1
+    trace.count("launches.flash_attention")
     return out
 
 
@@ -253,6 +256,3 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.is_cuda:
         return _launch(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)
-
-
-flash_attention.launches = 0

@@ -8,9 +8,10 @@ tanh-GELU or none, then ``+ residual`` (M, N), cast to x's type
 unlike ``fb_epilogue``.
 
 For a CUDA tensor ``fused_gemm_epilogue`` launches the hand-written
-kernel in ``csrc/fused_gemm_epilogue.cu`` and adds one to
-``fused_gemm_epilogue.launches``; for a CPU tensor it computes the plain
-PyTorch version.  Nothing falls back from the card to the plain version.
+kernel in ``csrc/fused_gemm_epilogue.cu`` and counts it in
+``launches.fused_gemm_epilogue`` (``repro_torch.trace``); for a CPU
+tensor it computes the plain PyTorch version.  Nothing falls back from
+the card to the plain version.
 
 On the H100 the kernel is bound by latency and by how many of the 132
 SMs it keeps busy, not by its products (its header says why).  It runs
@@ -29,6 +30,8 @@ import functools
 import math
 
 import torch
+
+from repro_torch import trace
 
 from . import _build
 
@@ -154,7 +157,7 @@ def _launch(x, w, b, residual, act: str,
         0 if r is None else _DTYPES[r.dtype], s, k_chunk,
         _build.stream_handle())
     _build.check(lib, "fused_gemm_epilogue", err)
-    fused_gemm_epilogue.launches += 1
+    trace.count("launches.fused_gemm_epilogue")
     return out
 
 
@@ -169,6 +172,3 @@ def fused_gemm_epilogue(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.is_cuda:
         return _launch(x, w, b, residual, act)
     return fused_gemm_epilogue_ref(x, w, b, act=act, residual=residual)
-
-
-fused_gemm_epilogue.launches = 0

@@ -10,8 +10,8 @@ float32 accumulation, in x's type.  The helpers return what the JAX ones
 return, as int32 tensors.
 
 For a CUDA tensor ``packed_gemm`` launches the hand-written kernel in
-``csrc/packed_gemm.cu`` and adds one to ``packed_gemm.launches``; for a
-CPU tensor it computes the plain PyTorch version
+``csrc/packed_gemm.cu`` and counts it in ``launches.packed_gemm``
+(``repro_torch.trace``); for a CPU tensor it computes the plain PyTorch version
 ``packed_gemm_tiles_ref``.  Nothing falls back from the card to the
 plain version.
 
@@ -29,6 +29,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch import trace
 
 from . import _build
 
@@ -183,7 +185,7 @@ def _launch(x, w, tile_groups, block_m: int) -> torch.Tensor:
                           out.data_ptr(), M, N, K, block_m, tm, tn,
                           _DTYPES[x.dtype], _build.stream_handle())
     _build.check(lib, "packed_gemm", err)
-    packed_gemm.launches += 1
+    trace.count("launches.packed_gemm")
     return out
 
 
@@ -200,6 +202,3 @@ def packed_gemm(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor,
     if x.is_cuda:
         return _launch(x, w, tile_groups, bm)
     return packed_gemm_tiles_ref(x, w, tile_groups, bm)
-
-
-packed_gemm.launches = 0

@@ -48,8 +48,9 @@ after the first call's last kernel has finished (no programmatic
 dependent launch crosses calls).
 
 For a CUDA tensor the wrapper launches ``csrc/quantize_layout.cu`` and
-adds one to ``quantize_layout.launches`` (one a call, whatever the path)
-and its device kernels to the counter ``trace.count(DEVICE_KERNELS)``;
+counts the call in ``launches.quantize_layout`` (one a call, whatever
+the path) and its device kernels in ``device_kernels.quantize_layout``
+(``DEVICE_KERNELS``), both in ``repro_torch.trace``;
 for a CPU tensor it computes the plain version, ``quantize_layout_ref``.
 Nothing falls back from the card to the plain version.  ``plan`` picks
 the kernel's path from the call's geometry, and ``device_kernels`` says
@@ -104,7 +105,7 @@ import torch.nn.functional as F
 from repro_torch import trace
 
 from . import _build
-from .crossbar_gemm import _branch, _kernel_k, _up32
+from .crossbar_gemm import CallLayout, call_layout
 
 DEVICE_KERNELS = "device_kernels.quantize_layout"   # counter (``plan``)
 
@@ -222,16 +223,16 @@ def _geometry(x: torch.Tensor, K: int,
     return kc, lead
 
 
-def _scatter(q: torch.Tensor, K: int, rows: int, exact: bool) -> torch.Tensor:
+def _scatter(q: torch.Tensor, lay: CallLayout) -> torch.Tensor:
     """(..., kc) int8 -> (..., Kk) in the kernel layout: column j to j
     (exact) or to (j // rows) * up32(rows) + j % rows (sliced)."""
-    kc = q.shape[-1]
-    out = q.new_zeros(*q.shape[:-1], _kernel_k(K, rows, exact))
-    if exact:
+    kc, rows = q.shape[-1], lay.rows
+    out = q.new_zeros(*q.shape[:-1], lay.kk)
+    if lay.exact:
         out[..., :kc] = q
         return out
     full, rem = divmod(kc, rows)
-    grid = out.unflatten(-1, (-1, _up32(rows)))
+    grid = out.unflatten(-1, (-1, lay.rows32))
     grid[..., :full, :rows] = q[..., :full * rows].unflatten(-1, (full, rows))
     if rem:
         grid[..., full, :rem] = q[..., full * rows:]
@@ -250,7 +251,6 @@ def quantize_layout_ref(x: torch.Tensor, K: int, *, bits: int = 8,
     into the layout; with ``w_amax`` the requant factor beside them."""
     kc, _ = _geometry(x, K, conv)
     _check_requant(x, conv, w_amax, per_slice)
-    rows, exact = _branch(K, rows, adc_bits, None)
     q_max = qmax(bits)
     if conv is not None:
         k, s, p = conv
@@ -273,7 +273,7 @@ def quantize_layout_ref(x: torch.Tensor, K: int, *, bits: int = 8,
             q = F.pad(q, (0, 0, p, p, p, p))
         q = q.unfold(1, k, s).unfold(2, k, s)     # (N, OH, OW, C, kh, kw)
         q = q.reshape(-1, kc)
-    out = (_scatter(q, K, rows, exact), amax)
+    out = (_scatter(q, call_layout(K, rows, adc_bits)), amax)
     if w_amax is None:
         return out
     factor = requant_plain if per_slice else requant_factor
@@ -340,8 +340,7 @@ def plan(x: torch.Tensor, K: int, *, rows: int = 512, adc_bits: int = 9,
     partial maximum, then one pass (rows) or two (a conv with k > 1: the
     image, the gather)."""
     _, lead = _geometry(x, K, conv)
-    rows, exact = _branch(K, rows, adc_bits, None)
-    kk = _kernel_k(K, rows, exact)
+    kk = call_layout(K, rows, adc_bits).kk
     slices = _slices(x, conv, per_slice)
     elems = _covered_elems(x, conv) // slices
     words = int(np.prod(lead)) * (kk // 16) // slices
@@ -407,11 +406,11 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
-            rows: int, adc_bits: int, exact: bool, conv, per_slice: bool,
-            w_amax: torch.Tensor | None, weight_bits: int
+def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple,
+            lay: CallLayout, *, bits: int, adc_bits: int, conv,
+            per_slice: bool, w_amax: torch.Tensor | None, weight_bits: int
             ) -> tuple[torch.Tensor, ...]:
-    kk = _kernel_k(K, rows, exact)
+    kk = lay.kk
     out = torch.empty(*lead, kk, dtype=torch.int8, device=x.device)
     slices = x.shape[:-2] if conv is None and per_slice else ()
     amax = torch.empty(slices, dtype=torch.float32, device=x.device)
@@ -432,7 +431,7 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
     if n_slices > 65535:
         raise ValueError(f"quantize_layout: {n_slices} slices exceed the "
                          "grid's y limit of 65535")
-    pl = plan(x, K, rows=rows, adc_bits=adc_bits, conv=conv,
+    pl = plan(x, K, rows=lay.rows, adc_bits=adc_bits, conv=conv,
               per_slice=per_slice)
     partials = image = table = None
     if not pl.one_launch:
@@ -446,8 +445,8 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
                                                               weight_bits)
     head = (x.data_ptr(), out.data_ptr(), amax.data_ptr(), _ptr(requant),
             _ptr(w_amax), req_c, _ptr(partials))
-    layout = (kk, rows, _up32(rows), int(exact), qmax(bits), inv_qmax(bits),
-              int(pl.one_launch), pl.blocks, pl.cluster,
+    layout = (kk, lay.rows, lay.rows32, int(lay.exact), qmax(bits),
+              inv_qmax(bits), int(pl.one_launch), pl.blocks, pl.cluster,
               _build.stream_handle())
     if conv is not None:
         k, s, p = conv
@@ -462,7 +461,7 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple, *, bits: int,
         err = lib.quantize_layout_strided(
             *head, a, b, r, kc, *v.stride(), int(per_slice), *layout)
     _build.check(lib, "quantize_layout", err)
-    quantize_layout.launches += 1
+    trace.count("launches.quantize_layout")
     trace.count(DEVICE_KERNELS, pl.kernels)
     return (out, amax) if requant is None else (out, amax, requant)
 
@@ -478,25 +477,22 @@ def quantize_layout(x: torch.Tensor, K: int, *, bits: int = 8,
     with ``w_amax`` the requant factor third: (1, 1), or per slice (S, 1,
     1), the plain product (module docstring).
 
-    ``rows`` and ``adc_bits`` pick the branch as ``crossbar_gemm``
-    does (``clip_possible``); ``bits`` is the input width, ``weight_bits``
-    the mounted weight's.  ``conv=(k, stride, pad)`` takes NHWC ``x``
-    through its patches; otherwise the last two dims of ``x`` are the
-    operand's (R, k), any leading ones its slices, and ``per_slice=True``
-    gives each slice its own amax (and takes one ``w_amax`` a slice).
-    CUDA tensors run the kernel, CPU tensors the plain version.
+    ``rows`` and ``adc_bits`` pick the branch and the layout as
+    ``crossbar_gemm`` does (``call_layout``); ``bits`` is the input
+    width, ``weight_bits`` the mounted weight's.  ``conv=(k, stride,
+    pad)`` takes NHWC ``x`` through its patches; otherwise the last two
+    dims of ``x`` are the operand's (R, k), any leading ones its slices,
+    and ``per_slice=True`` gives each slice its own amax (and takes one
+    ``w_amax`` a slice). CUDA tensors run the kernel, CPU tensors the
+    plain version.
     """
     kc, lead = _geometry(x, K, conv)
     _check_requant(x, conv, w_amax, per_slice)
-    rows, exact = _branch(K, rows, adc_bits, None)
     if x.is_cuda:
-        return _launch(x, K, kc, lead, bits=bits, rows=rows,
-                       adc_bits=adc_bits, exact=exact, conv=conv,
+        return _launch(x, K, kc, lead, call_layout(K, rows, adc_bits),
+                       bits=bits, adc_bits=adc_bits, conv=conv,
                        per_slice=per_slice, w_amax=w_amax,
                        weight_bits=weight_bits)
     return quantize_layout_ref(x, K, bits=bits, rows=rows, adc_bits=adc_bits,
                                conv=conv, per_slice=per_slice, w_amax=w_amax,
                                weight_bits=weight_bits)
-
-
-quantize_layout.launches = 0

@@ -17,7 +17,7 @@ stage (``_static_stage``):
   ``layout.zero_k_bytes`` (``ZERO_K_BYTES``), and on the exact branch
   the bytes of it the GEMM's plan loads (``kernels.crossbar_gemm.
   x_load_bytes``: once a column tile) in ``gemm.x_load_bytes``
-  (``X_LOAD_BYTES``), both at capture and eager runs;
+  (``X_LOAD_BYTES``);
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read), on ``wt`` and that K;
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -25,7 +25,10 @@ stage (``_static_stage``):
   the stage has a tap (``CrossbarProgram.taps``: a pre-norm block's
   residual sum, which a later residual reads), the same call stores it
   beside the normalized rows as the stage's second output, its bytes
-  counted in ``fb.tap_bytes`` (``TAP_BYTES``), at capture and eager runs.
+  counted in ``fb.tap_bytes`` (``TAP_BYTES``).
+
+Like the kernel wrappers' launches, these counters (``repro_torch.trace``)
+count what ran: each eager run, and each replay of a captured graph.
 
 Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
 activations instead of weights, per (batch, head) slice, in four kernel
@@ -47,10 +50,10 @@ the contraction sized to the runtime head dim or sequence length):
 Each stage runs in a ``stage`` span (``repro_torch.trace``; its attrs
 ``layer``, the stage's GEMM layer, and ``tap``, its tap or ``""``), and
 with ``plan=`` a list ``execute_packed`` appends the stage's
-``PlanStep``: its layer, its tap, each counting wrapper's calls and
-their device kernels, from the wrappers' ``.launches`` and
-``quantize_layout``'s device-kernel counter (a CUDA run's; a CPU run
-launches nothing).  ``Executable`` keeps the plan of its capture.
+``PlanStep``: its layer, its tap, and what it counted (the wrappers'
+launches and ``quantize_layout``'s device kernels on a CUDA run, which a
+CPU run does not count, and the bytes).  ``Executable`` keeps the plan of
+its warm-up.
 
 Buffers are dropped as soon as no later stage reads them (a tap after
 the stage of its residual).  On a CUDA device the three calls launch
@@ -68,12 +71,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import trace
-from repro_torch.kernels.crossbar_gemm import (clip_possible, crossbar_gemm,
+from repro_torch.kernels.crossbar_gemm import (call_layout, crossbar_gemm,
                                               x_load_bytes)
 from repro_torch.kernels.fb_epilogue import fb_epilogue
-from repro_torch.kernels.quantize_layout import (DEVICE_KERNELS as
-                                                 QUANTIZE_KERNELS,
-                                                 quantize_layout)
+from repro_torch.kernels.quantize_layout import quantize_layout
 
 from .compile import CrossbarProgram, ProgramOp
 from .pack import (PackedProgram, PackedStage, layout_k, logical_k,
@@ -81,7 +82,6 @@ from .pack import (PackedProgram, PackedStage, layout_k, logical_k,
 from .sequence import qkv_head_views, tokens
 
 
-WRAPPERS = (quantize_layout, crossbar_gemm, fb_epilogue)
 # counter: the zero K bytes of the static stages' left operands, M * (Kk - K)
 ZERO_K_BYTES = "layout.zero_k_bytes"
 # counter: the bytes the epilogue's second stores (the taps) write
@@ -91,37 +91,26 @@ TAP_BYTES = "fb.tap_bytes"
 X_LOAD_BYTES = "gemm.x_load_bytes"
 
 
-def _marks() -> tuple[dict[str, int], int]:
-    """The executor's wrappers' launches, and ``quantize_layout``'s
-    device kernels, so far."""
-    return ({fn.__name__: fn.launches for fn in WRAPPERS},
-            trace.counters().get(QUANTIZE_KERNELS, 0))
-
-
 @dataclasses.dataclass(frozen=True)
 class PlanStep:
-    """One stage of a launch plan: its GEMM layer, each wrapper's calls
-    in it, and their device kernels (``crossbar_gemm`` and
-    ``fb_epilogue`` one a call; ``quantize_layout`` as its
-    ``device_kernels`` say); ``tap`` the buffer its epilogue also
-    stores, or ``""``."""
+    """One stage of a launch plan: its GEMM layer, ``counts``, what the
+    stage counted (the growth of each ``repro_torch.trace`` counter over
+    it: ``launches.<wrapper>``, ``device_kernels.quantize_layout``, the
+    bytes), and ``tap``, the buffer its epilogue also stores, or
+    ``""``."""
 
     layer: str
-    calls: dict[str, int]
-    kernels: dict[str, int]
+    counts: dict[str, int]
     tap: str = ""
 
     @classmethod
-    def since(cls, layer: str, marks: tuple[dict[str, int], int],
+    def since(cls, layer: str, before: dict[str, int],
               tap: str = "") -> "PlanStep":
-        """The step of the launches made since ``marks`` (``_marks``)."""
-        (calls0, kernels0), (calls1, kernels1) = marks, _marks()
-        calls = {w: calls1[w] - n for w, n in calls0.items()
-                 if calls1[w] > n}
-        kernels = dict(calls)
-        if "quantize_layout" in calls:
-            kernels["quantize_layout"] = kernels1 - kernels0
-        return cls(layer, calls, kernels, tap)
+        """The step of what was counted since ``before`` (the
+        ``trace.counters()`` of the stage's start)."""
+        after = trace.counters()
+        return cls(layer, {k: n - before.get(k, 0) for k, n in after.items()
+                           if n != before.get(k, 0)}, tap)
 
 
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -239,7 +228,7 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
         weight_bits=cfg.weight_bits)
     trace.count(ZERO_K_BYTES,
                 xq.shape[0] * (xq.shape[-1] - logical_k(gemm)))
-    if not clip_possible(gemm.tile_rows, cfg.adc_bits):
+    if call_layout(K, gemm.tile_rows, cfg.adc_bits).exact:
         trace.count(X_LOAD_BYTES, x_load_bytes(1, xq.shape[0],
                                                st.wt.shape[-2],
                                                xq.shape[-1]))
@@ -310,7 +299,7 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
     taps = program.taps()
     ret = program.logits if return_logits else program.output
     for si, ((gemm, posts), st) in enumerate(zip(stages, packed.stages)):
-        marks = _marks() if plan is not None else None
+        before = trace.counters() if plan is not None else None
         tap = taps.get(gemm.name, "")
         with trace.span("stage", layer=gemm.name, tap=tap):
             if gemm.kind == "dyn_gemm":
@@ -323,7 +312,7 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
                     tap=tap)
                 bufs[dst] = out
         if plan is not None:
-            plan.append(PlanStep.since(gemm.name, marks, tap))
+            plan.append(PlanStep.since(gemm.name, before, tap))
         # drop buffers no later stage reads
         for name in [n for n, li in last.items() if li <= si]:
             if name != ret:

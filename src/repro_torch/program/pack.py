@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.crossbar import quantize_scale, quantize_with_scale
-from repro_torch.kernels.crossbar_gemm import clip_possible, mount_weight
+from repro_torch.kernels.crossbar_gemm import call_layout, mount_weight
 
 from .compile import CrossbarProgram, ProgramOp
 
@@ -123,14 +123,12 @@ def logical_k(gemm: ProgramOp) -> int:
 
 def layout_k(gemm: ProgramOp, adc_bits: int) -> int:
     """The K a static stage's ``crossbar_gemm`` operands are laid out at
-    (module docstring): ``logical_k`` on the exact branch, the full
-    mounts' K on the sliced one.  The branch is the mounts' (rows =
-    ``tile_rows``); on the exact branch the wrapper's ``min(rows, K)``
-    at the logical K is no taller, so it takes the same branch."""
+    (module docstring): ``logical_k`` where a call at the full mounts' K
+    takes the exact branch (``call_layout``), the full mounts' K where
+    it takes the sliced one."""
     k = logical_k(gemm)
-    if clip_possible(gemm.tile_rows, adc_bits):
-        return -(-k // gemm.tile_rows) * gemm.tile_rows
-    return k
+    full = -(-k // gemm.tile_rows) * gemm.tile_rows
+    return k if call_layout(full, gemm.tile_rows, adc_bits).exact else full
 
 
 def mount_stage(gemm: ProgramOp, w8: torch.Tensor,

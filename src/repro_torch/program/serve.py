@@ -16,13 +16,13 @@ rows of a bucketed run are bit-identical to an unpadded run.
 ``jax.jit`` executables: on a CUDA device the first request of a key
 (padded batch bucket, output flavor, the rest of the input's shape;
 ``executable_key``) runs ``execute_packed`` once eagerly on a side
-stream (the kernels build and set their launch attributes there), then
-captures it as a ``torch.cuda.CUDAGraph`` over a static input buffer
-(``Executable``); every request of that key copies its padded batch in,
-replays the graph and returns a fresh copy of the kept output rows.
-All graphs of one server or model share one memory pool.  A capture or
-a replay that fails raises: nothing carries on eagerly on the card.  On
-the CPU every request runs ``execute_packed`` eagerly.
+stream (the kernels build there), then captures it as a
+``torch.cuda.CUDAGraph`` over a static input buffer (``Executable``);
+every request of that key copies its padded batch in, replays the graph
+and returns a fresh copy of the kept output rows.  All graphs of one
+server or model share one memory pool.  A capture or a replay that fails
+raises: nothing carries on eagerly on the card.  On the CPU every
+request runs ``execute_packed`` eagerly.
 ``repro_torch.api.CompiledModel`` is the full-featured front door
 (persistable, simulatable); it serves through the same ``run_bucketed``,
 so a server and a model on the same packed program answer bit for bit
@@ -41,10 +41,9 @@ from repro_torch import trace
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.simulator import ChipConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import COUNTED
 
 from .compile import CrossbarProgram, compile_network
-from .execute import QUANTIZE_KERNELS, execute_packed
+from .execute import execute_packed
 from .pack import PackedProgram, pack_program
 
 # powers of two cover varying traffic with at most 2x padding
@@ -92,25 +91,22 @@ class Executable:
     output it writes (in the graph's memory pool ``pool``); both, and
     every intermediate of the capture, stay where they were captured:
     ``crossbar_gemm``'s TMA descriptors hold their addresses.
-    ``launches`` is each counting wrapper's launches per replay (what
-    the capture recorded), added to its counter on every replay, so the
-    counters count the launches the device performs; ``capture_s`` is
+    ``counts`` is what the recording counted (``trace.recording``: the
+    wrappers' launches, the executor's bytes), added to the counters on
+    every replay, so they count what the device runs; ``capture_s`` is
     the host seconds of the eager warm-up and the capture (the
-    ``capture`` span's clock).  ``plan`` is the replay's launch plan,
-    stage by stage in order (``execute.PlanStep``: the layer, each
-    wrapper's calls and their device kernels), and ``kernels`` its
-    device kernels of ``quantize_layout``, added to the
-    ``device_kernels.quantize_layout`` counter on every replay.
+    ``capture`` span's clock).  ``plan`` is the launch plan of the
+    warm-up, which a replay runs again, stage by stage in order
+    (``execute.PlanStep``).
     """
 
     graph: torch.cuda.CUDAGraph
     x: torch.Tensor
     out: torch.Tensor
     pool: tuple
-    launches: dict
+    counts: dict
     capture_s: float
     plan: tuple = ()
-    kernels: int = 0
 
     @classmethod
     def capture(cls, packed: PackedProgram, x: torch.Tensor, *,
@@ -118,39 +114,26 @@ class Executable:
                 ) -> "Executable":
         """Warm ``execute_packed`` up on ``x`` (a padded CUDA batch) on a
         side stream, then capture it over a copy of ``x`` into ``pool``
-        (a new pool when None).  The counters are put back as they were
-        before the warm-up."""
-        before = {fn: fn.launches for fn in COUNTED}
-        kernels0 = trace.counters().get(QUANTIZE_KERNELS, 0)
+        (a new pool when None).  The warm-up counts as the eager run it
+        is; the recording counts nothing (``counts`` holds its counts)."""
         plan: list = []
-        try:
-            with trace.timed("capture") as timer, \
-                    torch.cuda.device(x.device):
-                static_x = x.clone()
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with trace.span("capture.warm"), torch.cuda.stream(side):
-                    execute_packed(packed, x, return_logits=return_logits)
-                torch.cuda.current_stream().wait_stream(side)
-                pool = pool or torch.cuda.graph_pool_handle()
-                graph = torch.cuda.CUDAGraph()
-                start = {fn: fn.launches for fn in COUNTED}
-                with trace.span("capture.graph"), torch.cuda.graph(
-                        graph, pool=pool, capture_error_mode="thread_local"):
-                    out = execute_packed(packed, static_x,
-                                         return_logits=return_logits,
-                                         plan=plan)
-                launches = {fn: fn.launches - start[fn] for fn in COUNTED}
-        finally:
-            for fn, n in before.items():
-                fn.launches = n
-            trace.count(QUANTIZE_KERNELS,
-                        kernels0 - trace.counters().get(QUANTIZE_KERNELS, 0))
+        with trace.timed("capture") as timer, torch.cuda.device(x.device):
+            static_x = x.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with trace.span("capture.warm"), torch.cuda.stream(side):
+                execute_packed(packed, x, return_logits=return_logits,
+                               plan=plan)
+            torch.cuda.current_stream().wait_stream(side)
+            pool = pool or torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with trace.span("capture.graph"), trace.recording() as counts, \
+                    torch.cuda.graph(graph, pool=pool,
+                                     capture_error_mode="thread_local"):
+                out = execute_packed(packed, static_x,
+                                     return_logits=return_logits)
         return cls(graph=graph, x=static_x, out=out, pool=pool,
-                   launches=launches, capture_s=timer.seconds,
-                   plan=tuple(plan),
-                   kernels=sum(p.kernels.get("quantize_layout", 0)
-                               for p in plan))
+                   counts=counts, capture_s=timer.seconds, plan=tuple(plan))
 
     def __call__(self, x: torch.Tensor, rows: int) -> torch.Tensor:
         """Replay on ``x`` (the key's padded batch): a new tensor holding
@@ -159,9 +142,7 @@ class Executable:
             self.x.copy_(x)
         with trace.span("run.replay"):
             self.graph.replay()
-            for fn, n in self.launches.items():
-                fn.launches += n
-            trace.count(QUANTIZE_KERNELS, self.kernels)
+            trace.add(self.counts)
         with trace.span("run.copy_out"):
             return self.out[:rows].clone()
 

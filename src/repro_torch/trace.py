@@ -10,9 +10,12 @@ places it beside the device's kernels.  A ``run`` span starts a
 request; every span opened inside it carries the run's id as its
 ``request``.  What the ring overflows is counted in ``spans.dropped``.
 
-Counters (``count``) are always on, like the kernel wrappers'
-``.launches``, which ``counters()`` reports beside them as
-``launches.<wrapper>`` (counted since the last ``reset()``)::
+Counters (``count``) are always on, and this module is their one
+store: the kernel wrappers count their launches in
+``launches.<wrapper>``, the executor its bytes.  A counter counts what
+ran: an eager call when it runs; a CUDA graph's recording nothing, its
+counts kept aside by ``recording()``; each replay what its recording
+counted (``add``)::
 
     from repro_torch import trace
     trace.enable()
@@ -27,6 +30,7 @@ per thread.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -40,9 +44,19 @@ KEEP = 65536                  # spans the ring holds
 _on = False
 _ring: collections.deque = collections.deque(maxlen=KEEP)
 _counters: dict[str, int] = {}
-_launch_base: dict = {}       # wrapper -> its .launches at the last reset
 _ids = itertools.count(1)
-_local = threading.local()
+
+
+class _Local(threading.local):
+    """Per thread: the open spans, and the counts of a recording
+    (``recording``; None outside one)."""
+
+    def __init__(self):
+        self.stack: list = []
+        self.recorded: dict | None = None
+
+
+_local = _Local()
 # whether a profiler runs: a range costs microseconds, and only a profiler
 # reads it (where torch cannot tell, every span enters one)
 _profiling = getattr(torch._C._autograd, "_profiler_enabled", lambda: True)
@@ -105,7 +119,7 @@ class _Open(_Timer):
         self.name, self.attrs = name, attrs
 
     def __enter__(self):
-        stack = _stack()
+        stack = _local.stack
         top = stack[-1] if stack else None
         self.id = next(_ids)
         self.parent = top.id if top else None
@@ -123,20 +137,13 @@ class _Open(_Timer):
         self.end_ns = time.perf_counter_ns()
         if self._range is not None:
             self._range.__exit__(*exc)
-        stack = _stack()
+        stack = _local.stack
         if stack and stack[-1] is self:
             stack.pop()
-        if len(_ring) == _ring.maxlen:
-            count("spans.dropped")
+        if len(_ring) == _ring.maxlen:    # the ring's own: never diverted
+            _counters["spans.dropped"] = _counters.get("spans.dropped", 0) + 1
         _ring.append(Span(self.name, self.start_ns, self.end_ns, self.id,
                           self.parent, self.request, self.attrs))
-
-
-def _stack() -> list:
-    stack = getattr(_local, "stack", None)
-    if stack is None:
-        stack = _local.stack = []
-    return stack
 
 
 def span(name: str, **attrs):
@@ -154,9 +161,37 @@ def timed(name: str, **attrs):
     return _Open(name, attrs) if _on else _Timer()
 
 
+def _store() -> dict[str, int]:
+    """Where this thread counts: its recording's dict, or the counters."""
+    store = _local.recorded
+    return _counters if store is None else store
+
+
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` (always on)."""
-    _counters[name] = _counters.get(name, 0) + n
+    """Add ``n`` to the counter ``name`` (always on), or, inside
+    ``recording()`` on this thread, to what the recording counted."""
+    store = _store()
+    store[name] = store.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Around the recording of a CUDA graph, which runs nothing on the
+    device: this thread's counts go to the dict it yields, not to the
+    counters; ``add`` that dict at each replay."""
+    outer, _local.recorded = _local.recorded, {}
+    try:
+        yield _local.recorded
+    finally:
+        _local.recorded = outer
+
+
+def add(counts: dict[str, int]) -> None:
+    """``count`` each of ``counts``: a replay of what a recording
+    counted."""
+    store = _store()
+    for name, n in counts.items():
+        store[name] = store.get(name, 0) + n
 
 
 def enable() -> None:
@@ -172,13 +207,9 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Forget the spans and the counters; ``launches.<wrapper>`` count
-    from here."""
-    from repro_torch.kernels import COUNTED
+    """Forget the spans and the counters."""
     _ring.clear()
     _counters.clear()
-    _launch_base.clear()
-    _launch_base.update({fn: fn.launches for fn in COUNTED})
 
 
 def spans() -> list[Span]:
@@ -187,13 +218,9 @@ def spans() -> list[Span]:
 
 
 def counters() -> dict[str, int]:
-    """Every counter, and each counting kernel wrapper's launches since
-    the last ``reset`` as ``launches.<wrapper>``."""
-    from repro_torch.kernels import COUNTED
-    out = dict(_counters)
-    for fn in COUNTED:
-        out[f"launches.{fn.__name__}"] = fn.launches - _launch_base.get(fn, 0)
-    return out
+    """Every counter counted since the last ``reset`` (a name never
+    counted has no key)."""
+    return dict(_counters)
 
 
 def totals() -> dict[str, dict]:

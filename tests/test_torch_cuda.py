@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
-from repro_torch.kernels import (COUNTED, clip_possible, crossbar_gemm,
+from repro_torch import api, trace
+from repro_torch.kernels import (clip_possible, crossbar_gemm,
                                  crossbar_gemm_exact_ref, crossbar_gemm_ref,
                                  fb_epilogue, fb_epilogue_ref,
                                  flash_attention, flash_attention_ref,
@@ -28,12 +28,23 @@ from repro_torch.kernels import (COUNTED, clip_possible, crossbar_gemm,
                                  tile_group_map)
 from test_torch_prenorm import small_graph
 
+# the six kernel wrappers, each counting its launches in ``launches.<name>``
+WRAPPERS = (crossbar_gemm, fb_epilogue, flash_attention, fused_gemm_epilogue,
+            packed_gemm, quantize_layout)
+
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels are CUDA C++)")
     return torch.device("cuda")
+
+
+def _launched(fn) -> int:
+    """A kernel wrapper's launches so far (``launches.<wrapper>`` in
+    ``repro_torch.trace``: every eager call and a key's warm-up, and each
+    replay what its recording counted)."""
+    return trace.counters().get(f"launches.{fn.__name__}", 0)
 
 
 def _int8(shape, rng):
@@ -49,9 +60,9 @@ def test_crossbar_gemm_kernel_equals_plain(cuda, adc_bits, rows, exact):
     x, w = _int8((133, 1001), rng).to(cuda), _int8((1001, 70), rng).to(cuda)
     x[:33] = -1          # all bits set: bitline counts reach `rows`
     w[:, :17] = -1
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = crossbar_gemm(x, w, adc_bits=adc_bits, rows=rows, exact=exact)
-    assert crossbar_gemm.launches == before + 1
+    assert _launched(crossbar_gemm) == before + 1
     sliced = exact is False or clip_possible(rows, adc_bits)
     ref = (crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows) if sliced
            else crossbar_gemm_exact_ref(x, w))
@@ -87,9 +98,9 @@ def _fb_against_plain(device, mode, M, N, seed, **over):
     if "norm" in kw:
         kw = dict(kw, gamma=torch.randn(N, generator=g, device=device),
                   beta=torch.randn(N, generator=g, device=device))
-    before = fb_epilogue.launches
+    before = _launched(fb_epilogue)
     got = fb_epilogue(y, scale, bias, res, **kw)
-    assert fb_epilogue.launches == before + 1
+    assert _launched(fb_epilogue) == before + 1
     ref = fb_epilogue_ref(y, scale, bias, res, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=0, atol=atol)
@@ -133,9 +144,9 @@ def test_fb_epilogue_tap_equals_plain(cuda, N):
     res = torch.randn(M, N, generator=g, device=cuda)
     kw = dict(kw, gamma=torch.randn(N, generator=g, device=cuda),
               beta=torch.randn(N, generator=g, device=cuda))
-    before = fb_epilogue.launches
+    before = _launched(fb_epilogue)
     out, tap = fb_epilogue(y, scale, bias, res, tap=True, **kw)
-    assert fb_epilogue.launches == before + 1
+    assert _launched(fb_epilogue) == before + 1
     untapped = fb_epilogue(y, scale, bias, res, **kw)
     ref_out, ref_tap = fb_epilogue_ref(y, scale, bias, res, tap=True, **kw)
     torch.cuda.synchronize()
@@ -210,17 +221,17 @@ def _custom8():
 def test_custom_net_at_other_widths_on_the_card(cuda, width):
     """custom8 at each width: ``run`` on the card ``torch.equal`` to the
     CPU plain path (logits; probabilities to 1e-6), one launch of each
-    kernel per stage."""
+    kernel per stage for the key's warm-up and for its replay."""
     graph, cfg = _custom8(), api.HurryConfig(**WIDTHS[width])
     gpu = api.compile(graph, cfg, seed=2, device="cuda")
     cpu = api.compile(graph, cfg, seed=2, device="cpu")
     x = np.random.default_rng(0).standard_normal((5, 8, 8, 4)).astype(
         np.float32)
-    before = crossbar_gemm.launches, fb_epilogue.launches
-    got = gpu.run(x, logits=True)
+    before = _launched(crossbar_gemm), _launched(fb_epilogue)
+    got = gpu.run(x, logits=True)           # the key's warm-up and replay
     n = len(gpu.program.stages())
-    assert (crossbar_gemm.launches, fb_epilogue.launches) == (
-        before[0] + n, before[1] + n)
+    assert (_launched(crossbar_gemm), _launched(fb_epilogue)) == (
+        before[0] + 2 * n, before[1] + 2 * n)
     assert torch.equal(got.cpu(), cpu.run(x, logits=True))
     # the softmax FB sums its row in another order on the card
     torch.testing.assert_close(gpu.run(x).cpu(), cpu.run(x), rtol=0,
@@ -236,9 +247,9 @@ def test_batched_crossbar_gemm_is_one_launch_equal_to_per_slice(cuda,
     x, w = _int8((6, 64, 350), rng).to(cuda), _int8((6, 350, 40), rng).to(cuda)
     x[:, :8] = -1
     w[:, :, :5] = -1
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = crossbar_gemm(x, w, adc_bits=adc_bits, rows=rows)
-    assert crossbar_gemm.launches == before + 1
+    assert _launched(crossbar_gemm) == before + 1
     for s in range(6):
         assert torch.equal(got[s], crossbar_gemm(x[s], w[s],
                                                  adc_bits=adc_bits,
@@ -257,9 +268,9 @@ def test_batched_fb_epilogue_is_one_launch_equal_to_per_slice(cuda, kw, atol):
                       device=cuda, dtype=torch.int32)
     scale = torch.rand(48, 1, 1, generator=g, device=cuda) * 1e-4
     bias = torch.zeros(64, device=cuda)
-    before = fb_epilogue.launches
+    before = _launched(fb_epilogue)
     got = fb_epilogue(y, scale, bias, **kw)
-    assert fb_epilogue.launches == before + 1
+    assert _launched(fb_epilogue) == before + 1
     for s in range(48):
         assert torch.equal(got[s], fb_epilogue(y[s], scale[s], bias, **kw))
     torch.testing.assert_close(got, fb_epilogue_ref(y, scale, bias, **kw),
@@ -306,11 +317,11 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
     q, k, v = (_randn(shape, g, cuda, dtype) for _ in range(3))
     if negative:
         q, k = q.abs() + 10, -k.abs() - 10
-    before = flash_attention.launches
+    before = _launched(flash_attention)
     got = flash_attention(q, k, v, causal=causal, window=window,
                           block_q=min(128, shape[1]),
                           block_k=min(128, shape[1]))
-    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    assert _launched(flash_attention) == before + 1 and got.dtype == dtype
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
@@ -365,9 +376,9 @@ def test_fused_gemm_epilogue_kernel_matches_plain(cuda, act, dtype, tol,
     w = _randn((512, 384), g, cuda, dtype, 0.05)
     b = _randn((384,), g, cuda)
     res = _randn((256, 384), g, cuda) if with_res else None
-    before = fused_gemm_epilogue.launches
+    before = _launched(fused_gemm_epilogue)
     got = fused_gemm_epilogue(x, w, b, res, act=act)
-    assert fused_gemm_epilogue.launches == before + 1 and got.dtype == dtype
+    assert _launched(fused_gemm_epilogue) == before + 1 and got.dtype == dtype
     ref = fused_gemm_epilogue_ref(x, w, b, act=act, residual=res)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
@@ -382,9 +393,9 @@ def test_grouped_gemm_kernel_matches_plain(cuda, sizes):
     x = _randn((sum(sizes), 128), g, cuda)
     xp, padded, _, _ = pad_groups(x, sizes, 128)
     tiles = tile_group_map(padded, 128, xp.shape[0] // 128)
-    before = packed_gemm.launches
+    before = _launched(packed_gemm)
     got = packed_gemm(xp, w, tiles)
-    assert packed_gemm.launches == before + 1
+    assert _launched(packed_gemm) == before + 1
     torch.testing.assert_close(got, packed_gemm_tiles_ref(xp, w, tiles, 128),
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(ops.grouped_gemm(x, w, sizes),
@@ -514,9 +525,10 @@ def test_vit_on_the_gpu_matches_the_cpu_plain_path(cuda):
     x = np.random.default_rng(0).standard_normal(graph.input_shape(3)).astype(
         np.float32)
     n_dyn = sum(g.kind == "dyn_gemm" for g, _ in gpu.program.stages())
-    before = crossbar_gemm.launches
-    got = gpu.run(x, logits=True).cpu()
-    assert crossbar_gemm.launches == before + len(gpu.program.stages())
+    before = _launched(crossbar_gemm)
+    got = gpu.run(x, logits=True).cpu()     # the key's warm-up and replay
+    assert _launched(crossbar_gemm) == before + 2 * len(
+        gpu.program.stages())
     assert n_dyn == 2
     ref = cpu.run(x, logits=True)
     assert (got.argmax(1) == ref.argmax(1)).all()
@@ -689,9 +701,9 @@ def test_batched_crossbar_gemm_edge_shapes(cuda, adc_bits, rows):
     x[:, :3] = -1
     w[:, :, :4] = -1
     wt = mount_weight(w, rows=rows, adc_bits=adc_bits)
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = crossbar_gemm(x, w, adc_bits=adc_bits, rows=rows, wt=wt)
-    assert crossbar_gemm.launches == before + 1
+    assert _launched(crossbar_gemm) == before + 1
     ref = crossbar_gemm_ref(x, w, adc_bits=adc_bits, rows=rows)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -720,12 +732,12 @@ def test_crossbar_matmul_on_the_card_equals_the_cpu(cuda, rows, adc_bits, K):
     x[0, :2] = -1
     w[:, :5] = -1
     cfg = CrossbarConfig(rows=rows, adc_bits=adc_bits)
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = crossbar_matmul(x.to(cuda), w.to(cuda), cfg)
-    assert crossbar_gemm.launches == before + 1
+    assert _launched(crossbar_gemm) == before + 1
     xs, ws = x[0][None].expand(3, -1, -1), w[None].expand(3, -1, -1)
     got_s = crossbar_matmul(xs.to(cuda), ws.to(cuda), cfg)
-    assert crossbar_gemm.launches == before + 2
+    assert _launched(crossbar_gemm) == before + 2
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), crossbar_matmul(x, w, cfg))
     assert torch.equal(got_s.cpu(), crossbar_matmul(xs, ws, cfg))
@@ -742,7 +754,7 @@ def test_noisy_crossbar_matmul_runs_on_the_card(cuda):
     w = torch.from_numpy(rng.integers(-128, 128, (256, 32),
                                       dtype=np.int32)).to(cuda)
     cfg = CrossbarConfig(rows=256, noise_sigma_thermal=2.0)
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
 
     def draw(seed):
         return crossbar_matmul(x, w, cfg, torch.Generator(cuda).manual_seed(
@@ -754,7 +766,7 @@ def test_noisy_crossbar_matmul_runs_on_the_card(cuda):
     cfg4 = CrossbarConfig(input_bits=4, rows=300, adc_bits=8)
     assert torch.equal(crossbar_matmul(x, w, cfg4).cpu(),
                        crossbar_matmul(x.cpu(), w.cpu(), cfg4))
-    assert crossbar_gemm.launches == before
+    assert _launched(crossbar_gemm) == before
 
 
 @pytest.mark.cuda
@@ -827,7 +839,7 @@ def test_run_replays_one_graph_per_key(cuda, case, logits):
     the first request of a key captures, the second replays; both equal
     eager ``execute_packed`` on their own input (the first still after
     the second ran: no aliasing), and the counters grow by one launch of
-    each kernel per stage and request."""
+    each kernel per stage for the key's warm-up and for each request."""
     make, cfg, seqs = EXECUTABLE_CASES[case]
     graph = make()
     model = api.compile(graph, api.HurryConfig(**cfg), seed=2, device="cuda")
@@ -839,11 +851,11 @@ def test_run_replays_one_graph_per_key(cuda, case, logits):
             shape = model.program.input_shape(b, seq_len=seq)
             x1 = torch.randn(shape, generator=g, device=cuda)
             x2 = torch.randn(shape, generator=g, device=cuda)
-            before = crossbar_gemm.launches, fb_epilogue.launches
+            before = _launched(crossbar_gemm), _launched(fb_epilogue)
             first = model.run(x1, logits=logits)
             second = model.run(x2, logits=logits)
-            assert (crossbar_gemm.launches, fb_epilogue.launches) == (
-                before[0] + 2 * n, before[1] + 2 * n)
+            assert (_launched(crossbar_gemm), _launched(fb_epilogue)) == (
+                before[0] + 3 * n, before[1] + 3 * n)
             keys += 1
             assert len(model._fns) == keys
             assert torch.equal(second, _eager(model, x2, logits))
@@ -851,12 +863,47 @@ def test_run_replays_one_graph_per_key(cuda, case, logits):
             assert first.shape == (b, 10)
 
 
+@pytest.mark.cuda
+def test_counters_count_the_warmup_and_each_replay(cuda):
+    """Two ``run``s of one ResNet-18 b16 key count three forwards against
+    one eager pass: the key's warm-up and its two replays (recording the
+    graph counts nothing), launches and bytes alike; the executable holds
+    one forward's counts, and its plan the launches stage by stage."""
+    from repro_torch.kernels.quantize_layout import DEVICE_KERNELS
+    from repro_torch.program.execute import (X_LOAD_BYTES, ZERO_K_BYTES,
+                                             execute_packed)
+    model = api.compile("resnet18", api.HurryConfig(), seed=0, device="cuda")
+    n = len(model.program.stages())
+    x = torch.randn(model.program.input_shape(16), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    names = ("launches.crossbar_gemm", "launches.fb_epilogue",
+             "launches.quantize_layout", DEVICE_KERNELS, X_LOAD_BYTES,
+             ZERO_K_BYTES)
+
+    def grown(fn):
+        before = trace.counters()
+        fn()
+        torch.cuda.synchronize()
+        after = trace.counters()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in names}
+
+    eager = grown(lambda: execute_packed(model.packed, x))
+    assert eager["launches.crossbar_gemm"] == n and eager[X_LOAD_BYTES] > 0
+    served = grown(lambda: (model.run(x), model.run(x)))
+    assert served == {k: 3 * v for k, v in eager.items()}
+    (exe,) = model._fns.values()
+    assert {k: exe.counts.get(k, 0) for k in names} == eager
+    assert [step.layer for step in exe.plan] == [
+        g.name for g, _ in model.program.stages()]
+    for k in names:
+        assert sum(step.counts.get(k, 0) for step in exe.plan) == eager[k], k
+
+
 # a capture that cannot be made: run in a process of its own, so that
 # whatever the failed capture leaves in the CUDA context stays there
 _FAILED_CAPTURE = """
 import torch
-from repro_torch import api
-from repro_torch.kernels import crossbar_gemm, fb_epilogue
+from repro_torch import api, trace
 import repro_torch.program.serve as serve
 nb = api.NetworkBuilder("tiny", input_hw=8, input_ch=3)
 nb.conv(16, name="c1"); nb.relu(name="r1"); nb.fc(10, name="fc")
@@ -868,21 +915,24 @@ def syncs(packed, x, **kw):
         out.sum().item()              # a host read: not capturable
     return out
 serve.execute_packed = syncs
-before = crossbar_gemm.launches, fb_epilogue.launches
+before = trace.counters()
 try:
     model.run(torch.randn(2, 8, 8, 3, device="cuda"))
 except RuntimeError:                 # torch.AcceleratorError among them
     print("raised")
 print("entries", len(model._fns))
-print("counters", (crossbar_gemm.launches, fb_epilogue.launches) == before)
+after, n = trace.counters(), len(model.program.stages())
+print("counters", all(after[k] - before.get(k, 0) == n for k in (
+    "launches.crossbar_gemm", "launches.fb_epilogue")))
 """
 
 
 @pytest.mark.cuda
 def test_warmup_captures_and_a_failed_capture_raises(cuda):
     """``warmup`` captures its key (a later ``run`` of it captures no
-    other); a capture that cannot be made raises, leaves no entry and
-    puts the counters back."""
+    other); a capture that cannot be made raises and leaves no entry,
+    and the counters hold its warm-up's launches alone (the failed
+    recording counts nothing)."""
     import os
     import subprocess
     import sys
@@ -914,10 +964,10 @@ def test_graph_forward_on_the_card(cuda):
     x = torch.randn(graph.input_shape(4), generator=torch.Generator()
                     .manual_seed(2))
     mm = make_crossbar_matmul(api.HurryConfig().crossbar())
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = graph.forward(gparams, x.to(cuda), mm=mm, logits=True)
     n_gemm = sum(l.kind in ("conv", "fc") for l in graph.layers)
-    assert crossbar_gemm.launches == before + n_gemm
+    assert _launched(crossbar_gemm) == before + n_gemm
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), graph.forward(params, x, mm=mm,
                                                 logits=True))
@@ -958,11 +1008,11 @@ def test_lm_on_the_card_equals_the_cpu(cuda, arch):
     frames = (torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
               if cfg.is_encdec else None)
     want = _lm_logits(cfg, params, tokens, frames, 16)
-    kernels = COUNTED
-    before = [k.launches for k in kernels]
+    kernels = WRAPPERS
+    before = [_launched(k) for k in kernels]
     got = _lm_logits(cfg, _to(params, cuda), tokens.to(cuda),
                      None if frames is None else frames.to(cuda), 16)
-    assert [k.launches for k in kernels] == before
+    assert [_launched(k) for k in kernels] == before
     for g, w in zip(got, want):
         assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
 
@@ -1110,8 +1160,8 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     if cfg.is_encdec:
         batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
                                       generator=gen)
-    kernels = COUNTED
-    before = [k.launches for k in kernels]
+    kernels = WRAPPERS
+    before = [_launched(k) for k in kernels]
     params_d, batch_d = _to(params, cuda), _to(batch, cuda)
     loss_c, grads_c = _f32_value_and_grad(cfg, params, batch)
     loss_d, grads_d = _f32_value_and_grad(cfg, params_d, batch_d)
@@ -1126,7 +1176,7 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
     y = torch.cat([g.flatten().double() for _, g in
                    tree_items(make_grad_fn(cfg)(params, batch)[1])])
     assert torch.corrcoef(torch.stack([x, y]))[0, 1] >= 0.99
-    assert [k.launches for k in kernels] == before
+    assert [_launched(k) for k in kernels] == before
 
 
 def _tree_gap(got, want) -> float:
@@ -1332,13 +1382,13 @@ def test_serve_lm_example_on_the_card(cuda):
     prompts = torch.randint(0, cfg.vocab_size, (2, 8),
                             generator=torch.Generator().manual_seed(1),
                             dtype=torch.int32)
-    kernels = COUNTED
-    before = [k.launches for k in kernels]
+    kernels = WRAPPERS
+    before = [_launched(k) for k in kernels]
     f32 = torch.float32
     got = sv.generate(cfg, _to(params, cuda), prompts.to(cuda), None, 8,
                       compute_dtype=f32)
     want = sv.generate(cfg, params, prompts, None, 8, compute_dtype=f32)
-    assert [k.launches for k in kernels] == before
+    assert [_launched(k) for k in kernels] == before
     gap = (got["logits"].cpu() - want["logits"]).abs().max()
     assert gap <= 1e-4 * want["logits"].abs().max()
     assert torch.equal(got["seqs"].cpu(), want["seqs"])
@@ -1354,11 +1404,11 @@ def test_train_lm_example_on_the_card(cuda, tmp_path, monkeypatch):
     tl, quiet = _example("train_lm_torch")
     monkeypatch.setattr(tl, "build_100m_config", lambda: dataclasses.replace(
         get_config("internlm2_1_8b").reduced(), n_layers=2))
-    kernels = COUNTED
-    before = [k.launches for k in kernels]
+    kernels = WRAPPERS
+    before = [_launched(k) for k in kernels]
     r = quiet(tl.main, ["--steps", "2", "--batch", "2", "--seq", "32",
                         "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)])
-    assert [k.launches for k in kernels] == before
+    assert [_launched(k) for k in kernels] == before
     assert r["device"].startswith("cuda") and len(r["losses"]) == 2
     assert r["captures"] == 1
     assert all(np.isfinite(r["losses"]))
@@ -1498,9 +1548,9 @@ def test_quantize_layout_kernel_equals_plain(cuda, case, path, monkeypatch):
                             2 ** 31 if path == "one-launch" else -1)
         assert plan(x, K, **geo).one_launch == (
             path == "one-launch" and geo.get("conv", (3,))[0] > 1)
-    before = quantize_layout.launches
+    before = _launched(quantize_layout)
     got = quantize_layout(x, K, **kw)
-    assert quantize_layout.launches == before + 1
+    assert _launched(quantize_layout) == before + 1
     want = quantize_layout_ref(x, K, **kw)
     torch.cuda.synchronize()
     _held_equal(got, want)
@@ -1647,12 +1697,12 @@ def test_executor_left_operands_on_the_kernel(cuda, net, monkeypatch):
     x = torch.randn(model.program.input_shape(16), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(16))
     calls, ref_devices, real_ref = _spied_quantize_layout(monkeypatch)
-    before = quantize_layout.launches
+    before = _launched(quantize_layout)
     execute_packed(model.packed, x, return_logits=True)
     torch.cuda.synchronize()
     n = len(model.program.stages())
     n_dyn = sum(g.kind == "dyn_gemm" for g, _ in model.program.stages())
-    assert quantize_layout.launches == before + n + n_dyn
+    assert _launched(quantize_layout) == before + n + n_dyn
     assert len(calls) == n + n_dyn
     assert ref_devices == []
     assert sum("w_amax" in kw for _, _, kw, _ in calls) == n
@@ -1712,9 +1762,9 @@ def test_dyn_stages_on_the_card_equal_the_plain_versions(cuda, adc_bits,
     assert len(seen) == 4
     for op, posts, bufs in seen:
         calls.clear()
-        before = crossbar_gemm.launches, fb_epilogue.launches
+        before = _launched(crossbar_gemm), _launched(fb_epilogue)
         got = execute._dyn_stage(op, posts, bufs, cfg)
-        assert (crossbar_gemm.launches, fb_epilogue.launches) == (
+        assert (_launched(crossbar_gemm), _launched(fb_epilogue)) == (
             before[0] + 1, before[1] + 1)
         (_, x8, gkw, y), (_, fargs, fkw, out) = calls
         assert gkw.get("K") and gkw["wt"].is_cuda
@@ -1753,9 +1803,9 @@ def test_fb_epilogue_heads_merged_on_store(cuda, N, heads, softmax):
                       device=cuda, dtype=torch.int32)
     scale = torch.rand(S, 1, 1, generator=g, device=cuda) * 1e-4
     kw = dict(softmax=softmax, post_scale=0.125 if softmax else 0.0)
-    before = fb_epilogue.launches
+    before = _launched(fb_epilogue)
     got = fb_epilogue(y, scale, None, heads=heads, **kw)
-    assert fb_epilogue.launches == before + 1
+    assert _launched(fb_epilogue) == before + 1
     flat = fb_epilogue(y, scale, torch.zeros(N, device=cuda), **kw)
     assert got.shape == (S // heads, M, heads * N)
     assert torch.equal(got, flat.reshape(S // heads, heads, M, N)
@@ -1780,9 +1830,9 @@ def test_crossbar_gemm_takes_wt_and_k_alone_on_the_card(cuda, adc_bits,
     w[:, :, :8] = -1
     wt = mount_weight(w, rows=rows, adc_bits=adc_bits)
     xk = kernel_layout(x, K, rows=rows, adc_bits=adc_bits).contiguous()
-    before = crossbar_gemm.launches
+    before = _launched(crossbar_gemm)
     got = crossbar_gemm(xk, adc_bits=adc_bits, rows=rows, wt=wt, K=K)
-    assert crossbar_gemm.launches == before + 1
+    assert _launched(crossbar_gemm) == before + 1
     assert torch.equal(got, crossbar_gemm(x, w, adc_bits=adc_bits,
                                           rows=rows))
     torch.cuda.synchronize()

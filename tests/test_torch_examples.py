@@ -32,9 +32,9 @@ from repro.serve.step import make_decode_step as jax_make_decode_step
 from repro.train import checkpoint as jck
 from repro.train import optimizer as jopt
 from repro.train import step as jstep
+from repro_torch import trace
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax, tree_from_jax
-from repro_torch.kernels import crossbar_gemm
 from repro_torch.tree import tree_items
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,9 +177,9 @@ def test_crossbar_inference_against_the_jax_example():
 
     y_fp = fwd()
     want = {"clean": fwd(JCfg()), "noisy": fwd(JCfg(noise_sigma_thermal=0.3))}
-    before = crossbar_gemm.launches
+    before = trace.counters().get("launches.crossbar_gemm", 0)
     got = xb.evaluate(net, params_from_jax(params), torch.from_numpy(x))
-    assert crossbar_gemm.launches == before
+    assert trace.counters().get("launches.crossbar_gemm", 0) == before
     np.testing.assert_allclose(got["fp32"]["logits"].numpy(), y_fp, rtol=1e-4,
                                atol=1e-4 * np.abs(y_fp).max())
     np.testing.assert_array_equal(got["clean"]["logits"].numpy(),

@@ -15,16 +15,15 @@ and ``chip_smoke.py`` phase 27).
 
 import dataclasses
 import importlib
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
 from repro.program.execute import im2col as jax_im2col
-from repro_torch import api
-from repro_torch.kernels import (COUNTED, crossbar_gemm, fb_epilogue,
-                                 quantize_layout)
-from repro_torch.program.execute import execute_packed, im2col
+from repro_torch import api, trace
+from repro_torch.program.execute import X_LOAD_BYTES, execute_packed, im2col
 from repro_torch.program.pack import PackedProgram
 from repro_torch.program.serve import (BUCKETS, Executable, executable_key,
                                        make_server)
@@ -32,6 +31,7 @@ from repro_torch.program.serve import (BUCKETS, Executable, executable_key,
 from test_torch_cuda import _token_graph
 from torch_capture import CaptureSafety
 
+_build = importlib.import_module("repro_torch.kernels._build")
 _gemm = importlib.import_module("repro_torch.kernels.crossbar_gemm")
 _fb = importlib.import_module("repro_torch.kernels.fb_epilogue")
 
@@ -168,27 +168,34 @@ class _DoublingGraph:
 
 
 def test_counted_holds_the_six_wrappers():
-    assert [fn.__name__ for fn in COUNTED] == [
-        "crossbar_gemm", "fb_epilogue", "flash_attention",
-        "fused_gemm_epilogue", "packed_gemm", "quantize_layout"]
-    assert all(isinstance(fn.launches, int) for fn in COUNTED)
+    """Each of the six kernel wrappers, one a ``csrc`` source, counts its
+    launches in ``repro_torch.trace`` as ``launches.<wrapper>``, at one
+    line, and keeps no count of its own."""
+    assert _build.SOURCES == ("crossbar_gemm", "fb_epilogue",
+                              "flash_attention", "fused_gemm_epilogue",
+                              "packed_gemm", "quantize_layout")
+    for name in _build.SOURCES:
+        module = importlib.import_module(f"repro_torch.kernels.{name}")
+        src = inspect.getsource(module)
+        assert src.count(f'trace.count("launches.{name}")') == 1, name
+        assert not hasattr(getattr(module, name), "launches"), name
 
 
 def test_replay_adds_the_captured_launches_and_returns_a_new_tensor():
+    """Each replay adds all its recording counted (launches and bytes)."""
     x, out = torch.zeros(4, 3), torch.zeros(4, 3)
     graph = _DoublingGraph(x, out)
+    counts = {"launches.crossbar_gemm": 5, "launches.fb_epilogue": 5,
+              "launches.quantize_layout": 5, X_LOAD_BYTES: 12288}
     exe = Executable(graph=graph, x=x, out=out, pool=(0, 0),
-                     launches={crossbar_gemm: 5, fb_epilogue: 5,
-                               quantize_layout: 5},
-                     capture_s=0.0)
-    before = (crossbar_gemm.launches, fb_epilogue.launches,
-              quantize_layout.launches)
+                     counts=counts, capture_s=0.0)
+    before = trace.counters()
     a = exe(torch.arange(12.0).reshape(4, 3), 3)
     b = exe(torch.ones(4, 3), 4)
     assert graph.replays == 2
-    assert (crossbar_gemm.launches, fb_epilogue.launches,
-            quantize_layout.launches) == (
-        before[0] + 10, before[1] + 10, before[2] + 10)
+    after = trace.counters()
+    assert {k: after[k] - before.get(k, 0) for k in counts} == {
+        k: 2 * n for k, n in counts.items()}
     # each answer is its own tensor: the next replay does not move it
     assert torch.equal(a, 2 * torch.arange(9.0).reshape(3, 3))
     assert torch.equal(b, torch.full((4, 3), 2.0))
@@ -199,13 +206,15 @@ def test_cpu_run_is_eager_and_caches_nothing(tmp_path):
     model = api.compile(_token_graph(), seed=4, device="cpu")
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (3, 16, 32)).astype(np.float32))
-    before = crossbar_gemm.launches, fb_epilogue.launches
+    before = trace.counters()
     got = model.run(x, logits=True)
     model.warmup(batch=3, seq_len=16)
     assert torch.equal(got, execute_packed(
         model.packed, torch.cat([x, x[-1:]]), return_logits=True)[:3])
     assert model._fns == {}
-    assert (crossbar_gemm.launches, fb_epilogue.launches) == before
+    after = trace.counters()
+    assert [after.get(k, 0) - before.get(k, 0) for k in (
+        "launches.crossbar_gemm", "launches.fb_epilogue")] == [0, 0]
     assert "_fns" not in repr(model)
     field = {f.name: f for f in dataclasses.fields(model)}["_fns"]
     assert not field.compare and not field.repr

@@ -32,9 +32,11 @@ from repro.program.execute import im2col as jax_im2col
 from repro.program.pack import plane_pack as jax_plane_pack
 from repro.program.sequence import split_qkv_heads as jax_split_qkv_heads
 from repro_torch import api as tapi
+from repro_torch import trace
 from repro_torch.core.crossbar import dequant_scale
 from repro_torch.kernels import (clip_possible, kernel_layout, mount_weight,
                                  quantize_layout)
+from repro_torch.kernels.crossbar_gemm import call_layout
 from repro_torch.kernels.quantize_layout import (ONE_LAUNCH_MAX, conv_out,
                                                  covered, device_kernels,
                                                  plan, quantize_layout_ref,
@@ -211,11 +213,11 @@ def test_pv_probabilities_per_slice_and_scale():
 
 def test_wrapper_on_the_cpu_is_the_plain_version():
     x = torch.from_numpy(_image((2, 9, 9, 5), 25))
-    before = quantize_layout.launches
+    before = trace.counters().get("launches.quantize_layout", 0)
     got = quantize_layout(x, 64, rows=20, adc_bits=4, conv=(3, 2, 1))
     want = quantize_layout_ref(x, 64, rows=20, adc_bits=4, conv=(3, 2, 1))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert quantize_layout.launches == before
+    assert trace.counters().get("launches.quantize_layout", 0) == before
     with pytest.raises(TypeError):
         quantize_layout(x.double(), 64, conv=(3, 2, 1))
     with pytest.raises(ValueError):
@@ -557,10 +559,9 @@ def test_c_entries_take_what_the_wrapper_passes(monkeypatch):
         for shape, kw, K, w_amax in cases:
             x = torch.zeros(shape)
             kc, lead = qmod._geometry(x, K, kw.get("conv"))
-            rows, exact = qmod._branch(K, kw.get("rows", 512),
-                                       kw.get("adc_bits", 9), None)
-            got = qmod._launch(x, K, kc, lead, bits=8, rows=rows,
-                               adc_bits=kw.get("adc_bits", 9), exact=exact,
+            lay = call_layout(K, kw.get("rows", 512), kw.get("adc_bits", 9))
+            got = qmod._launch(x, K, kc, lead, lay, bits=8,
+                               adc_bits=kw.get("adc_bits", 9),
                                conv=kw.get("conv"),
                                per_slice=kw.get("per_slice", False),
                                w_amax=w_amax, weight_bits=8)

@@ -12,6 +12,8 @@ import collections
 import ctypes.util
 import importlib
 import subprocess
+import sys
+import threading
 import time
 import types
 
@@ -24,11 +26,13 @@ from repro_torch import api, trace
 from repro_torch.kernels import crossbar_gemm, fb_epilogue, quantize_layout
 from repro_torch.kernels.quantize_layout import DEVICE_KERNELS, device_kernels
 from repro_torch.program import execute
+from repro_torch.program.execute import X_LOAD_BYTES, ZERO_K_BYTES
 from repro_torch.program.serve import Executable
 
 from test_torch_cuda import _token_graph
 
 _build = importlib.import_module("repro_torch.kernels._build")
+_gemm = importlib.import_module("repro_torch.kernels.crossbar_gemm")
 
 
 @pytest.fixture(autouse=True)
@@ -125,15 +129,70 @@ def test_timed_reads_the_clock_whether_on_or_off():
 
 
 def test_counters_report_the_wrappers_launches_since_reset(monkeypatch):
-    trace.reset()
-    monkeypatch.setattr(crossbar_gemm, "launches", crossbar_gemm.launches + 5)
+    """A wrapper counts each launch in ``launches.<wrapper>`` (a stand-in
+    library takes the C call); a wrapper that never launched has no key,
+    and ``reset`` forgets them."""
+    class Lib:
+        def crossbar_gemm_exact(self, *args):
+            return 0
+
+    monkeypatch.setattr(_gemm, "_lib", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_handle", lambda: ctypes.c_void_p(0))
+    x = torch.zeros(4, 32, dtype=torch.int8)
+    wt = torch.zeros(8, 32, dtype=torch.int8)
+    for _ in range(5):
+        _gemm._launch(x, wt, 8, exact=True, rows=32, adc_bits=9)
     got = trace.counters()
     assert got["launches.crossbar_gemm"] == 5
-    assert got["launches.quantize_layout"] == 0
+    assert "launches.quantize_layout" not in got
     trace.reset()
-    monkeypatch.setattr(fb_epilogue, "launches", fb_epilogue.launches + 2)
-    assert trace.counters()["launches.crossbar_gemm"] == 0
-    assert trace.counters()["launches.fb_epilogue"] == 2
+    _gemm._launch(x, wt, 8, exact=True, rows=32, adc_bits=9)
+    assert trace.counters() == {"launches.crossbar_gemm": 1}
+
+
+def test_recording_diverts_counts_and_add_replays_them():
+    """Under ``recording()`` this thread's counts go to its dict and leave
+    the counters alone; ``add`` of that dict counts them once a call;
+    ``spans.dropped`` and other threads' counts are never diverted."""
+    trace.count("rows", 2)
+    seen = []
+    with trace.recording() as counts:
+        trace.count("launches.crossbar_gemm")
+        trace.count(X_LOAD_BYTES, 100)
+        trace.count(X_LOAD_BYTES, 28)
+        other = threading.Thread(target=lambda: trace.count("rows", 1))
+        other.start()
+        other.join()
+        seen.append(trace.counters())
+    assert counts == {"launches.crossbar_gemm": 1, X_LOAD_BYTES: 128}
+    assert seen == [{"rows": 3}] and trace.counters() == {"rows": 3}
+    trace.count("launches.crossbar_gemm")            # diverting has ended
+    trace.add(counts)
+    trace.add(counts)
+    assert trace.counters() == {"rows": 3, "launches.crossbar_gemm": 3,
+                                X_LOAD_BYTES: 256}
+
+
+def test_recording_leaves_the_rings_drops_in_the_counters(monkeypatch):
+    monkeypatch.setattr(trace, "_ring", collections.deque(maxlen=1))
+    trace.enable()
+    with trace.recording() as counts:
+        for _ in range(3):
+            with trace.span("stage"):
+                pass
+    assert counts == {} and trace.counters() == {"spans.dropped": 2}
+
+
+def test_importing_trace_imports_no_kernel():
+    """``repro_torch.trace`` is the lowest module: the kernels, the
+    executor and the front door import it, and it imports none of
+    them."""
+    code = ("import sys, repro_torch.trace; "
+            "print(*sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True)
+    assert out.stdout.split() == ["repro_torch", "repro_torch.trace"]
 
 
 @pytest.mark.parametrize("on", [False, True])
@@ -184,7 +243,7 @@ def test_execute_packed_keeps_the_launch_plan(monkeypatch):
 
     def counting(fn, kernels):
         def spy(*a, **kw):
-            fn.launches += 1
+            trace.count(f"launches.{fn.__name__}")
             trace.count(DEVICE_KERNELS, kernels(*a, **kw))
             return fn(*a, **kw)
         return spy
@@ -203,13 +262,16 @@ def test_execute_packed_keeps_the_launch_plan(monkeypatch):
     assert [p.layer for p in plan] == [g.name for g, _ in stages]
     for step, (gemm, _) in zip(plan, stages):
         quants = 2 if gemm.kind == "dyn_gemm" else 1
-        assert step.calls == {"quantize_layout": quants, "crossbar_gemm": 1,
-                              "fb_epilogue": 1}
-        assert step.kernels["crossbar_gemm"] == 1
-        assert step.kernels["fb_epilogue"] == 1
-        assert step.kernels["quantize_layout"] >= quants
-    assert sum(p.kernels["quantize_layout"] for p in plan) == \
-        trace.counters()[DEVICE_KERNELS] // 2   # two runs, one planned
+        assert {k: n for k, n in step.counts.items()
+                if k.startswith("launches.")} == {
+            "launches.quantize_layout": quants, "launches.crossbar_gemm": 1,
+            "launches.fb_epilogue": 1}
+        assert step.counts[DEVICE_KERNELS] >= quants
+    counters = trace.counters()                 # two runs, one planned
+    for name in (DEVICE_KERNELS, ZERO_K_BYTES, X_LOAD_BYTES):
+        assert sum(p.counts.get(name, 0) for p in plan) * 2 == \
+            counters.get(name, 0), name
+    assert counters[X_LOAD_BYTES] > 0
 
 
 class _StandInGraph:
@@ -223,8 +285,8 @@ class _StandInGraph:
 def test_a_replay_spans_its_steps_and_adds_its_device_kernels():
     x, out = torch.zeros(4, 3), torch.zeros(4, 3)
     exe = Executable(graph=_StandInGraph(x, out), x=x, out=out, pool=(0, 0),
-                     launches={quantize_layout: 2}, capture_s=0.0,
-                     kernels=7)
+                     counts={"launches.quantize_layout": 2,
+                             DEVICE_KERNELS: 7}, capture_s=0.0)
     trace.enable()
     with trace.span("run"):
         got = exe(torch.ones(4, 3), 3)

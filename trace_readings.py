@@ -18,8 +18,9 @@ Per cell, set up as ``bench/harness/cell.py`` does (seed 1), then:
   last, inside the device copy of its ``repro.run.replay`` span, and
   the idle inside the extents over their sum is the executor's idle
   share (``replay_idle_pct``);
-* **the bytes of x the exact GEMMs load** (``gemm.x_load_bytes``) in one
-  eager pass of a batch;
+* **the bytes of x the exact GEMMs load** a batch (``gemm.x_load_bytes``:
+  the counter's growth over the traced slice's replays, over its
+  batches);
 * **the launch plan**: the executable's plan (``Executable.plan``) laid
   over each replay's device ops, wrapper by wrapper in order, so each
   stage's busy time of ``quantize_layout``, ``crossbar_gemm`` and
@@ -57,6 +58,7 @@ SEED = 1
 WRAPPERS = counts.WRAPPERS
 SPANS = ("bench.", "repro.")            # the harness's and the program's
 REPLAY = "repro.run.replay"
+X_LOAD = "gemm.x_load_bytes"
 
 
 def _events(prof) -> tuple[list, list, list]:
@@ -144,18 +146,6 @@ def _setup(name: str, device):
     return layers, mix, model, loop
 
 
-def _x_load_bytes(model, batch: int, device) -> int | None:
-    """``gemm.x_load_bytes`` of one eager pass of a batch (None where the
-    program has no such counter)."""
-    from repro_torch.program import execute
-    x = torch.randn(model.graph.input_shape(batch), device=device,
-                    generator=torch.Generator(device).manual_seed(SEED))
-    trace.reset()
-    execute.execute_packed(model.packed, x)
-    torch.cuda.synchronize(device)
-    return trace.counters().get("gemm.x_load_bytes")
-
-
 def _cost(loop, model, seconds: float, device) -> list[dict]:
     rows = []
     for on in (False, True, True, False):
@@ -183,17 +173,22 @@ def _clip(ops, lo, hi):
 
 
 def _slice(loop, device, units: int):
-    """One pass under the host-and-device profiler: its ops, spans,
-    replay extents and limits."""
+    """One pass of ``units`` batches under the host-and-device profiler:
+    its ops, spans, replay extents and limits, and ``gemm.x_load_bytes``
+    a batch (None where the program has no such counter)."""
     trace.enable()
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.cuda._sleep(1000)
         torch.cuda.synchronize(device)
+    before = trace.counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(SLICE):
             loop.run(units=units)
             torch.cuda.synchronize(device)
+    after = trace.counters()
+    x_load = ((after[X_LOAD] - before.get(X_LOAD, 0)) // units
+              if X_LOAD in after else None)
     trace.disable()
     loop.answers.clear()
     ops, spans, copies = _events(prof)
@@ -201,7 +196,7 @@ def _slice(loop, device, units: int):
     ext = _replays(ops, copies)
     if not ext:
         raise SystemExit(f"the profiler gave no device copy of {REPLAY}")
-    return _clip(ops, start, end), spans, ext, start, end
+    return _clip(ops, start, end), spans, ext, start, end, x_load
 
 
 def _idle(ops, spans, ext, start, end) -> dict:
@@ -245,6 +240,13 @@ def _wrapper_of(name: str, names: dict, defined: dict) -> str | None:
     return defined.get(m.group(1)) if m else None
 
 
+def _kernels(step, w: str) -> int:
+    """A plan step's device kernels of wrapper ``w``: its count of them
+    where it keeps one (``device_kernels.<w>``), else one a launch."""
+    return step.counts.get(f"device_kernels.{w}",
+                           step.counts.get(f"launches.{w}", 0))
+
+
 def _plan_table(ops, ext, plan, layers, batch) -> list[dict]:
     """Each stage's busy seconds a replay per wrapper (union of its
     kernels' intervals), beside its bound."""
@@ -257,22 +259,20 @@ def _plan_table(ops, ext, plan, layers, batch) -> list[dict]:
             if w in seq:
                 seq[w].append((s, e))
         for w in WRAPPERS:
-            want = sum(step.kernels.get(w, 0) for step in plan)
+            want = sum(_kernels(step, w) for step in plan)
             if len(seq[w]) != want:
                 raise RuntimeError(f"{w}: {len(seq[w])} kernels in a "
                                    f"replay, the plan holds {want}")
             it = iter(seq[w])
             for i, step in enumerate(plan):
-                busy[i][w] += [next(it) for _ in
-                               range(step.kernels.get(w, 0))]
+                busy[i][w] += [next(it) for _ in range(_kernels(step, w))]
     stage = {s.name: s for s in counts.stages(layers)}
     rows = []
     for step, by in zip(plan, busy):
         s = stage[step.layer]
         nbytes = counts.stage_bytes(s, batch)
         ops_ = 2 * s.S * batch * s.M * s.K * s.N
-        row = {"layer": step.layer, "tap": step.tap, "calls": step.calls,
-               "kernels": step.kernels}
+        row = {"layer": step.layer, "tap": step.tap, "counts": step.counts}
         for w in WRAPPERS:
             bound = max(nbytes[w] / counts.HBM_BYTES_PER_S,
                         (ops_ if w == "crossbar_gemm" else 0)
@@ -297,9 +297,8 @@ def main(argv=None) -> int:
     record = {"device": torch.cuda.get_device_name(device)}
     for name in args.cells:
         layers, mix, model, loop = _setup(name, device)
-        x_load = _x_load_bytes(model, mix["batch"], device)
         cost = _cost(loop, model, args.seconds, device)
-        ops, spans, ext, start, end = _slice(loop, device, loop.n)
+        ops, spans, ext, start, end, x_load = _slice(loop, device, loop.n)
         (exe,) = model._fns.values()
         idle = _idle(ops, spans, ext, start, end)
         try:
