@@ -1587,9 +1587,15 @@ def record_stages(model, x) -> tuple:
     and result of each; a dynamic stage's right operand, then its left
     one), its ``crossbar_gemm`` operands (x8, and ``w`` or, where the
     call passes none, ``wt``) and int32 output and its ``fb_epilogue``
-    output and keyword arguments (``fb``) and its int32 input and
-    positional arguments (``fb_in``).  Returns (logits, records)."""
+    output and keyword arguments (``fb``), the tap and the partial maxima
+    it left (``fb_tap``, ``fb_parts``: each None where the call stores
+    none) and its int32 input and positional arguments (``fb_in``).  The
+    buffers hold, beside a buffer, the partial maxima its epilogue left
+    (``execute.parts_key``), and ``kw`` the stage's keyword arguments, so
+    a stage run again from them takes the path the forward took.
+    Returns (logits, records)."""
     import torch
+    from repro_torch.kernels.fb_epilogue import split_outputs
     execute = importlib.import_module("repro_torch.program.execute")
     saved = (execute._static_stage, execute._dyn_stage,
              execute.crossbar_gemm, execute.fb_epilogue,
@@ -1607,18 +1613,20 @@ def record_stages(model, x) -> tuple:
         return y
 
     def fb(y, *args, **kw):
-        out = saved[3](y, *args, **kw)
-        recs[-1]["fb"] = (out, kw)
-        recs[-1]["fb_in"] = (y, args)
-        return out
+        got = saved[3](y, *args, **kw)
+        out, tap, parts = split_outputs(got, tap=kw.get("tap", False),
+                                        partials=kw.get("partials", False))
+        recs[-1].update(fb=(out, kw), fb_tap=tap, fb_parts=parts,
+                        fb_in=(y, args))
+        return got
 
     def static(*args, **kw):
         recs.append(dict(bufs=dict(args[3]), kw=kw, quants=[]))
         return saved[0](*args, **kw)
 
-    def dyn(*args):
-        recs.append(dict(bufs=dict(args[2]), kw={}, quants=[]))
-        return saved[1](*args)
+    def dyn(*args, **kw):
+        recs.append(dict(bufs=dict(args[2]), kw=kw, quants=[]))
+        return saved[1](*args, **kw)
 
     (execute._static_stage, execute._dyn_stage, execute.crossbar_gemm,
      execute.fb_epilogue, execute.quantize_layout) = (static, dyn, gemm, fb,
@@ -1635,10 +1643,15 @@ def record_stages(model, x) -> tuple:
 
 def teacher_forced(vit_dev, recs) -> list[dict]:
     """Each stage of ``vit_dev`` run on the card from the CPU path's own
-    input buffers (``recs`` from ``record_stages`` on the CPU model):
-    its int32 GEMM output against the CPU's (``torch.equal``) and its FB
-    output against the CPU's, to the ``FB_CASES`` tolerance of its modes."""
+    input buffers (``recs`` from ``record_stages`` on the CPU model; the
+    partial maxima the CPU's epilogues left among them, so a stage whose
+    forward took them takes them here too): its int32 GEMM output
+    against the CPU's (``torch.equal``), its FB output against the CPU's,
+    to the ``FB_CASES`` tolerance of its modes, and where its epilogue
+    leaves partial maxima, their maximum against ``max |FB output|``
+    (``parts_equal``: ``torch.equal``; None where it leaves none)."""
     import torch
+    from repro_torch.kernels.fb_epilogue import split_outputs
     execute = importlib.import_module("repro_torch.program.execute")
     saved = execute.crossbar_gemm, execute.fb_epilogue
     got: dict = {}
@@ -1648,8 +1661,13 @@ def teacher_forced(vit_dev, recs) -> list[dict]:
         return got["y"]
 
     def fb(y, *args, **kw):
-        got["fb"] = saved[1](y, *args, **kw)
-        return got["fb"]
+        res = saved[1](y, *args, **kw)
+        got["fb"], _, got["parts"] = split_outputs(
+            res, tap=kw.get("tap", False), partials=kw.get("partials", False))
+        return res
+
+    def to_dev(v):
+        return v.to(vit_dev.device) if isinstance(v, torch.Tensor) else v
 
     out = []
     cfg = vit_dev.program.cfg
@@ -1657,16 +1675,19 @@ def teacher_forced(vit_dev, recs) -> list[dict]:
     execute.crossbar_gemm, execute.fb_epilogue = gemm, fb
     try:
         for (op, posts), st, rec in stages:
-            bufs = {k: v.to(vit_dev.device) for k, v in rec["bufs"].items()}
+            bufs = {k: to_dev(v) for k, v in rec["bufs"].items()}
+            kw = {k: to_dev(v) for k, v in rec["kw"].items()}
             if op.kind == "dyn_gemm":
-                execute._dyn_stage(op, posts, bufs, cfg)
+                execute._dyn_stage(op, posts, bufs, cfg, **kw)
             else:
-                execute._static_stage(op, posts, st, bufs, cfg, **rec["kw"])
-            ref_fb, kw = rec["fb"]
+                execute._static_stage(op, posts, st, bufs, cfg, **kw)
+            ref_fb, fkw = rec["fb"]
             err = (got["fb"].cpu() - ref_fb).abs().max().item()
+            parts = got["parts"]
             out.append(dict(name=op.name, gemm_equal=torch.equal(
                 got["y"].cpu(), rec["gemm"][2]), fb_err=err,
-                fb_atol=fb_atol(kw)))
+                fb_atol=fb_atol(fkw), parts_equal=None if parts is None
+                else torch.equal(parts.max(), got["fb"].abs().max())))
     finally:
         execute.crossbar_gemm, execute.fb_epilogue = saved
     return out
@@ -1703,6 +1724,9 @@ def vit_draws_phase(vit_dev, vit_cpu) -> dict:
         check(f["fb_err"] <= f["fb_atol"], f"vit_tiny teacher-forced stage "
               f"{f['name']}: FB output off by {f['fb_err']:.2e} > "
               f"{f['fb_atol']}")
+        check(f["parts_equal"] is not False, f"vit_tiny teacher-forced "
+              f"stage {f['name']}: the partial maxima the epilogue left "
+              "do not reduce to max |FB output|")
     _, gpu_recs = record_stages(vit_dev, worst["x"])
     flips = []
     for op_rec, cpu_rec, f in zip(gpu_recs, cpu_recs, forced):
@@ -4125,10 +4149,12 @@ def widths_phase(dev, gen, meanwhile=None) -> dict:
                   "plain path's")
     forced = teacher_forced(vit["model"], cpu["vit"]["recs"])
     for f in forced:
-        check(f["gemm_equal"] and f["fb_err"] <= f["fb_atol"],
+        check(f["gemm_equal"] and f["fb_err"] <= f["fb_atol"]
+              and f["parts_equal"] is not False,
               f"vit_tiny {name} teacher-forced stage {f['name']}: int32 "
               f"equal {f['gemm_equal']}, FB off by {f['fb_err']:.2e} "
-              f"(limit {f['fb_atol']})")
+              f"(limit {f['fb_atol']}), partial maxima equal to max |FB| "
+              f"{f['parts_equal']}")
     ref, got = cpu["vit"]["logits"], vit["logits"]
     check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(probs)
                                                    .all()),
@@ -4769,7 +4795,7 @@ def dyn_stage_kernels(model, x) -> tuple[dict, int]:
         if op.kind != "dyn_gemm":
             continue
         kern = replay_kernels(lambda: execute._dyn_stage(
-            op, posts, rec["bufs"], model.program.cfg))
+            op, posts, rec["bufs"], model.program.cfg, **rec["kw"]))
         for k in total:
             total[k] += kern[k]
         want += sum(device_kernels(xin, K, **kw)
@@ -4812,20 +4838,24 @@ def tapped_stages(model, x) -> list[tuple]:
     tapped call) a stage."""
     import torch
     from repro_torch.kernels import fb_epilogue, fb_epilogue_ref
+    from repro_torch.kernels.fb_epilogue import split_outputs
     atol = next(c[3] for c in FB_CASES if c[0] == "layer")
     _, recs = record_stages(model, x)
     out = []
     for (gemm, _), rec in zip(model.program.stages(), recs):
         if not rec.get("fb", (None, {}))[1].get("tap"):
             continue
-        (got, tap), kw = rec["fb"]
+        got, kw = rec["fb"]
+        tap = rec["fb_tap"]
         y, args = rec["fb_in"]
-        plain = {k: v for k, v in kw.items() if k != "tap"}
+        plain = {k: v for k, v in kw.items() if k not in ("tap", "partials")}
         before = launches_of(fb_epilogue)
-        again, again_tap = fb_epilogue(y, *args, **kw)
+        again, again_tap, _ = split_outputs(
+            fb_epilogue(y, *args, **kw), tap=True,
+            partials=kw.get("partials", False))
         launched = launches_of(fb_epilogue) - before
         untapped = fb_epilogue(y, *args, **plain)
-        ref, ref_tap = fb_epilogue_ref(y, *args, **kw)
+        ref, ref_tap = fb_epilogue_ref(y, *args, **dict(plain, tap=True))
         torch.cuda.synchronize()
         check(torch.equal(again, got) and torch.equal(again_tap, tap),
               f"{gemm.name}: the tapped epilogue differs from its own "
@@ -5150,7 +5180,9 @@ def quant_times(calls, label: str, paths: bool = True) -> dict:
     own, as ``record_stages`` recorded them), summed: the kernel, the
     plain version, the PyTorch chain it replaced (``old_chain``, held
     equal), the bound; with ``paths`` also every call with the one-launch
-    and the multi-pass path forced.  Per call on standard error."""
+    and the multi-pass path forced (reducing its own amax: a call given
+    partial maxima is timed without them there).  Per call on standard
+    error."""
     import torch
     from repro_torch.kernels import quantize_layout
     qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
@@ -5166,12 +5198,15 @@ def quant_times(calls, label: str, paths: bool = True) -> dict:
                      xin, K, **qkw)),
                  chain=device_ms(lambda: old_chain(xin, K, qkw)),
                  bound=quant_bound(xin, qkw, got))
+        own = {k: v for k, v in qkw.items() if k != "partials"}
         if paths:
             for key, one in (("one", True), ("multi", False)):
                 with _forced(qmod, one):
-                    c[key] = device_ms(lambda: quantize_layout(xin, K, **qkw))
+                    c[key] = device_ms(lambda: quantize_layout(xin, K, **own))
         geo = {k: v for k, v in qkw.items()
                if k in ("rows", "adc_bits", "conv", "per_slice")}
+        if "partials" in qkw:
+            geo["partials"] = qkw["partials"].numel()
         pl = qmod.plan(xin, K, **geo)
         covered = quant_covered(xin, qkw)
         detail(f"time 29 {label} quantize_layout {tuple(xin.shape)} K={K} "
@@ -5195,8 +5230,10 @@ def quantize_phase(api, dev) -> dict:
     each compiled on the card and driven eagerly through ``execute_packed``
     (``record_stages``): one ``quantize_layout`` launch per stage, static
     and dynamic, each call's (x8, amax) and each static stage's requant
-    factor ``torch.equal`` to the plain version on the same card tensors,
-    and no card tensor reaching the plain version (a spy on
+    factor ``torch.equal`` to the plain version on the same card tensors
+    (``given``: the calls that took the partial maxima their input's
+    epilogue left, in place of an amax pass; some must), and no card
+    tensor reaching the plain version (a spy on
     ``quantize_layout_ref``).  Then per ResNet-18 forward at b16, b3 and
     b1, over its stages: the device kernels of all its calls in one
     profile (exactly ``device_kernels``, nothing else: no memset, no
@@ -5221,7 +5258,7 @@ def quantize_phase(api, dev) -> dict:
     runs += [(f"{net}-{w}", net, WIDTHS[w], b)
              for net, b in QUANT_WIDTH_NETS for w in WIDTHS]
     out = dict(calls=0, err=0, runs=len(runs), recs={}, static=0, dyn=0,
-               requant=0)
+               requant=0, given=0)
     qmod.quantize_layout_ref = ref_spy
     try:
         for label, net, kw, b in runs:
@@ -5261,6 +5298,7 @@ def quantize_phase(api, dev) -> dict:
                       f"29 {label} b{b}: a quantize_layout call {qkw} "
                       f"differs from the plain version")
                 with_requant += len(got) == 3
+                out["given"] += "partials" in qkw
             check(with_requant == len(stages),
                   f"29 {label} b{b}: {with_requant} calls wrote the requant "
                   f"factor, for {len(stages)} stages")
@@ -5275,6 +5313,8 @@ def quantize_phase(api, dev) -> dict:
                                     for q in r["quants"]]
     finally:
         qmod.quantize_layout_ref = ref
+    check(out["given"] > 0, "29: no call took the partial maxima of its "
+          "input's epilogue")
     tie_gen = torch.Generator(device=dev).manual_seed(30)
     for shape, kw, K, view in QUANT_TIES:
         amax = 3.0

@@ -61,16 +61,16 @@ PATHS = {
     "multi-pass, 8192 a partial": {"ONE_LAUNCH_MAX": -1, "PART_ELEMS": 8192},
 }
 
-_TILES = "one_launch ? blocks * cluster : 2 * sm_count(), &T)"
+_TILES = "one_launch ? blocks * cluster : 2 * sms, &T)"
 _GRID = ("DependentLaunch ga(dim3(blocks_for(T.count, 1, MAX_BLOCKS)), "
          "smem, s);")
 VARIANTS = {
     "base": [],
-    "gather tiles 1 a SM": [(_TILES, _TILES.replace("2 * sm", "sm"))],
-    "gather tiles 4 a SM": [(_TILES, _TILES.replace("2 * sm", "4 * sm"))],
-    "gather tiles 8 a SM": [(_TILES, _TILES.replace("2 * sm", "8 * sm"))],
+    "gather tiles 1 a SM": [(_TILES, _TILES.replace("2 * sms", "sms"))],
+    "gather tiles 4 a SM": [(_TILES, _TILES.replace("2 * sms", "4 * sms"))],
+    "gather tiles 8 a SM": [(_TILES, _TILES.replace("2 * sms", "8 * sms"))],
     "gather grid 2 a SM": [(_GRID, _GRID.replace(
-        "MAX_BLOCKS", "2 * sm_count()"))],
+        "MAX_BLOCKS", "2 * sms"))],
     "unroll 8": [("constexpr int UNROLL = 4; ", "constexpr int UNROLL = 8; ")],
 }
 
@@ -163,8 +163,9 @@ def build(name: str, subs: list) -> ctypes.CDLL:
     with open(stem + ".cu", "w") as f:
         f.write(src)
     from repro_torch.kernels import _build
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", stem + ".so",
-                    stem + ".cu"], check=True, capture_output=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    os.path.dirname(CSRC), "-o", stem + ".so", stem + ".cu"],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(stem + ".so")
     for fn, types in qmod.SIGNATURES.items():
         getattr(lib, fn).argtypes = types
@@ -174,7 +175,9 @@ def build(name: str, subs: list) -> ctypes.CDLL:
 
 def executor_calls(dev) -> list:
     """(net, batch, stage, x, K, kwargs, plain version's outputs) of every
-    ``quantize_layout`` call of ``NETS``' eager forwards on the card."""
+    ``quantize_layout`` call of ``NETS``' eager forwards on the card,
+    without the partial maxima a call took from its input's epilogue (the
+    paths timed here reduce their own amax)."""
     import torch
     import chip_smoke as cs
     from repro_torch import api
@@ -188,6 +191,7 @@ def executor_calls(dev) -> list:
                             device=dev)
             for i, rec in enumerate(cs.record_stages(model, x)[1]):
                 for xin, K, kw, _ in rec["quants"]:
+                    kw = {k: v for k, v in kw.items() if k != "partials"}
                     calls.append((net, b, i, xin, K, kw,
                                   qmod.quantize_layout_ref(xin, K, **kw)))
     return calls

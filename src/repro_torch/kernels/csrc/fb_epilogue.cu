@@ -72,10 +72,25 @@
 // `rows_tap_kernel` (longer rows) are the row kernels' bodies
 // instantiated with the store, and calls without a tap launch the row
 // kernels as they were, with the same code.
+//
+// Partial maxima (`part`, non-null; no pool, no seq-mean): the call also
+// leaves, for the next stage's `quantize_layout`, one partial maximum a
+// block, max |v| over the values the block stored to out (the tap's
+// aside), by quantize_layout's own rule (fmaxf(m, fabsf(v)) from 0; a
+// maximum is exact in any order, so the amax reduced from them is the one
+// that call's own pass over out would find).  Every block writes its slot
+// on every launch, 0 where it stored nothing, so a graph replay never
+// reads a stale one.  Such a launch takes at most four waves of the
+// blocks the card holds at once, and at most kMaxGiven (in one wave the
+// walks ended unevenly: elementwise launches lost 4 to 7%), and its
+// blocks walk the rows grid-stride (each row's arithmetic, and the order
+// of its sums, as without).  A launch without `part` keeps its grid.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "partial_maxima.cuh"
 
 namespace {
 
@@ -98,7 +113,25 @@ struct Chain {
   int act;
   float post_scale;     // 0: off
   int heads;            // > 0: slices stored with the heads merged
+  float* part;          // null, or a partial max |out| a block (header)
 };
+
+constexpr int kThreads = 256;
+constexpr int kRowWarps = 8;             // rows a block, seq-mean's warps
+constexpr int kWarpRowMax = 1024;        // longest row a warp holds
+constexpr int kSeqSmemMax = 200 * 1024;  // seq-mean's token rows, at most
+constexpr long long kFill = 2 * 132;     // blocks that fill the H100
+constexpr int kPartWaves = 4;            // waves of resident blocks, at most
+// Blocks an SM holds of the elementwise kernel, and of a row kernel with
+// NV 32-column chunks a lane: register budgets (__launch_bounds__) that
+// keep the occupancy the kernels had with one pass a thread.  Over a
+// grid-stride walk the compiler otherwise keeps a lane's bias, gamma and
+// beta across rows (rows_warp_kernel<8, 4>: 38 -> 56 registers, 6 -> 4
+// blocks an SM), and every launch, with partial maxima or without, pays.
+constexpr int kElementwiseBlocks = 6;
+constexpr int row_blocks(int nv) {
+  return nv <= 4 ? 8 : nv <= 8 ? 6 : nv <= 16 ? 4 : 2;
+}
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   // 0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))), left to right
@@ -187,29 +220,63 @@ __device__ __forceinline__ void chain_v(const Chain& p, size_t off,
     out[j] = chain1(p, y[j], scale, bias[j], p.res ? res[j] : 0.0f);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// With p.part: the block's maximum of m, each thread's max |v| over the
+// values it stored, to the block's slot.  Every thread of the block calls
+// it; a block has at least 32 threads, so warp 0 is whole.
+__device__ __forceinline__ void write_part(const Chain& p, float m) {
+  if (!p.part) return;
+  __shared__ float red[kThreads];
+  const int threads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  red[tid] = m;
+  __syncthreads();
+  if (tid < 32) {
+    for (int i = tid + 32; i < threads; i += 32) m = fmaxf(m, red[i]);
+    m = warp_max(m);
+    if (tid == 0) p.part[blockIdx.y * gridDim.x + blockIdx.x] = m;
+  }
+}
+
 // blockDim (bx, by): thread x owns column group blockIdx.x * bx + x, and
 // rows blockIdx.y * by * rpt + y + k * by for k < rpt (grid-stride in y).
 template <int V>
-__global__ void elementwise_kernel(Chain p, int rpt) {
+__global__ void __launch_bounds__(kThreads, kElementwiseBlocks)
+elementwise_kernel(Chain p, int rpt) {
   const int G = p.N / V;
   const int cg = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cg >= G) return;
-  const int c = cg * V;
-  float bias[V] = {};
-  if (p.bias) load_f<V>(p.bias, c, bias);
-  const bool one_slice = p.slice_rows == p.M;
-  const float scale0 = *p.scale;
-  const int tile = blockDim.y * rpt;
-  for (long long r0 = (long long)blockIdx.y * tile; r0 < p.M;
-       r0 += (long long)gridDim.y * tile)
-    for (int k = 0; k < rpt; ++k) {
-      const long long r = r0 + threadIdx.y + (long long)k * blockDim.y;
-      if (r >= p.M) break;
-      const float scale = one_slice ? scale0 : p.scale[r / p.slice_rows];
-      float v[V];
-      chain_v<V>(p, (size_t)r * p.N + c, scale, bias, v);
-      store_f<V>(p.out, out_row(p, r) + c, v);
-    }
+  float m = 0.0f;
+  if (cg < G) {
+    const int c = cg * V;
+    float bias[V] = {};
+    if (p.bias) load_f<V>(p.bias, c, bias);
+    const bool one_slice = p.slice_rows == p.M;
+    const float scale0 = *p.scale;
+    const int tile = blockDim.y * rpt;
+    for (long long r0 = (long long)blockIdx.y * tile; r0 < p.M;
+         r0 += (long long)gridDim.y * tile)
+      for (int k = 0; k < rpt; ++k) {
+        const long long r = r0 + threadIdx.y + (long long)k * blockDim.y;
+        if (r >= p.M) break;
+        const float scale = one_slice ? scale0 : p.scale[r / p.slice_rows];
+        float v[V];
+        chain_v<V>(p, (size_t)r * p.N + c, scale, bias, v);
+        store_f<V>(p.out, out_row(p, r) + c, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) m = fmaxf(m, fabsf(v[j]));
+      }
+  }
+  write_part(p, m);
 }
 
 // blockDim (bx, by): thread x owns column group blockIdx.x * bx + x, and
@@ -251,17 +318,6 @@ __global__ void pool_kernel(Chain p, int pool, int window, int img_hw,
       for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(acc[j], inv);
     store_f<V>(p.out, (size_t)o * p.N + c, acc);
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // The first design's block sum, in one warp: that design gave a row W
@@ -328,15 +384,13 @@ __device__ __forceinline__ void warp_row(const Chain& p, long long r,
   }
 }
 
-// One warp per row (layer norm and / or softmax), blockDim.x / 32 rows a
-// block; with TAP the row before the layer norm to `tap`.
+// Row r of a warp-per-row call (layer norm and / or softmax), stored to
+// out; with TAP the row before the layer norm to `tap`.  Returns the
+// lane's max |v| over what it stored.
 template <int NV, int W, bool TAP>
-__device__ __forceinline__ void rows_warp(const Chain& p, int norm,
-                                          int softmax, float* tap) {
-  const int lane = threadIdx.x % 32;
-  const long long r = (long long)blockIdx.x * (blockDim.x / 32) +
-                      threadIdx.x / 32;
-  if (r >= p.M) return;
+__device__ __forceinline__ float warp_row_store(const Chain& p, long long r,
+                                                int lane, int norm,
+                                                int softmax, float* tap) {
   const int N = p.N;
   float x[NV];
   warp_row<NV, W, TAP>(p, r, lane, norm, x, tap);
@@ -354,20 +408,47 @@ __device__ __forceinline__ void rows_warp(const Chain& p, int norm,
     for (int k = 0; k < NV; ++k) x[k] = __fdiv_rn(x[k], s);
   }
   const size_t row = out_row(p, r);
+  float top = 0.0f;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = lane + 32 * k;
-    if (c < N) p.out[row + c] = x[k];
+    if (c < N) {
+      p.out[row + c] = x[k];
+      top = fmaxf(top, fabsf(x[k]));
+    }
   }
+  return top;
+}
+
+// One warp per row, blockDim.x / 32 rows a block, grid-stride.  Rows of at
+// most 64 columns without partial maxima take one row a warp, apart from
+// the walk: sharing its code cost them 12% (vit_tiny's 64-token scores);
+// wider rows keep one body, whose walk would spill if it had a second.
+template <int NV, int W, bool TAP>
+__device__ __forceinline__ void rows_warp(const Chain& p, int norm,
+                                          int softmax, float* tap) {
+  const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const long long r0 = (long long)blockIdx.x * warps + threadIdx.x / 32;
+  if (NV <= 2 && !p.part) {
+    if (r0 < p.M) warp_row_store<NV, W, TAP>(p, r0, lane, norm, softmax, tap);
+    return;
+  }
+  float top = 0.0f;
+  for (long long r = r0; r < p.M; r += (long long)gridDim.x * warps)
+    top = fmaxf(top, warp_row_store<NV, W, TAP>(p, r, lane, norm, softmax,
+                                                 tap));
+  write_part(p, top);
 }
 
 template <int NV, int W>
-__global__ void rows_warp_kernel(Chain p, int norm, int softmax) {
+__global__ void __launch_bounds__(kRowWarps * 32, row_blocks(NV))
+rows_warp_kernel(Chain p, int norm, int softmax) {
   rows_warp<NV, W, false>(p, norm, softmax, nullptr);
 }
 
 template <int NV, int W>
-__global__ void rows_warp_tap_kernel(Chain p, int norm, int softmax,
+__global__ void __launch_bounds__(kRowWarps * 32, row_blocks(NV))
+rows_warp_tap_kernel(Chain p, int norm, int softmax,
                                      float* tap) {
   rows_warp<NV, W, true>(p, norm, softmax, tap);
 }
@@ -421,11 +502,11 @@ __device__ float block_max(float v, float* red) {
   return m;
 }
 
-// Rows longer than 1024: one block per output row; `group` input rows per
-// output row (the sequence length for seq-mean, else 1).  Each thread
-// owns columns tid, tid + blockDim.x, ... of the shared row, so only the
-// reductions synchronise.  With TAP (group 1) the row before its layer
-// norm to `tap`.
+// Rows longer than 1024: a block per output row, grid-stride; `group`
+// input rows per output row (the sequence length for seq-mean, else 1).
+// Each thread owns columns tid, tid + blockDim.x, ... of the shared row,
+// so only the reductions synchronise.  With TAP (group 1) the row before
+// its layer norm to `tap`.
 template <bool TAP>
 __device__ __forceinline__ void rows_block(const Chain& p, int group,
                                            int norm, int softmax,
@@ -435,57 +516,64 @@ __device__ __forceinline__ void rows_block(const Chain& p, int group,
   float* row = smem;
   float* acc = smem + p.N;
   const int N = p.N;
-  const long long o = blockIdx.x;
-  if (seqmean)
-    for (int c = threadIdx.x; c < N; c += blockDim.x) acc[c] = 0.0f;
-  for (int t = 0; t < group; ++t) {
-    const long long r = o * group + t;
-    const float scale = row_scale(p, r);
-    for (int c = threadIdx.x; c < N; c += blockDim.x) {
-      row[c] = chain(p, r * N + c, c, scale);
-      if constexpr (TAP) tap[r * N + c] = row[c];
-    }
-    if (norm) {
-      float s = 0.0f;
-      for (int c = threadIdx.x; c < N; c += blockDim.x) s = __fadd_rn(s, row[c]);
-      const float mean = __fdiv_rn(block_sum(s, red), (float)N);
-      float q = 0.0f;
+  float top = 0.0f;
+  for (long long o = blockIdx.x; o < p.M / group; o += gridDim.x) {
+    if (seqmean)
+      for (int c = threadIdx.x; c < N; c += blockDim.x) acc[c] = 0.0f;
+    for (int t = 0; t < group; ++t) {
+      const long long r = o * group + t;
+      const float scale = row_scale(p, r);
       for (int c = threadIdx.x; c < N; c += blockDim.x) {
-        const float d = __fsub_rn(row[c], mean);
-        q = __fadd_rn(q, __fmul_rn(d, d));
+        row[c] = chain(p, r * N + c, c, scale);
+        if constexpr (TAP) tap[r * N + c] = row[c];
       }
-      const float var = __fdiv_rn(block_sum(q, red), (float)N);
-      const float den = __fsqrt_rn(__fadd_rn(var, kLnEps));
-      for (int c = threadIdx.x; c < N; c += blockDim.x)
-        row[c] = __fadd_rn(
-            __fmul_rn(__fdiv_rn(__fsub_rn(row[c], mean), den), p.gamma[c]),
-            p.beta[c]);
-    }
-    if (softmax) {
-      float m = -CUDART_INF_F;
-      for (int c = threadIdx.x; c < N; c += blockDim.x) m = fmaxf(m, row[c]);
-      m = block_max(m, red);
-      float s = 0.0f;
-      for (int c = threadIdx.x; c < N; c += blockDim.x) {
-        const float e = expf(__fsub_rn(row[c], m));
-        row[c] = e;
-        s = __fadd_rn(s, e);
+      if (norm) {
+        float s = 0.0f;
+        for (int c = threadIdx.x; c < N; c += blockDim.x)
+          s = __fadd_rn(s, row[c]);
+        const float mean = __fdiv_rn(block_sum(s, red), (float)N);
+        float q = 0.0f;
+        for (int c = threadIdx.x; c < N; c += blockDim.x) {
+          const float d = __fsub_rn(row[c], mean);
+          q = __fadd_rn(q, __fmul_rn(d, d));
+        }
+        const float var = __fdiv_rn(block_sum(q, red), (float)N);
+        const float den = __fsqrt_rn(__fadd_rn(var, kLnEps));
+        for (int c = threadIdx.x; c < N; c += blockDim.x)
+          row[c] = __fadd_rn(
+              __fmul_rn(__fdiv_rn(__fsub_rn(row[c], mean), den), p.gamma[c]),
+              p.beta[c]);
       }
-      s = block_sum(s, red);
-      for (int c = threadIdx.x; c < N; c += blockDim.x)
-        row[c] = __fdiv_rn(row[c], s);
+      if (softmax) {
+        float m = -CUDART_INF_F;
+        for (int c = threadIdx.x; c < N; c += blockDim.x)
+          m = fmaxf(m, row[c]);
+        m = block_max(m, red);
+        float s = 0.0f;
+        for (int c = threadIdx.x; c < N; c += blockDim.x) {
+          const float e = expf(__fsub_rn(row[c], m));
+          row[c] = e;
+          s = __fadd_rn(s, e);
+        }
+        s = block_sum(s, red);
+        for (int c = threadIdx.x; c < N; c += blockDim.x)
+          row[c] = __fdiv_rn(row[c], s);
+      }
+      if (seqmean) {
+        for (int c = threadIdx.x; c < N; c += blockDim.x)
+          acc[c] = __fadd_rn(acc[c], row[c]);
+      } else {
+        for (int c = threadIdx.x; c < N; c += blockDim.x) {
+          p.out[out_row(p, r) + c] = row[c];
+          top = fmaxf(top, fabsf(row[c]));
+        }
+      }
     }
-    if (seqmean) {
+    if (seqmean)
       for (int c = threadIdx.x; c < N; c += blockDim.x)
-        acc[c] = __fadd_rn(acc[c], row[c]);
-    } else {
-      for (int c = threadIdx.x; c < N; c += blockDim.x)
-        p.out[out_row(p, r) + c] = row[c];
-    }
+        p.out[o * N + c] = __fdiv_rn(acc[c], (float)group);
   }
-  if (seqmean)
-    for (int c = threadIdx.x; c < N; c += blockDim.x)
-      p.out[o * N + c] = __fdiv_rn(acc[c], (float)group);
+  write_part(p, top);
 }
 
 __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
@@ -496,12 +584,6 @@ __global__ void rows_kernel(Chain p, int group, int norm, int softmax,
 __global__ void rows_tap_kernel(Chain p, int norm, int softmax, float* tap) {
   rows_block<true>(p, 1, norm, softmax, 0, tap);
 }
-
-constexpr int kThreads = 256;
-constexpr int kRowWarps = 8;             // rows a block, seq-mean's warps
-constexpr int kWarpRowMax = 1024;        // longest row a warp holds
-constexpr int kSeqSmemMax = 200 * 1024;  // seq-mean's token rows, at most
-constexpr long long kFill = 2 * 132;     // blocks that fill the H100
 
 // (bx, by) for `groups` column groups: bx covers the groups (up to
 // `threads`), by the rest of the block.
@@ -514,16 +596,66 @@ unsigned clamp_y(long long blocks) {
   return (unsigned)(blocks < 1 ? 1 : (blocks > 65535 ? 65535 : blocks));
 }
 
+using partial_maxima::kMaxGiven;
+
+// Blocks of a launch that leaves partial maxima, at most, to *cap:
+// kPartWaves waves of those the card holds at once, at most kMaxGiven.
+template <typename K>
+cudaError_t part_blocks(K kernel, int threads, size_t smem, long long* cap) {
+  int sms = 0, per_sm = 0;
+  cudaError_t e = partial_maxima::sm_count(&sms);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks =
+      (long long)kPartWaves * (per_sm < 1 ? 1 : per_sm) * sms;
+  *cap = blocks < kMaxGiven ? blocks : kMaxGiven;
+  return cudaSuccess;
+}
+
+// With p.part: *blocks of a row kernel cut to part_blocks, and *parts the
+// partial maxima the launch leaves.
+template <typename K>
+cudaError_t row_grid(const Chain& p, K kernel, long long* blocks,
+                     int threads, size_t smem, int* parts) {
+  if (!p.part) return cudaSuccess;
+  long long cap = 0;
+  const cudaError_t e = part_blocks(kernel, threads, smem, &cap);
+  if (e != cudaSuccess) return e;
+  if (*blocks > cap) *blocks = cap;
+  *parts = (int)*blocks;
+  return cudaSuccess;
+}
+
 template <int V>
-int launch_elementwise(const Chain& p, cudaStream_t s) {
+int launch_elementwise(Chain p, cudaStream_t s, int* parts) {
   const int G = p.N / V;
-  const dim3 block = block_2d(G, kThreads);
+  dim3 block = block_2d(G, kThreads);
+  // a walk's column blocks take even widths: a narrow last one would end
+  // early and leave its slot idle (vit_s16's fc1: +5.8% -> +2.6%)
+  if (p.part && G > kThreads) {
+    const int n = (G + kThreads - 1) / kThreads;
+    block = dim3(((G + n - 1) / n + 31) / 32 * 32, 1);
+  }
   const long long gx = (G + block.x - 1) / block.x;
   int rpt = 8;                 // rows a thread, while the blocks fill the card
   while (rpt > 1 &&
          gx * ((p.M + (long long)block.y * rpt - 1) / (block.y * rpt)) < kFill)
     rpt /= 2;
-  const long long gy = (p.M + (long long)block.y * rpt - 1) / (block.y * rpt);
+  long long gy = (p.M + (long long)block.y * rpt - 1) / (block.y * rpt);
+  if (p.part) {                // at most part_blocks blocks
+    long long cap = 0;
+    const cudaError_t e = part_blocks(elementwise_kernel<V>,
+                                      (int)(block.x * block.y), 0, &cap);
+    if (e != cudaSuccess) return (int)e;
+    if (gx > cap) {
+      p.part = nullptr;        // more column blocks than slots: none
+    } else {
+      if (gy > cap / gx) gy = cap / gx;
+      *parts = (int)(gx * clamp_y(gy));
+    }
+  }
   elementwise_kernel<V><<<dim3((unsigned)gx, clamp_y(gy)), block, 0, s>>>(
       p, rpt);
   return (int)cudaGetLastError();
@@ -549,10 +681,13 @@ int launch_pool(const Chain& p, int pool, int window, int img_hw,
 
 template <int NV, int W>
 int launch_rows(const Chain& p, int norm, int softmax, int seqmean,
-                int window, float* tap, cudaStream_t s) {
+                int window, float* tap, cudaStream_t s, int* parts) {
+  long long blocks = ((long long)p.M + kRowWarps - 1) / kRowWarps;
   if (tap) {
-    const long long blocks = ((long long)p.M + kRowWarps - 1) / kRowWarps;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = row_grid(p, rows_warp_tap_kernel<NV, W>, &blocks,
+                                   kRowWarps * 32, 0, parts);
+    if (e != cudaSuccess) return (int)e;
     rows_warp_tap_kernel<NV, W><<<(unsigned)blocks, kRowWarps * 32, 0, s>>>(
         p, norm, softmax, tap);
   } else if (seqmean) {
@@ -568,8 +703,10 @@ int launch_rows(const Chain& p, int norm, int softmax, int seqmean,
     seqmean_kernel<NV, W><<<p.M / window, kRowWarps * 32, smem, s>>>(
         p, window, norm);
   } else {
-    const long long blocks = ((long long)p.M + kRowWarps - 1) / kRowWarps;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = row_grid(p, rows_warp_kernel<NV, W>, &blocks,
+                                   kRowWarps * 32, 0, parts);
+    if (e != cudaSuccess) return (int)e;
     rows_warp_kernel<NV, W><<<(unsigned)blocks, kRowWarps * 32, 0, s>>>(
         p, norm, softmax);
   }
@@ -579,21 +716,28 @@ int launch_rows(const Chain& p, int norm, int softmax, int seqmean,
 // NV = 32-column chunks a lane holds; W = the first design's warps for N
 // (64, 128 or 256 threads: N < 65, N < 256, else).
 int dispatch_rows(const Chain& p, int norm, int softmax, int seqmean,
-                  int window, float* tap, cudaStream_t s) {
+                  int window, float* tap, cudaStream_t s, int* parts) {
   const int N = p.N;
   if (N <= 32)
-    return launch_rows<1, 2>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<1, 2>(p, norm, softmax, seqmean, window, tap, s,
+                             parts);
   if (N <= 64)
-    return launch_rows<2, 2>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<2, 2>(p, norm, softmax, seqmean, window, tap, s,
+                             parts);
   if (N <= 128)
-    return launch_rows<4, 4>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<4, 4>(p, norm, softmax, seqmean, window, tap, s,
+                             parts);
   if (N < 256)
-    return launch_rows<8, 4>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<8, 4>(p, norm, softmax, seqmean, window, tap, s,
+                             parts);
   if (N <= 256)
-    return launch_rows<8, 8>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<8, 8>(p, norm, softmax, seqmean, window, tap, s,
+                             parts);
   if (N <= 512)
-    return launch_rows<16, 8>(p, norm, softmax, seqmean, window, tap, s);
-  return launch_rows<32, 8>(p, norm, softmax, seqmean, window, tap, s);
+    return launch_rows<16, 8>(p, norm, softmax, seqmean, window, tap, s,
+                              parts);
+  return launch_rows<32, 8>(p, norm, softmax, seqmean, window, tap, s,
+                            parts);
 }
 
 bool aligned16(const void* ptr) {
@@ -611,18 +755,26 @@ int fb_epilogue_rows_smem(int N, int seqmean) {
   return (int)(sizeof(float) * (size_t)N * (seqmean ? 2 : 1));
 }
 
+// Partial maxima a launch leaves, at most (the size of `part` below).
+int fb_epilogue_max_parts() { return kMaxGiven; }
+
 // pool: 0 none, 1 max, 2 avg, 3 seqmean.  bias / res / gamma / beta may be
 // null.  M counts the rows of all slices; each slice of slice_rows rows
 // has its own scale, and no pool window or sequence crosses a slice.
 // heads > 0 (no pool; the slice count a multiple of it): out is (S /
 // heads, slice_rows, heads * N), the heads merged.  tap, non-null (a
 // layer norm, no pool, no heads): the rows before the norm, (M, N).
+// part, non-null: room for fb_epilogue_max_parts() floats, where a call
+// with no pool leaves one partial max |out| a block; *parts (always
+// written) says how many (0: none, as from a pool or a seq-mean).
 int fb_epilogue(const void* y, const void* scale, const void* bias,
                 const void* res, const void* gamma, const void* beta,
                 void* out, void* tap, int M, int N, int slice_rows, int act,
                 float post_scale, int norm, int pool, int window, int img_hw,
-                int softmax, int heads, void* stream) {
+                int softmax, int heads, void* part, int* parts,
+                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  *parts = 0;
   if (heads < 0 || (heads > 0 && (pool != POOL_NONE ||
                                   (M / slice_rows) % heads != 0)))
     return (int)cudaErrorInvalidValue;
@@ -632,7 +784,7 @@ int fb_epilogue(const void* y, const void* scale, const void* bias,
           (const float*)res,  (const float*)gamma, (const float*)beta,
           (float*)out,        M,                   N,
           slice_rows,         act,                 post_scale,
-          heads};
+          heads,              pool == POOL_NONE ? (float*)part : nullptr};
   // 16-byte accesses where every row starts on 16 bytes
   const bool vec = N % 4 == 0 && aligned16(y) && aligned16(bias) &&
                    aligned16(res) && aligned16(gamma) && aligned16(beta) &&
@@ -654,7 +806,7 @@ int fb_epilogue(const void* y, const void* scale, const void* bias,
     float* t = (float*)tap;
     if (N <= kWarpRowMax &&
         (!seqmean || (long long)window * N * sizeof(float) <= kSeqSmemMax))
-      return dispatch_rows(p, norm, softmax, seqmean, window, t, s);
+      return dispatch_rows(p, norm, softmax, seqmean, window, t, s, parts);
     const int group = seqmean ? window : 1;
     const int smem = fb_epilogue_rows_smem(N, seqmean);
     if (smem > 48 * 1024) {
@@ -665,14 +817,21 @@ int fb_epilogue(const void* y, const void* scale, const void* bias,
       if (e != cudaSuccess) return (int)e;
     }
     const int row_threads = N >= 256 ? 256 : (N > 64 ? 128 : 64);
+    long long blocks = M / group;
+    const cudaError_t e =
+        t ? row_grid(p, rows_tap_kernel, &blocks, row_threads, smem, parts)
+          : row_grid(p, rows_kernel, &blocks, row_threads, smem, parts);
+    if (e != cudaSuccess) return (int)e;
     if (t)
-      rows_tap_kernel<<<M, row_threads, smem, s>>>(p, norm, softmax, t);
+      rows_tap_kernel<<<(unsigned)blocks, row_threads, smem, s>>>(
+          p, norm, softmax, t);
     else
-      rows_kernel<<<M / group, row_threads, smem, s>>>(p, group, norm,
-                                                       softmax, seqmean);
+      rows_kernel<<<(unsigned)blocks, row_threads, smem, s>>>(
+          p, group, norm, softmax, seqmean);
     return (int)cudaGetLastError();
   }
-  return vec ? launch_elementwise<4>(p, s) : launch_elementwise<1>(p, s);
+  return vec ? launch_elementwise<4>(p, s, parts)
+             : launch_elementwise<1>(p, s, parts);
 }
 
 const char* fb_epilogue_error_string(int err) {

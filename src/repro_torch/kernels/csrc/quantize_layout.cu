@@ -85,6 +85,14 @@
 //   after the first are programmatic dependent launches: they start while
 //   the pass before them runs, issue what does not depend on it (x's
 //   loads, the table) and wait in `dependency_wait`.
+// * No amax pass where the caller holds the partials already (`given`):
+//   a program's stage input was written one kernel earlier by the
+//   fb_epilogue of the stage before, which leaves one partial max |v| a
+//   block over all it stored (csrc/fb_epilogue.cu).  Where the call's one
+//   amax covers every element of x (rows, or a conv whose windows read
+//   every pixel), the quantize or image pass reduces those.  Such a pass
+//   issues x's loads before its `dependency_wait`, so it is launched as
+//   an ordinary kernel, after the epilogue that writes x has finished.
 // * A call whose covered input is small is one launch of thread-block
 //   clusters (up to 8 blocks, the portable size): the blocks of a cluster
 //   reduce a share each of |x|, exchange their maxima through distributed
@@ -97,15 +105,18 @@
 //   the wrapper decides from measurements (`plan`, ONE_LAUNCH_MAX).
 //
 // Kernels per call: one launch (small); amax partials + quantize into the
-// layout (rows); amax partials + image + gather (conv, k > 1).  The
-// wrapper (`kernels/quantize_layout.py`, `plan`) picks the path and says
-// how many kernels a call launches.  Nothing here allocates or
+// layout (rows); amax partials + image + gather (conv, k > 1); with the
+// partials given, quantize alone (rows) or image + gather (conv, k > 1).
+// The wrapper (`kernels/quantize_layout.py`, `plan`) picks the path and
+// says how many kernels a call launches.  Nothing here allocates or
 // synchronizes, so a CUDA graph captures every path.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
+
+#include "partial_maxima.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -117,6 +128,8 @@ constexpr int V = 16;                 // output columns (bytes) a word
 constexpr int UNROLL = 4;             // loads in flight a thread in a walk
 constexpr int MAX_CLUSTER = 8;        // the portable cluster size
 constexpr int MAX_PARTS = 1024;       // partial maxima a slice
+constexpr int MAX_GIVEN =             // partial maxima a caller may hold
+    partial_maxima::kMaxGiven;        // (fb_epilogue's, at most)
 constexpr int MAX_BLOCKS = 2048;      // blocks of a grid-stride pass
 constexpr int STAGE_BYTES = 32 * 1024;    // a tile's window, preferably
 constexpr int WINDOW_LIMIT = 65535;       // table entries are 16 bits
@@ -1014,18 +1027,6 @@ bool all_covered(int n, int k, int stride, int pad, int n_out) {
   return true;
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms < 1)
-      sms = 132;
-  }
-  return sms;
-}
-
 // The staged window of a tr x tw tile: its bytes, and its row pitch (a
 // multiple of 16; rows 128 bytes apart would share banks, so such a
 // pitch takes 16 more).
@@ -1102,9 +1103,11 @@ bool cluster_ok(int clusters, int cluster) {
 }
 
 // The rows path: one launch (`blocks` clusters of `cluster`, or a cluster
-// a slice), or `blocks` partial maxima a slice and the quantize pass.
+// a slice), or `blocks` partial maxima a slice and the quantize pass, or
+// (given, one slice) the quantize pass over `blocks` partials the caller
+// holds.
 int run_rows(const Rows& g, const Layout& L, const Result& res, int8_t* out,
-             float* partials, unsigned slices, int per_slice,
+             float* partials, int given, unsigned slices, int per_slice,
              unsigned rows_per, int one_launch, int blocks, int cluster,
              cudaStream_t s) {
   const long long words = (long long)rows_per * (L.kk / V);
@@ -1112,19 +1115,27 @@ int run_rows(const Rows& g, const Layout& L, const Result& res, int8_t* out,
     return (int)cudaErrorInvalidValue;
   if (one_launch) {
     const int clusters = per_slice ? (int)slices : blocks;
-    if (!cluster_ok(clusters, cluster)) return (int)cudaErrorInvalidValue;
+    if (given || !cluster_ok(clusters, cluster))
+      return (int)cudaErrorInvalidValue;
     ClusterLaunch cl(clusters * cluster, cluster, 0, s);
     const cudaError_t e = cudaLaunchKernelEx(&cl.cfg, one_rows_kernel, g, L,
                                              res, per_slice, rows_per, out);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   }
   const unsigned ys = per_slice ? slices : 1u;
-  if (blocks < 1 || blocks > MAX_PARTS || ys > 65535u || partials == nullptr)
+  if (blocks < 1 || blocks > (given ? MAX_GIVEN : MAX_PARTS) || ys > 65535u ||
+      partials == nullptr || (given && ys != 1u))
     return (int)cudaErrorInvalidValue;
+  const int cap = MAX_BLOCKS / (int)ys > 1 ? MAX_BLOCKS / (int)ys : 1;
+  const dim3 grid(blocks_for(words, THREADS, cap), ys);
+  if (given) {                         // x's writer has finished
+    quantize_rows_kernel<<<grid, THREADS, 0, s>>>(
+        g, L, res, (const float*)partials, blocks, rows_per, out);
+    return (int)cudaGetLastError();
+  }
   partials_rows_kernel<<<dim3(blocks, ys), THREADS, 0, s>>>(g, rows_per,
                                                            partials);
-  const int cap = MAX_BLOCKS / (int)ys > 1 ? MAX_BLOCKS / (int)ys : 1;
-  DependentLaunch q(dim3(blocks_for(words, THREADS, cap), ys), 0, s);
+  DependentLaunch q(grid, 0, s);
   const cudaError_t e =
       cudaLaunchKernelEx(&q.cfg, quantize_rows_kernel, g, L, res,
                          (const float*)partials, blocks, rows_per, out);
@@ -1146,16 +1157,18 @@ extern "C" {
 // offset below 2^31; out (N*OH*OW, kk) int8, 16-byte aligned; amax one
 // float32; requant null or one float32 (then w_amax one float32).
 // one_launch: `blocks` clusters of `cluster` blocks; otherwise `blocks`
-// partial maxima in `partials`, and for k > 1 the N*H*W*C-byte image and
-// the kk-entry table as scratch.  Returns cudaGetLastError().
+// partial maxima in `partials` (given: already there, max |x| over every
+// element of x, whose every pixel some window reads), and for k > 1 the
+// N*H*W*C-byte image and the kk-entry table as scratch.  Returns
+// cudaGetLastError().
 int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
                          const void* w_amax, float req_c, void* partials,
-                         void* image, void* table, int N, int H, int W, int C,
-                         int sn, int sh, int sw, int sc, int k, int stride,
-                         int pad, int OH, int OW, int kc, int kk, int rows,
-                         int r32, int exact, int qmax, float inv_qmax,
-                         int one_launch, int blocks, int cluster,
-                         void* stream) {
+                         int given, void* image, void* table, int N, int H,
+                         int W, int C, int sn, int sh, int sw, int sc, int k,
+                         int stride, int pad, int OH, int OW, int kc, int kk,
+                         int rows, int r32, int exact, int qmax,
+                         float inv_qmax, int one_launch, int blocks,
+                         int cluster, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Layout L{kc, kk, rows, r32, exact};
   if (!layout_ok(L, out) || kc != C * k * k || (requant && !w_amax))
@@ -1171,22 +1184,32 @@ int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
   if (k == 1) {                       // no tap repeats: rows are pixels
     const Rows g{(const float*)x, 1, sn, sh, sw, sc, 1, 1, N * OH * OW,
                  H, W, stride, pad, OH, OW, C, vec ? 1 : 0, 0};
-    return run_rows(g, L, res, (int8_t*)out, (float*)partials, 1u, 0,
+    if (given && !(all_covered(H, 1, stride, pad, OH) &&
+                   all_covered(W, 1, stride, pad, OW)))
+      return (int)cudaErrorInvalidValue;
+    return run_rows(g, L, res, (int8_t*)out, (float*)partials, given, 1u, 0,
                     (unsigned)(N * OH * OW), one_launch, blocks, cluster, s);
   }
+  const bool every = all_covered(H, k, stride, pad, OH) &&
+                     all_covered(W, k, stride, pad, OW);
   const bool cont = sc == 1 && sw == C && sh == W * C && sn == H * W * C;
-  const bool flat = cont && all_covered(H, k, stride, pad, OH) &&
-                    all_covered(W, k, stride, pad, OW);
+  const bool flat = cont && every;
   const bool walk4 = flat ? elems % 4 == 0 && aligned16(x) : vec;
   const Conv g{(const float*)x, sn, sh, sw, sc, N, H, W, C, k, stride, pad,
                OH, OW, vec ? 1 : 0, cont ? 1 : 0, flat ? 1 : 0,
                walk4 ? 1 : 0};
-  if (one_launch ? !cluster_ok(blocks, cluster)
-                 : blocks < 1 || blocks > MAX_PARTS || !partials || !image ||
-                       !aligned16(table))
+  if (one_launch ? given || !cluster_ok(blocks, cluster)
+                 : blocks < 1 || blocks > (given ? MAX_GIVEN : MAX_PARTS) ||
+                       !partials || !image || !aligned16(table) ||
+                       (given && !every))
     return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (!one_launch) {
+    const cudaError_t e = partial_maxima::sm_count(&sms);
+    if (e != cudaSuccess) return (int)e;
+  }
   Tile T;      // one launch: a tile a block; the gather: 2 blocks a SM
-  if (!choose_tile(g, one_launch ? blocks * cluster : 2 * sm_count(), &T))
+  if (!choose_tile(g, one_launch ? blocks * cluster : 2 * sms, &T))
     return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)kk + (size_t)T.rp * ((T.tr - 1) * stride + k);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -1200,13 +1223,21 @@ int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
   }
   static const cudaError_t allowed = allow_smem(gather_kernel);
   if (allowed != cudaSuccess) return (int)allowed;
-  partials_conv_kernel<<<blocks, THREADS, 0, s>>>(g, (float*)partials);
   const long long items = elems / (walk4 ? 4 : 1);
-  DependentLaunch im(dim3(blocks_for(items, THREADS * UNROLL, MAX_BLOCKS)), 0,
-                     s);
-  cudaError_t e = cudaLaunchKernelEx(&im.cfg, image_kernel, g, L, T.rp, res,
-                                     (const float*)partials, blocks,
-                                     (int8_t*)image, (unsigned short*)table);
+  const dim3 image_grid(blocks_for(items, THREADS * UNROLL, MAX_BLOCKS));
+  cudaError_t e;
+  if (given) {                         // x's writer has finished
+    image_kernel<<<image_grid, THREADS, 0, s>>>(
+        g, L, T.rp, res, (const float*)partials, blocks, (int8_t*)image,
+        (unsigned short*)table);
+    e = cudaGetLastError();
+  } else {
+    partials_conv_kernel<<<blocks, THREADS, 0, s>>>(g, (float*)partials);
+    DependentLaunch im(image_grid, 0, s);
+    e = cudaLaunchKernelEx(&im.cfg, image_kernel, g, L, T.rp, res,
+                           (const float*)partials, blocks, (int8_t*)image,
+                           (unsigned short*)table);
+  }
   if (e != cudaSuccess) return (int)e;
   DependentLaunch ga(dim3(blocks_for(T.count, 1, MAX_BLOCKS)), smem, s);
   e = cudaLaunchKernelEx(&ga.cfg, gather_kernel, g, L, T,
@@ -1221,14 +1252,16 @@ int quantize_layout_conv(const void* x, void* out, void* amax, void* requant,
 // the conv entry, or per_slice A*B floats, the plain product with w_amax
 // A*B floats and req_c f32(1/qw).  one_launch: a cluster of `cluster` a
 // slice (per_slice) or `blocks` clusters; otherwise `blocks` partial
-// maxima a slice in `partials`.  Returns cudaGetLastError().
+// maxima a slice in `partials` (given, one amax: already there, max |x|
+// over every element of x).  Returns cudaGetLastError().
 int quantize_layout_strided(const void* x, void* out, void* amax,
                             void* requant, const void* w_amax, float req_c,
-                            void* partials, int A, int B, int R, int kc,
-                            int sa, int sb, int sr, int sk, int per_slice,
-                            int kk, int rows, int r32, int exact, int qmax,
-                            float inv_qmax, int one_launch, int blocks,
-                            int cluster, void* stream) {
+                            void* partials, int given, int A, int B, int R,
+                            int kc, int sa, int sb, int sr, int sk,
+                            int per_slice, int kk, int rows, int r32,
+                            int exact, int qmax, float inv_qmax,
+                            int one_launch, int blocks, int cluster,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Layout L{kc, kk, rows, r32, exact};
   const long long slices = (long long)A * B;
@@ -1243,7 +1276,7 @@ int quantize_layout_strided(const void* x, void* out, void* amax,
   const Rows g{(const float*)x, 0, sa, sb, sr, sk, A, B, R, 0, 0, 1, 0, 0, 0,
                kc, vec ? 1 : 0, flat ? 1 : 0};
   const unsigned rows_per = per_slice ? (unsigned)R : (unsigned)(slices * R);
-  return run_rows(g, L, res, (int8_t*)out, (float*)partials,
+  return run_rows(g, L, res, (int8_t*)out, (float*)partials, given,
                   (unsigned)slices, per_slice, rows_per, one_launch, blocks,
                   cluster, s);
 }

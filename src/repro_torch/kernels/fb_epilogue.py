@@ -23,6 +23,14 @@ of a pre-norm block, stored in the same pass beside the normalized row
 (``program.compile.CrossbarProgram.taps``); calls without a tap launch
 the kernels they launched before it existed.
 
+With ``partials=True`` the call also returns, last, the partial maxima
+of ``|out|`` it left for the next stage's ``quantize_layout``: a float32
+vector whose maximum is ``max |out|`` (one a block of the kernel, at
+most ``fb_epilogue_max_parts()``; one on the CPU), or None where the
+chain pools or takes a sequence mean (those kernels leave none).
+``quantize_layout`` then reduces them in place of its own pass over
+``out``: a maximum is exact in any order, so its amax is the same.
+
 For a CUDA tensor ``fb_epilogue`` launches the hand-written kernel in
 ``csrc/fb_epilogue.cu`` (its header says what bounds it on the H100) and
 counts it in ``launches.fb_epilogue`` (``repro_torch.trace``); for a CPU
@@ -154,6 +162,20 @@ def merge_heads(ctx: torch.Tensor, heads: int) -> torch.Tensor:
             .reshape(B, T, heads * hd))
 
 
+def _outputs(out, tapped, parts, *, tap: bool, partials: bool):
+    """``out``, then the tap and the partial maxima where asked."""
+    extra = (tapped,) * tap + (parts,) * partials
+    return (out, *extra) if extra else out
+
+
+def split_outputs(got, *, tap: bool = False, partials: bool = False
+                  ) -> tuple:
+    """An ``fb_epilogue`` result of a call with these ``tap`` and
+    ``partials`` -> ``(out, tap or None, partial maxima or None)``."""
+    got = tuple(got) if tap or partials else (got,)
+    return (got[0], got[1] if tap else None, got[-1] if partials else None)
+
+
 def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor | None,
                     residual: torch.Tensor | None = None, *,
@@ -162,7 +184,7 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
                     norm: str = "none", gamma: torch.Tensor | None = None,
                     beta: torch.Tensor | None = None,
                     post_scale: float = 0.0, heads: int = 0,
-                    tap: bool = False):
+                    tap: bool = False, partials: bool = False):
     """The plain PyTorch composition the kernel must equal.
 
     Average pooling sums each window in row-major order and multiplies
@@ -171,7 +193,8 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
     ``scale``; no pool window or sequence crosses a slice, so the rest
     of the chain runs on the (S*M, N) rows.  With ``tap`` it returns
     ``(out, tap)``, ``tap`` the rows before the layer norm, shaped as
-    ``y``.
+    ``y``; with ``partials`` one partial maximum last, ``max |out|``
+    (None where the chain pools, as the kernel's).
     """
     N = y.shape[-1]
     out = dequant(y, scale.reshape(-1, 1, 1) if y.dim() == 3
@@ -198,9 +221,12 @@ def fb_epilogue_ref(y: torch.Tensor, scale: torch.Tensor,
     if softmax:
         out = softmax_rows(out)
     out = out.reshape(*y.shape[:-2], -1, N)
-    if tap:
-        return out, tapped
-    return merge_heads(out, heads) if heads else out
+    if heads:
+        out = merge_heads(out, heads)
+    parts = None
+    if partials and pool == "none" and out.numel():
+        parts = out.abs().amax().reshape(1)
+    return _outputs(out, tapped, parts, tap=tap, partials=partials)
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +238,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fb_epilogue")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fb_epilogue.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i,
-                                i, i, i, i, p]
+                                i, i, i, i, p, ctypes.POINTER(i), p]
     lib.fb_epilogue.restype = i
     lib.fb_epilogue_rows_smem.argtypes = [i, i]
     lib.fb_epilogue_rows_smem.restype = i
+    lib.fb_epilogue_max_parts.argtypes = []
+    lib.fb_epilogue_max_parts.restype = i
     return lib
 
 
@@ -232,7 +260,7 @@ def _operand(t: torch.Tensor | None, name: str, dtype: torch.dtype,
 
 
 def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
-            norm, gamma, beta, post_scale, heads, tap):
+            norm, gamma, beta, post_scale, heads, tap, partials):
     M, N = y.shape[-2:]
     S = y.shape[0] if y.dim() == 3 else 1
     lead = y.shape[:-2]
@@ -263,20 +291,25 @@ def _launch(y, scale, bias, residual, *, act, pool, window, img_hw, softmax,
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     tapped = torch.empty_like(y, dtype=torch.float32) if tap else None
     if out.numel() == 0:
-        return (out, tapped) if tap else out
+        return _outputs(out, tapped, None, tap=tap, partials=partials)
     lib = _lib()
     if lib.fb_epilogue_rows_smem(N, int(pool == "seqmean")) > _MAX_SMEM:
         raise ValueError(f"fb_epilogue: a {N}-column row does not fit a "
                          "block's shared memory")
+    part = (torch.empty(lib.fb_epilogue_max_parts(), dtype=torch.float32,
+                        device=dev) if partials else None)
+    n_parts = ctypes.c_int(0)
     err = lib.fb_epilogue(*ptrs, out.data_ptr(),
                           None if tapped is None else tapped.data_ptr(),
                           S * M, N, M, _ACTS[act],
                           float(post_scale), int(has_norm), _POOLS[pool],
                           int(window), int(img_hw), int(softmax), int(heads),
-                          _build.stream_handle())
+                          None if part is None else part.data_ptr(),
+                          ctypes.byref(n_parts), _build.stream_handle())
     _build.check(lib, "fb_epilogue", err)
     trace.count("launches.fb_epilogue")
-    return (out, tapped) if tap else out
+    parts = part[:n_parts.value] if n_parts.value else None
+    return _outputs(out, tapped, parts, tap=tap, partials=partials)
 
 
 def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
@@ -286,7 +319,8 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
                 softmax: bool = False, norm: str = "none",
                 gamma: torch.Tensor | None = None,
                 beta: torch.Tensor | None = None,
-                post_scale: float = 0.0, heads: int = 0, tap: bool = False):
+                post_scale: float = 0.0, heads: int = 0, tap: bool = False,
+                partials: bool = False):
     """y (M, N) int32 crossbar output -> fused FB chain -> f32.
 
     ``scale`` is the (1, 1) f32 requant factor, ``bias`` (N,) or None; a
@@ -300,8 +334,9 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
     ``layer_norm_rows`` with ``gamma``/``beta`` (N,); ``softmax=True``
     normalizes each row.  ``tap=True`` returns ``(out, tap)``: ``tap``
     (shaped as ``y``, f32) the rows before the layer norm, stored by the
-    same launch.  CUDA tensors run the kernel, CPU tensors the plain
-    version.
+    same launch.  ``partials=True`` appends the partial maxima of
+    ``|out|`` (module docstring), or None.  CUDA tensors run the kernel,
+    CPU tensors the plain version.
     """
     if y.dim() not in (2, 3):
         raise ValueError(f"fb_epilogue: y must be (M, N) or (S, M, N), got "
@@ -311,7 +346,8 @@ def fb_epilogue(y: torch.Tensor, scale: torch.Tensor,
                  heads=heads, tap=tap)
     kw = dict(act=act, pool=pool, window=window, img_hw=img_hw,
               softmax=softmax, norm=norm, gamma=gamma, beta=beta,
-              post_scale=post_scale, heads=heads, tap=tap)
+              post_scale=post_scale, heads=heads, tap=tap,
+              partials=partials)
     if y.is_cuda:
         return _launch(y, scale, bias, residual, **kw)
     return fb_epilogue_ref(y, scale, bias, residual, **kw)

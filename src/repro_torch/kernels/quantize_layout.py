@@ -64,7 +64,13 @@ how many device kernels a call launches:
   taps: 1x1 convs, the views), or, for a conv with k > 1, a pass that
   quantizes the covered input into an int8 image and a pass that gathers
   the patch rows from it: 2 or 3 kernels, the later ones programmatic
-  dependent launches.
+  dependent launches;
+* with ``partials=``, the partial maxima of ``|x|`` that the kernel
+  which wrote ``x`` left (``fb_epilogue(..., partials=True)``), no amax
+  pass: the quantize pass, or the image and the gather, reduce those (1
+  or 2 kernels).  Only a call with one amax over every element of ``x``
+  on the multi-pass path takes them (``takes_partials``); the bytes an
+  amax pass reads are ``amax_pass_bytes``.
 
 No path memsets or reads a value back to the host; scratch comes from
 torch's allocator, so a CUDA graph's pool holds it.
@@ -123,6 +129,9 @@ AMAX_PER_BLOCK = 2048        # covered elements a block reduces (one
 PART_ELEMS = 4096            # covered elements a partial maximum
 MAX_PARTS = 1024             # partial maxima a call (the kernel's cap a
                              # slice)
+MAX_GIVEN = 4096             # partial maxima a call may be given (the most
+                             # an fb_epilogue launch leaves: kMaxGiven of
+                             # csrc/partial_maxima.cuh)
 
 
 def qmax(bits: int) -> int:
@@ -244,11 +253,16 @@ def quantize_layout_ref(x: torch.Tensor, K: int, *, bits: int = 8,
                         conv: tuple[int, int, int] | None = None,
                         per_slice: bool = False,
                         w_amax: torch.Tensor | None = None,
-                        weight_bits: int = 8) -> tuple[torch.Tensor, ...]:
+                        weight_bits: int = 8,
+                        partials: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, ...]:
     """The plain version, in the kernel's order: the amax over the
     covered elements (strided views of ``x``), each element quantized
     once (a conv's input as an int8 image), then gathered and scattered
-    into the layout; with ``w_amax`` the requant factor beside them."""
+    into the layout; with ``w_amax`` the requant factor beside them.
+    ``partials`` are taken and left aside: their maximum is the amax
+    this reduces."""
+    del partials
     kc, _ = _geometry(x, K, conv)
     _check_requant(x, conv, w_amax, per_slice)
     q_max = qmax(bits)
@@ -309,16 +323,43 @@ class Plan(NamedTuple):
     image: bool        # an int8 image and a column table as scratch
 
 
-def _covered_elems(x: torch.Tensor,
+def _covered_elems(shape: tuple,
                    conv: tuple[int, int, int] | None) -> int:
     """Elements the amax reads: a conv's covered pixels, or all of x."""
     if conv is None:
-        return x.numel()
-    n, h, w, c = x.shape
+        return int(np.prod(shape))
+    n, h, w, c = shape
 
     def count(size):
         return sum(len(range(size)[sl]) for sl in covered(size, *conv))
     return n * count(h) * count(w) * c
+
+
+def _one_launch(elems: int, conv: tuple[int, int, int] | None) -> bool:
+    """The one-launch path: at most ``ONE_LAUNCH_MAX`` covered elements
+    (a slice's, per slice), and no 1x1 conv."""
+    return elems <= ONE_LAUNCH_MAX and (conv is None or conv[0] > 1)
+
+
+def takes_partials(shape: tuple, conv: tuple[int, int, int] | None = None,
+                   per_slice: bool = False) -> bool:
+    """Whether a call on an ``x`` of ``shape`` may take its amax from
+    partial maxima over every element of ``x`` (``partials=``): one amax
+    (not per slice) over all of ``x`` (a view's rows, or a conv whose
+    windows read every pixel), on the multi-pass path (at most
+    ``ONE_LAUNCH_MAX`` elements take one launch, which reduces its own).
+    From the geometry alone."""
+    if per_slice or (conv is not None and len(shape) != 4):
+        return False
+    elems = _covered_elems(tuple(shape), conv)
+    return elems == int(np.prod(shape)) and not _one_launch(elems, conv)
+
+
+def _check_takes(x: torch.Tensor, conv, per_slice: bool) -> None:
+    if not takes_partials(x.shape, conv, per_slice):
+        raise ValueError(f"quantize_layout: a call on {tuple(x.shape)} "
+                         f"(conv {conv}, per_slice {per_slice}) reduces its "
+                         "own amax; it takes no partial maxima")
 
 
 def _pow2_at_least(n: int) -> int:
@@ -327,7 +368,7 @@ def _pow2_at_least(n: int) -> int:
 
 def plan(x: torch.Tensor, K: int, *, rows: int = 512, adc_bits: int = 9,
          conv: tuple[int, int, int] | None = None,
-         per_slice: bool = False) -> Plan:
+         per_slice: bool = False, partials: int = 0) -> Plan:
     """The kernel's path for a call, from its geometry alone (``x``'s
     shape).  Where the covered input (a slice's, per slice) holds at most
     ``ONE_LAUNCH_MAX`` elements and the call is no 1x1 conv, one launch:
@@ -338,14 +379,18 @@ def plan(x: torch.Tensor, K: int, *, rows: int = 512, adc_bits: int = 9,
     covered elements a block need (at most ``CLUSTER``; a cluster of one
     needs no barrier).  Otherwise ``PART_ELEMS`` covered elements a
     partial maximum, then one pass (rows) or two (a conv with k > 1: the
-    image, the gather)."""
+    image, the gather); with ``partials`` given partial maxima (their
+    count; ``takes_partials`` must hold), those passes alone."""
     _, lead = _geometry(x, K, conv)
     kk = call_layout(K, rows, adc_bits).kk
     slices = _slices(x, conv, per_slice)
-    elems = _covered_elems(x, conv) // slices
+    elems = _covered_elems(tuple(x.shape), conv) // slices
     words = int(np.prod(lead)) * (kk // 16) // slices
     image = conv is not None and conv[0] > 1
-    if elems <= ONE_LAUNCH_MAX and (conv is None or conv[0] > 1):
+    if partials:
+        _check_takes(x, conv, per_slice)
+        return Plan(False, 2 if image else 1, partials, 1, image)
+    if _one_launch(elems, conv):
         if per_slice:
             need = max(-(-elems // SLICE_PER_BLOCK),
                        -(-words // WORDS_PER_BLOCK))
@@ -357,17 +402,35 @@ def plan(x: torch.Tensor, K: int, *, rows: int = 512, adc_bits: int = 9,
     return Plan(False, 3 if image else 2, parts, 1, image)
 
 
+def _plan_of(x: torch.Tensor, K: int, kw: dict) -> Plan | None:
+    """``plan`` of a ``quantize_layout(x, K, **kw)`` call, or None for
+    an empty operand (no kernel)."""
+    geo = {k: v for k, v in kw.items()
+           if k in ("rows", "adc_bits", "conv", "per_slice")}
+    if kw.get("partials") is not None:
+        geo["partials"] = kw["partials"].numel()
+    _, lead = _geometry(x, K, geo.get("conv"))
+    return plan(x, K, **geo) if int(np.prod(lead)) else None
+
+
 def device_kernels(x: torch.Tensor, K: int, **kw) -> int:
     """Device kernels one ``quantize_layout(x, K, **kw)`` call launches on
     the card (``plan``; none for an empty operand).  ``kw`` as
     ``quantize_layout`` takes them; ``bits``, ``w_amax`` and
     ``weight_bits`` do not change the count."""
-    geo = {k: v for k, v in kw.items()
-           if k in ("rows", "adc_bits", "conv", "per_slice")}
-    _, lead = _geometry(x, K, geo.get("conv"))
-    if int(np.prod(lead)) == 0:
+    pl = _plan_of(x, K, kw)
+    return 0 if pl is None else pl.kernels
+
+
+def amax_pass_bytes(x: torch.Tensor, K: int, **kw) -> int:
+    """The float32 bytes of ``x`` that a separate amax pass of one
+    ``quantize_layout(x, K, **kw)`` call reads on the card: its covered
+    elements on the multi-pass path, none where it takes one launch or
+    is given the partial maxima."""
+    pl = _plan_of(x, K, kw)
+    if pl is None or pl.one_launch or kw.get("partials") is not None:
         return 0
-    return plan(x, K, **geo).kernels
+    return 4 * _covered_elems(tuple(x.shape), kw.get("conv"))
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +440,9 @@ def device_kernels(x: torch.Tensor, K: int, **kw) -> int:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entries' parameters (``csrc/quantize_layout.cu``'s extern "C")
 SIGNATURES = {
-    "quantize_layout_conv": [_P, _P, _P, _P, _P, _F, _P, _P, _P, *[_I] * 19,
-                             _F, _I, _I, _I, _P],
-    "quantize_layout_strided": [_P, _P, _P, _P, _P, _F, _P, *[_I] * 14, _F,
+    "quantize_layout_conv": [_P, _P, _P, _P, _P, _F, _P, _I, _P, _P,
+                             *[_I] * 19, _F, _I, _I, _I, _P],
+    "quantize_layout_strided": [_P, _P, _P, _P, _P, _F, _P, *[_I] * 15, _F,
                                 _I, _I, _I, _P],
 }
 
@@ -408,7 +471,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple,
             lay: CallLayout, *, bits: int, adc_bits: int, conv,
-            per_slice: bool, w_amax: torch.Tensor | None, weight_bits: int
+            per_slice: bool, w_amax: torch.Tensor | None, weight_bits: int,
+            partials: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, ...]:
     kk = lay.kk
     out = torch.empty(*lead, kk, dtype=torch.int8, device=x.device)
@@ -431,10 +495,11 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple,
     if n_slices > 65535:
         raise ValueError(f"quantize_layout: {n_slices} slices exceed the "
                          "grid's y limit of 65535")
+    given = partials is not None
     pl = plan(x, K, rows=lay.rows, adc_bits=adc_bits, conv=conv,
-              per_slice=per_slice)
-    partials = image = table = None
-    if not pl.one_launch:
+              per_slice=per_slice, partials=partials.numel() if given else 0)
+    image = table = None
+    if not pl.one_launch and not given:
         partials = torch.empty(pl.blocks * (n_slices if per_slice else 1),
                                dtype=torch.float32, device=x.device)
     if pl.image:
@@ -444,7 +509,7 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple,
     req_c = inv_qmax(weight_bits) if per_slice else requant_c(bits,
                                                               weight_bits)
     head = (x.data_ptr(), out.data_ptr(), amax.data_ptr(), _ptr(requant),
-            _ptr(w_amax), req_c, _ptr(partials))
+            _ptr(w_amax), req_c, _ptr(partials), int(given))
     layout = (kk, lay.rows, lay.rows32, int(lay.exact), qmax(bits),
               inv_qmax(bits), int(pl.one_launch), pl.blocks, pl.cluster,
               _build.stream_handle())
@@ -466,12 +531,32 @@ def _launch(x: torch.Tensor, K: int, kc: int, lead: tuple,
     return (out, amax) if requant is None else (out, amax, requant)
 
 
+def _check_partials(x: torch.Tensor, conv, per_slice: bool,
+                    partials: torch.Tensor | None) -> None:
+    """``partials``: 1 to ``MAX_GIVEN`` contiguous float32 on ``x``'s
+    device, for a contiguous ``x`` (a buffer whole, as its writer left
+    it) of a call that ``takes_partials``."""
+    if partials is None:
+        return
+    _check_takes(x, conv, per_slice)
+    if (partials.dtype != torch.float32 or partials.dim() != 1
+            or not 1 <= partials.numel() <= MAX_GIVEN
+            or partials.device != x.device or not partials.is_contiguous()
+            or not x.is_contiguous()):
+        raise ValueError(f"quantize_layout: partials are 1 to {MAX_GIVEN} "
+                         f"contiguous float32 on {x.device} for a contiguous "
+                         f"x, got {tuple(partials.shape)} {partials.dtype} "
+                         f"on {partials.device}")
+
+
 def quantize_layout(x: torch.Tensor, K: int, *, bits: int = 8,
                     rows: int = 512, adc_bits: int = 9,
                     conv: tuple[int, int, int] | None = None,
                     per_slice: bool = False,
                     w_amax: torch.Tensor | None = None,
-                    weight_bits: int = 8) -> tuple[torch.Tensor, ...]:
+                    weight_bits: int = 8,
+                    partials: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, ...]:
     """A stage's float32 input -> (int8 operand in the kernel layout of a
     ``crossbar_gemm`` call of contraction length ``K``, f32 amax), and
     with ``w_amax`` the requant factor third: (1, 1), or per slice (S, 1,
@@ -483,16 +568,20 @@ def quantize_layout(x: torch.Tensor, K: int, *, bits: int = 8,
     pad)`` takes NHWC ``x`` through its patches; otherwise the last two
     dims of ``x`` are the operand's (R, k), any leading ones its slices,
     and ``per_slice=True`` gives each slice its own amax (and takes one
-    ``w_amax`` a slice). CUDA tensors run the kernel, CPU tensors the
-    plain version.
+    ``w_amax`` a slice).  ``partials``, the partial maxima of ``|x|``
+    over every element of ``x`` that its writer left, stand for the amax
+    pass where ``takes_partials`` holds (else ValueError). CUDA tensors
+    run the kernel, CPU tensors the plain version (which reduces its own
+    amax: the same maximum).
     """
     kc, lead = _geometry(x, K, conv)
     _check_requant(x, conv, w_amax, per_slice)
+    _check_partials(x, conv, per_slice, partials)
     if x.is_cuda:
         return _launch(x, K, kc, lead, call_layout(K, rows, adc_bits),
                        bits=bits, adc_bits=adc_bits, conv=conv,
                        per_slice=per_slice, w_amax=w_amax,
-                       weight_bits=weight_bits)
+                       weight_bits=weight_bits, partials=partials)
     return quantize_layout_ref(x, K, bits=bits, rows=rows, adc_bits=adc_bits,
                                conv=conv, per_slice=per_slice, w_amax=w_amax,
                                weight_bits=weight_bits)

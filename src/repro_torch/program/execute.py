@@ -17,7 +17,11 @@ stage (``_static_stage``):
   ``layout.zero_k_bytes`` (``ZERO_K_BYTES``), and on the exact branch
   the bytes of it the GEMM's plan loads (``kernels.crossbar_gemm.
   x_load_bytes``: once a column tile) in ``gemm.x_load_bytes``
-  (``X_LOAD_BYTES``);
+  (``X_LOAD_BYTES``).  Where the call reduces one amax over every element
+  of a buffer an epilogue wrote (``kernels.quantize_layout.
+  takes_partials``: rows of the buffer whole, or a conv whose windows
+  read every pixel, on the multi-pass path), it takes the partial maxima
+  of ``|buffer|`` that epilogue left in place of its own amax pass;
 * one ``crossbar_gemm`` call activates every mount of the stage (each K
   chunk of ``tile_rows`` rows is one array read), on ``wt`` and that K;
 * one ``fb_epilogue`` call runs the whole post-op chain (requant, bias,
@@ -25,10 +29,16 @@ stage (``_static_stage``):
   the stage has a tap (``CrossbarProgram.taps``: a pre-norm block's
   residual sum, which a later residual reads), the same call stores it
   beside the normalized rows as the stage's second output, its bytes
-  counted in ``fb.tap_bytes`` (``TAP_BYTES``).
+  counted in ``fb.tap_bytes`` (``TAP_BYTES``); where a later weight
+  stage takes its output that way (``readers``), the same call leaves
+  the partial maxima (``fb_epilogue(..., partials=True)``), kept beside
+  the buffer in ``bufs`` (``parts_key``) and dropped after the last
+  stage that may take them.
 
-Like the kernel wrappers' launches, these counters (``repro_torch.trace``)
-count what ran: each eager run, and each replay of a captured graph.
+The bytes the ``quantize_layout`` calls' own amax passes read are
+counted in ``layout.amax_pass_bytes`` (``AMAX_PASS_BYTES``).  Like the
+kernel wrappers' launches, these counters (``repro_torch.trace``) count
+what ran: each eager run, and each replay of a captured graph.
 
 Dynamic-operand (attention) stages (``_dyn_stage``) mount runtime
 activations instead of weights, per (batch, head) slice, in four kernel
@@ -45,7 +55,8 @@ the contraction sized to the runtime head dim or sequence length):
   the plain product of the two quantize scales, which XLA does not
   reassociate under ``jax.vmap``;
 * one batched ``crossbar_gemm`` call and one batched ``fb_epilogue``
-  call (no bias; the context stored with its heads merged).
+  call (no bias; the context stored with its heads merged, and its
+  partial maxima left where the projection takes them).
 
 Each stage runs in a ``stage`` span (``repro_torch.trace``; its attrs
 ``layer``, the stage's GEMM layer, and ``tap``, its tap or ``""``), and
@@ -56,7 +67,8 @@ CPU run does not count, and the bytes).  ``Executable`` keeps the plan of
 its warm-up.
 
 Buffers are dropped as soon as no later stage reads them (a tap after
-the stage of its residual).  On a CUDA device the three calls launch
+the stage of its residual; the partial maxima beside a buffer after its
+last weight stage).  On a CUDA device the three calls launch
 the hand-written kernels; on the CPU they take their plain PyTorch
 versions.  ``execute_program`` is the
 params-consuming entry: it packs under the call, then runs
@@ -73,8 +85,10 @@ import torch.nn.functional as F
 from repro_torch import trace
 from repro_torch.kernels.crossbar_gemm import (call_layout, crossbar_gemm,
                                               x_load_bytes)
-from repro_torch.kernels.fb_epilogue import fb_epilogue
-from repro_torch.kernels.quantize_layout import quantize_layout
+from repro_torch.kernels.fb_epilogue import fb_epilogue, split_outputs
+from repro_torch.kernels.quantize_layout import (amax_pass_bytes,
+                                                 quantize_layout,
+                                                 takes_partials)
 
 from .compile import CrossbarProgram, ProgramOp
 from .pack import (PackedProgram, PackedStage, layout_k, logical_k,
@@ -89,6 +103,8 @@ TAP_BYTES = "fb.tap_bytes"
 # counter: the bytes of the exact static stages' left operands that the
 # GEMM's plan loads into shared memory, once a column tile
 X_LOAD_BYTES = "gemm.x_load_bytes"
+# counter: the float32 bytes the quantize_layout calls' own amax passes read
+AMAX_PASS_BYTES = "layout.amax_pass_bytes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +129,57 @@ class PlanStep:
                            if n != before.get(k, 0)}, tap)
 
 
+def parts_key(name: str) -> str:
+    """The ``bufs`` entry beside buffer ``name`` that holds the partial
+    maxima of ``|bufs[name]|`` its epilogue left
+    (``fb_epilogue(..., partials=True)``), where a later stage takes
+    them.  It travels with the buffers (a copy of ``bufs`` carries it)
+    and is dropped after the last stage that may take it."""
+    return name + ":amax"
+
+
+def _weight_readers(stages) -> dict[str, tuple[ProgramOp, ...]]:
+    """Buffer name -> the weight stages that read it (those whose call
+    may take its partial maxima)."""
+    readers: dict[str, tuple[ProgramOp, ...]] = {}
+    for gemm, _ in stages:
+        if gemm.kind != "dyn_gemm":
+            readers[gemm.src] = (*readers.get(gemm.src, ()), gemm)
+    return readers
+
+
+def _conv(gemm: ProgramOp) -> tuple[int, int, int] | None:
+    return (gemm.ksize, gemm.stride, gemm.padding) if gemm.is_conv else None
+
+
+def _wants_parts(readers: tuple[ProgramOp, ...], shape: tuple) -> bool:
+    """Whether the epilogue writing a buffer of ``shape`` that
+    ``readers`` read leaves its partial maxima: some reader's call on it
+    takes them."""
+    return any(takes_partials(shape, _conv(g)) for g in readers)
+
+
+def _given_parts(bufs: dict, gemm: ProgramOp, xin: torch.Tensor) -> dict:
+    """``{"partials": ...}`` where the epilogue that wrote the stage's
+    input left them and the stage's call on ``xin`` takes them, else
+    ``{}``."""
+    parts = bufs.get(parts_key(gemm.src))
+    if parts is None or not takes_partials(xin.shape, _conv(gemm)):
+        return {}
+    return {"partials": parts}
+
+
+def _keep_parts(bufs: dict, name: str, parts: torch.Tensor | None) -> None:
+    if parts is not None:
+        bufs[parts_key(name)] = parts
+
+
+def _quantize(x: torch.Tensor, K: int, **kw) -> tuple[torch.Tensor, ...]:
+    """``quantize_layout``, the bytes of its own amax pass counted."""
+    trace.count(AMAX_PASS_BYTES, amax_pass_bytes(x, K, **kw))
+    return quantize_layout(x, K, **kw)
+
+
 def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
     """NHWC -> (N, OH, OW, C*k*k) patches in (C, kh, kw) order.
 
@@ -135,10 +202,14 @@ def im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
 
 
 def _last_reads(stages) -> dict[str, int]:
-    """Buffer name -> index of the last stage that reads it."""
+    """Buffer name -> index of the last stage that reads it (the
+    partial maxima beside a buffer, ``parts_key``: of the last weight
+    stage that reads it)."""
     last: dict[str, int] = {}
     for si, (gemm, posts) in enumerate(stages):
         last[gemm.src] = si
+        if gemm.kind != "dyn_gemm":
+            last[parts_key(gemm.src)] = si
         if gemm.dyn_src:
             last[gemm.dyn_src] = si
         for op in posts:
@@ -178,32 +249,45 @@ def dyn_mounts(gemm: ProgramOp, bufs: dict, cfg
     rows = min(gemm.tile_rows, a.shape[-1])      # dynamic mount height
     K = -(-a.shape[-1] // rows) * rows           # full mounts
     layout = dict(rows=rows, adc_bits=cfg.adc_bits, per_slice=True)
-    wt, w_amax = quantize_layout(wk, K, bits=cfg.weight_bits, **layout)
-    a8, _, scale = quantize_layout(a, K, bits=cfg.input_bits, w_amax=w_amax,
-                                   weight_bits=cfg.weight_bits, **layout)
+    wt, w_amax = _quantize(wk, K, bits=cfg.weight_bits, **layout)
+    a8, _, scale = _quantize(a, K, bits=cfg.input_bits, w_amax=w_amax,
+                             weight_bits=cfg.weight_bits, **layout)
     return a8.flatten(0, -3), wt.flatten(0, -3), scale, rows, K
 
 
 def _dyn_stage(gemm: ProgramOp, posts: list[ProgramOp], bufs: dict,
-               cfg) -> torch.Tensor:
+               cfg, *, readers: dict | None = None) -> torch.Tensor:
     """One dynamic-operand GEMM stage (attention Q·Kᵀ or P·V): the
     slices' mounts (``dyn_mounts``), then one crossbar GEMM launch and
     one epilogue launch for all of them, the context stored with its
-    heads merged, (B, T, heads * hd)."""
+    heads merged, (B, T, heads * hd), its partial maxima kept in ``bufs``
+    where a weight stage of ``readers`` (buffer name -> the weight stages
+    that read it) takes them."""
     a8, wt, scale, rows, K = dyn_mounts(gemm, bufs, cfg)
     y = crossbar_gemm(a8, adc_bits=cfg.adc_bits, rows=rows, wt=wt, K=K)
-    return fb_epilogue(y, scale, None, None,
-                       softmax=any(p.kind == "softmax" for p in posts),
-                       post_scale=gemm.post_scale,
-                       heads=gemm.heads if gemm.dyn == "pv" else 0)
+    heads = gemm.heads if gemm.dyn == "pv" else 0
+    dst = posts[-1].dst if posts else gemm.dst
+    S, M, N = y.shape
+    want = _wants_parts((readers or {}).get(dst, ()),
+                        (S // heads, M, heads * N) if heads else (S, M, N))
+    out, _, parts = split_outputs(fb_epilogue(
+        y, scale, None, None, softmax=any(p.kind == "softmax" for p in posts),
+        post_scale=gemm.post_scale, heads=heads, partials=want),
+        partials=want)
+    _keep_parts(bufs, dst, parts)
+    return out
 
 
 def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
                   st: PackedStage, bufs: dict, cfg, *, drop_softmax: bool,
-                  tap: str = "") -> tuple[str, torch.Tensor]:
+                  tap: str = "", readers: dict | None = None
+                  ) -> tuple[str, torch.Tensor]:
     """One weight-mounted GEMM stage + fused epilogue -> (dst, buffer);
     with ``tap`` (a buffer of its chain) the epilogue's second output
-    goes to ``bufs[tap]``."""
+    goes to ``bufs[tap]``.  The stage's call takes the partial maxima its
+    input's epilogue left in ``bufs`` where it may (``_given_parts``), and
+    its own epilogue leaves them where a weight stage of ``readers``
+    (buffer name -> the weight stages that read it) takes them."""
     src = bufs[gemm.src]
     b = src.shape[0]
     t = 0
@@ -222,10 +306,10 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     # (the patches of a conv gathered on the way), the requant factor
     # (``dequant_scale``'s form) written beside them
     K = layout_k(gemm, cfg.adc_bits)
-    xq, _, scale = quantize_layout(
+    xq, _, scale = _quantize(
         xin, K, bits=cfg.input_bits, rows=gemm.tile_rows,
         adc_bits=cfg.adc_bits, conv=conv, w_amax=st.w_amax,
-        weight_bits=cfg.weight_bits)
+        weight_bits=cfg.weight_bits, **_given_parts(bufs, gemm, xin))
     trace.count(ZERO_K_BYTES,
                 xq.shape[0] * (xq.shape[-1] - logical_k(gemm)))
     if call_layout(K, gemm.tile_rows, cfg.adc_bits).exact:
@@ -261,12 +345,17 @@ def _static_stage(gemm: ProgramOp, posts: list[ProgramOp],
     if softmax and drop_softmax:
         softmax = False
         dst = gemm.dst
-    out = fb_epilogue(y_int, scale, st.bias, res, act=act, pool=pool,
-                      window=window, img_hw=img_hw, softmax=softmax,
-                      norm=norm, gamma=st.ln_g, beta=st.ln_b,
-                      tap=bool(tap))
+    shape = ((b, out_hw, out_hw, y_int.shape[-1])
+             if gemm.is_conv and norm == "none" else tuple(y_int.shape))
+    want = pool == "none" and _wants_parts((readers or {}).get(dst, ()),
+                                           shape)
+    out, tapped, parts = split_outputs(fb_epilogue(
+        y_int, scale, st.bias, res, act=act, pool=pool, window=window,
+        img_hw=img_hw, softmax=softmax, norm=norm, gamma=st.ln_g,
+        beta=st.ln_b, tap=bool(tap), partials=want), tap=bool(tap),
+        partials=want)
+    _keep_parts(bufs, dst, parts)
     if tap:
-        out, tapped = out
         trace.count(TAP_BYTES, tapped.numel() * tapped.element_size())
         bufs[tap] = (tapped.reshape(b, out_hw, out_hw, -1) if gemm.is_conv
                      else tapped.reshape(b, t, -1))
@@ -295,6 +384,7 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
     cfg = program.cfg
     bufs: dict[str, torch.Tensor] = {program.input: x}
     stages = program.stages()
+    readers = _weight_readers(stages)
     last = _last_reads(stages)
     taps = program.taps()
     ret = program.logits if return_logits else program.output
@@ -304,12 +394,13 @@ def execute_packed(packed: PackedProgram, x: torch.Tensor, *,
         with trace.span("stage", layer=gemm.name, tap=tap):
             if gemm.kind == "dyn_gemm":
                 dst = posts[-1].dst if posts else gemm.dst
-                bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg)
+                bufs[dst] = _dyn_stage(gemm, posts, bufs, cfg,
+                                       readers=readers)
             else:
                 dst, out = _static_stage(
                     gemm, posts, st, bufs, cfg,
                     drop_softmax=return_logits and si == len(stages) - 1,
-                    tap=tap)
+                    tap=tap, readers=readers)
                 bufs[dst] = out
         if plan is not None:
             plan.append(PlanStep.since(gemm.name, before, tap))

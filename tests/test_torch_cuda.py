@@ -1739,9 +1739,9 @@ def test_dyn_stages_on_the_card_equal_the_plain_versions(cuda, adc_bits,
     seen, calls = [], []
     real = (execute._dyn_stage, execute.crossbar_gemm, execute.fb_epilogue)
 
-    def stage(gemm, posts, bufs, cfg):
+    def stage(gemm, posts, bufs, cfg, **kw):
         seen.append((gemm, posts, dict(bufs)))
-        return real[0](gemm, posts, bufs, cfg)
+        return real[0](gemm, posts, bufs, cfg, **kw)
 
     monkeypatch.setattr(execute, "_dyn_stage", stage)
     execute.execute_packed(model.packed, x, return_logits=True)
@@ -1838,3 +1838,208 @@ def test_crossbar_gemm_takes_wt_and_k_alone_on_the_card(cuda, adc_bits,
     torch.cuda.synchronize()
     assert torch.equal(got, crossbar_gemm_ref(x, w, adc_bits=adc_bits,
                                               rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# partial maxima: an epilogue leaves them, the next stage's call takes them
+# ---------------------------------------------------------------------------
+
+# name -> (fb_epilogue kwargs, residual?, y's shape, how the consumer reads
+# out: NHWC (N, H, W) or rows, its quantize_layout kwargs besides K, K):
+# every epilogue kernel that leaves partial maxima (the elementwise one at
+# 16 bytes and scalar, with the heads merged, a warp per row with and
+# without a tap, a block per row with and without one) before each kind
+# of call that takes them (rows; a conv, k 3, stride 1 and 2), on the
+# exact and the sliced branch, all on the multi-pass path
+PART_CASES = {
+    "relu-res-conv3s1": (dict(act="relu"), True, (16 * 32 * 32, 64),
+                         (16, 32, 32), dict(conv=(3, 1, 1), rows=494), 988),
+    "relu-conv3s2-sliced": (dict(act="relu"), False, (16 * 32 * 32, 64),
+                            (16, 32, 32),
+                            dict(conv=(3, 2, 1), rows=128, adc_bits=5), 640),
+    "scalar-conv3s1": (dict(), True, (16 * 16 * 16, 19), (16, 16, 16),
+                       dict(conv=(3, 1, 1)), 494),
+    "gelu-rows": (dict(act="gelu"), False, (1024, 768), None,
+                  dict(rows=494), 988),
+    "gelu-rows-sliced": (dict(act="gelu"), False, (512, 768), None,
+                         dict(rows=128, adc_bits=5), 768),
+    "heads-rows": (dict(heads=3, post_scale=0.125), False, (48, 64, 64),
+                   None, dict(rows=494), 494),
+    "layer-rows": (dict(norm="layer"), True, (2048, 384), None,
+                   dict(rows=494), 494),
+    "layer-tap-rows": (dict(norm="layer", tap=True), True, (2048, 384), None,
+                       dict(rows=494), 494),
+    "softmax-rows": (dict(softmax=True), False, (1024, 1000), None,
+                     dict(rows=494), 1482),
+    "layer-long-rows": (dict(norm="layer"), True, (256, 1536), None,
+                        dict(rows=494), 1976),
+    "layer-long-tap-rows": (dict(norm="layer", tap=True), True, (256, 1536),
+                            None, dict(rows=494), 1976),
+}
+
+
+def _part_inputs(case, g, device):
+    """A PART_CASES epilogue's arguments: (y, scale, bias, residual, kw)."""
+    fkw, with_res, shape, _, _, _ = PART_CASES[case]
+    y = torch.randint(-2 ** 20, 2 ** 20, shape, generator=g, device=device,
+                      dtype=torch.int32)
+    N = shape[-1]
+    heads = fkw.get("heads", 0)
+    scale = (torch.rand(shape[0], 1, 1, generator=g, device=device) * 3e-6
+             if heads else torch.full((1, 1), 3.1e-6, device=device))
+    bias = None if heads else torch.randn(N, generator=g, device=device)
+    res = torch.randn(shape, generator=g, device=device) if with_res \
+        else None
+    if "norm" in fkw:
+        fkw = dict(fkw, gamma=torch.randn(N, generator=g, device=device),
+                   beta=torch.randn(N, generator=g, device=device))
+    return y, scale, bias, res, fkw
+
+
+def _consumer_view(case, out):
+    nhwc = PART_CASES[case][3]
+    return out.reshape(*nhwc, -1) if nhwc else out.reshape(-1, out.shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PART_CASES))
+def test_quantize_layout_given_partials_equals_its_own_pass(cuda, case):
+    """The epilogue with ``partials=True`` leaves at most ``MAX_GIVEN``
+    partial maxima (its C entry's cap, ``fb_epilogue_max_parts``), whose
+    maximum is ``max |out|``, and stores what the call
+    without them stores; the next stage's call given them (one launch,
+    no amax pass: ``device_kernels`` 1 or 2) returns x8, amax and the
+    requant factor ``torch.equal`` to the call that reduces its own."""
+    from repro_torch.kernels.quantize_layout import (MAX_GIVEN,
+                                                     device_kernels,
+                                                     takes_partials)
+    fb_mod = importlib.import_module("repro_torch.kernels.fb_epilogue")
+    assert fb_mod._lib().fb_epilogue_max_parts() == MAX_GIVEN
+    _, _, _, _, qkw, K = PART_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    y, scale, bias, res, fkw = _part_inputs(case, g, cuda)
+    before = _launched(fb_epilogue)
+    got = fb_epilogue(y, scale, bias, res, partials=True, **fkw)
+    assert _launched(fb_epilogue) == before + 1
+    plain = fb_epilogue(y, scale, bias, res, **fkw)
+    out, parts = got[0], got[-1]
+    for a, b in zip(got[:-1], plain if fkw.get("tap") else (plain,)):
+        assert torch.equal(a, b)
+    assert parts is not None and 1 <= parts.numel() <= MAX_GIVEN
+    x = _consumer_view(case, out)
+    assert takes_partials(x.shape, qkw.get("conv"))
+    assert device_kernels(x, K, partials=parts, **qkw) == (
+        2 if "conv" in qkw else 1)
+    w_amax = torch.tensor(2.75, device=cuda)
+    own = quantize_layout(x, K, w_amax=w_amax, **qkw)
+    before = _launched(quantize_layout)
+    given = quantize_layout(x, K, w_amax=w_amax, partials=parts, **qkw)
+    assert _launched(quantize_layout) == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(parts.max(), out.abs().max())
+    _held_equal(given, own)
+    _held_equal(given, quantize_layout_ref(x, K, w_amax=w_amax, **qkw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["relu-res-conv3s1", "heads-rows",
+                                  "layer-tap-rows", "layer-long-rows"])
+def test_replays_take_their_own_partial_maxima(cuda, case):
+    """An epilogue and the call that takes its partial maxima, captured
+    in one CUDA graph, replayed on new inputs and then on inputs an
+    eighth of their size: each replay's amax is its own input's (no slot
+    of the replay before is read), and every output equals the eager
+    pair's."""
+    _, _, _, _, qkw, K = PART_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    y, scale, bias, res, fkw = _part_inputs(case, g, cuda)
+    w_amax = torch.tensor(1.5, device=cuda)
+
+    def pair():
+        got = fb_epilogue(y, scale, bias, res, partials=True, **fkw)
+        x = _consumer_view(case, got[0])
+        return got[0], quantize_layout(x, K, w_amax=w_amax,
+                                       partials=got[-1], **qkw)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, captured = pair()
+    floats = [t for t in (res, fkw.get("gamma"), fkw.get("beta"))
+              if t is not None]
+    amaxes = []
+    for shrink in (False, True):
+        if shrink:
+            y.div_(8, rounding_mode="trunc")
+            for t in floats:
+                t.mul_(0.125)
+        else:
+            y.copy_(torch.randint(-2 ** 20, 2 ** 20, y.shape, generator=g,
+                                  device=cuda, dtype=torch.int32))
+        graph.replay()
+        eager_out, eager = pair()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager_out)
+        _held_equal(captured, eager)
+        x = _consumer_view(case, out)
+        assert torch.equal(captured[1], quantize_layout_ref(x, K, **qkw)[1])
+        amaxes.append(captured[1].item())
+    assert amaxes[1] < amaxes[0]
+
+
+# net -> (graph, batch, stages whose call takes its input's partial
+# maxima): every static stage but the program input's (conv0, patch), the
+# stride-2 1x1 projections (they read the even pixels) and what follows a
+# pool or a sequence mean (fc, head)
+PART_NETS = {"resnet18": ("resnet18", 16, 16),
+             "vit_tiny": ("vit_tiny12", 16, 48),
+             "vit_s16": ("vit_s16", 2, 48)}
+
+
+def _part_net(name):
+    graph = {"vit_tiny12": lambda: api.vit_tiny_graph(depth=12),
+             "vit_s16": api.vit_s16_graph}.get(name)
+    return graph() if graph else name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", list(PART_NETS))
+def test_stages_take_their_inputs_partial_maxima_on_the_card(cuda, net,
+                                                             monkeypatch):
+    """Eager ``execute_packed``: the stages that take the partial maxima
+    of their input are those ``PART_NETS`` names, each such call equal to
+    the plain version on the same tensors (x8, amax, requant), and the
+    logits ``torch.equal`` to a run where no epilogue leaves any."""
+    from repro_torch.program.execute import execute_packed
+    execute = importlib.import_module("repro_torch.program.execute")
+    name, batch, engaged = PART_NETS[net]
+    model = api.compile(_part_net(name), api.HurryConfig(), seed=0,
+                        device="cuda")
+    x = torch.randn(model.program.input_shape(batch), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(30))
+    calls, _, real_ref = _spied_quantize_layout(monkeypatch)
+    got = execute_packed(model.packed, x, return_logits=True)
+    static = [c for c in calls if not c[2].get("per_slice")]
+    took = [i for i, c in enumerate(static) if "partials" in c[2]]
+    assert len(static) == sum(g.kind != "dyn_gemm"
+                              for g, _ in model.program.stages())
+    assert len(took) == engaged
+    if net == "resnet18":           # conv0, the projections, fc: their own
+        names = [g.name for g, _ in model.program.stages()]
+        assert [names[i] for i in range(len(names)) if i not in took] == [
+            n for n in names if n == "conv0" or "proj" in n or n == "fc"]
+    else:                            # the patch stage and the head
+        assert took == list(range(1, len(static) - 1))
+    for xin, K, kw, out in calls:
+        if "partials" in kw:
+            _held_equal(out, real_ref(xin, K, **kw))
+    monkeypatch.setattr(execute, "_wants_parts", lambda *a: False)
+    calls.clear()
+    want = execute_packed(model.packed, x, return_logits=True)
+    assert not any("partials" in c[2] for c in calls)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

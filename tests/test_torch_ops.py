@@ -405,3 +405,35 @@ def test_batched_fb_epilogue_equals_per_slice(kw):
     assert got.dim() == 3 and got.shape[0] == S
     for s in range(S):
         assert torch.equal(got[s], fb_epilogue(y[s], scale[s], bias, **kw))
+
+
+@pytest.mark.parametrize("kw,parts", [
+    (dict(act="relu"), True), (dict(norm="layer", tap=True), True),
+    (dict(softmax=True), True), (dict(heads=2), True),
+    (dict(pool="max", window=2, img_hw=4), False),
+    (dict(pool="seqmean", window=8), False)],
+    ids=["relu", "layer-tap", "softmax", "heads", "maxpool", "seqmean"])
+def test_fb_epilogue_partial_maxima_on_the_cpu(kw, parts):
+    """With ``partials=True`` the plain version appends one partial
+    maximum, ``max |out|``, after the outputs of the call without it
+    (None where the chain pools or takes a sequence mean, as the
+    kernel's)."""
+    rng = np.random.default_rng(2)
+    S, M, N = 4, 16, 24
+    y = torch.from_numpy(rng.integers(-2 ** 16, 2 ** 16, (S, M, N),
+                                      dtype=np.int32))
+    scale = _t(rng.uniform(1e-5, 1e-3, (S, 1, 1)))
+    bias = None if kw.get("heads") else _t(_normal(rng, (N,)))
+    if kw.get("norm"):
+        kw = dict(kw, gamma=_t(_normal(rng, (N,))),
+                  beta=_t(_normal(rng, (N,))))
+    got = fb_epilogue(y, scale, bias, partials=True, **kw)
+    plain = fb_epilogue(y, scale, bias, **kw)
+    plain = plain if kw.get("tap") else (plain,)
+    assert len(got) == len(plain) + 1
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    if parts:
+        assert torch.equal(got[-1], got[0].abs().amax().reshape(1))
+    else:
+        assert got[-1] is None

@@ -505,6 +505,78 @@ def test_plan_picks_the_path_from_the_geometry(case):
         assert 1 <= pl.blocks * slices <= 1024
 
 
+# (input shape, kwargs besides K, K, device kernels given the partial
+# maxima): calls with one amax over every element of x on the multi-pass
+# path, rows and convs whose windows read every pixel
+GIVEN_CASES = {
+    "rows-over-max": ((129, 512), dict(rows=494), 988, 1),
+    "tokens-3d": ((4, 196, 384), dict(rows=494), 494, 1),
+    "conv3x3-over-max": ((1, 65, 32, 32), dict(conv=(3, 1, 1)), 494, 2),
+    "resnet-s1b0-conv1": ((16, 32, 32, 64), dict(conv=(3, 2, 1), rows=494),
+                          988, 2),
+    "conv1x1-stride1": ((16, 32, 32, 64), dict(conv=(1, 1, 0), rows=64),
+                        64, 1),
+    "sliced": ((129, 512), dict(rows=128, adc_bits=5), 512, 1),
+}
+# calls that reduce their own amax whatever they are given
+REFUSED_CASES = {
+    "rows-at-max": ((128, 512), dict(rows=494), 988),         # one launch
+    "conv3x3-at-max": ((1, 64, 32, 32), dict(conv=(3, 1, 1)), 494),
+    "per-slice": ((4, 512, 512), dict(rows=494, per_slice=True), 988),
+    "proj-1x1s2": ((16, 32, 32, 64), dict(conv=(1, 2, 0), rows=64), 64),
+    "partly-covered-3s2p0": ((16, 32, 32, 8), dict(conv=(3, 2, 0)), 494),
+}
+
+
+@pytest.mark.parametrize("case", list(GIVEN_CASES))
+def test_plan_with_given_partial_maxima(case):
+    """Given the partial maxima of x's writer, a call launches no amax
+    pass: ``plan`` and ``device_kernels`` say 1 kernel (rows) or 2 (the
+    image and the gather), ``amax_pass_bytes`` none, where without them
+    the pass reads every element of x as float32; the CPU path reduces
+    its own amax, so what it returns does not depend on them."""
+    from repro_torch.kernels.quantize_layout import (amax_pass_bytes,
+                                                     takes_partials)
+    shape, kw, K, kernels = GIVEN_CASES[case]
+    x = torch.from_numpy(_image(shape, 31))
+    parts = torch.full((7,), 0.25)           # their maximum is no amax here
+    assert takes_partials(x.shape, kw.get("conv"))
+    pl = plan(x, K, partials=7, **kw)
+    assert (pl.one_launch, pl.kernels, pl.blocks) == (False, kernels, 7)
+    assert pl.image == (kernels == 2)
+    assert device_kernels(x, K, partials=parts, **kw) == kernels
+    assert device_kernels(x, K, **kw) == kernels + 1
+    assert amax_pass_bytes(x, K, partials=parts, **kw) == 0
+    assert amax_pass_bytes(x, K, **kw) == 4 * x.numel()
+    got = quantize_layout(x, K, partials=parts, **kw)
+    for a, b in zip(got, quantize_layout(x, K, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(REFUSED_CASES))
+def test_calls_that_reduce_their_own_amax_refuse_partial_maxima(case):
+    """A call with one launch, an amax a slice or pixels no window
+    reads takes no partial maxima: ``takes_partials`` is false and a call
+    given them raises; so does a bad partials tensor or a strided x."""
+    from repro_torch.kernels.quantize_layout import takes_partials
+    shape, kw, K = REFUSED_CASES[case]
+    x = torch.zeros(shape)
+    assert not takes_partials(x.shape, kw.get("conv"),
+                              kw.get("per_slice", False))
+    with pytest.raises(ValueError):
+        quantize_layout(x, K, partials=torch.ones(4), **kw)
+    with pytest.raises(ValueError):
+        plan(x, K, partials=4, **kw)
+    x, K = torch.zeros(129, 512), 988
+    for bad in (torch.ones(4, dtype=torch.float64), torch.ones(2, 2),
+                torch.ones(4097), torch.ones(0)):
+        with pytest.raises(ValueError):
+            quantize_layout(x, K, partials=bad)
+    with pytest.raises(ValueError):
+        quantize_layout(torch.zeros(129, 1024)[:, :512], K,
+                        partials=torch.ones(4))
+
+
 def test_c_entries_take_what_the_wrapper_passes(monkeypatch):
     """Each C entry's parameters in ``csrc/quantize_layout.cu`` match
     ``SIGNATURES`` (``void*`` a pointer, ``int``, ``float``), and the
@@ -573,6 +645,126 @@ def test_c_entries_take_what_the_wrapper_passes(monkeypatch):
         "quantize_layout_strided"] * 3
 
 
+def test_c_entries_take_given_partial_maxima(monkeypatch):
+    """Given partial maxima, the wrapper passes the C entries their
+    pointer, their count as ``blocks`` and the flag set, and allocates
+    no scratch maxima of its own."""
+    import ctypes
+    import importlib
+    qmod = importlib.import_module("repro_torch.kernels.quantize_layout")
+    seen = []
+
+    class Lib:
+        def quantize_layout_conv(self, *args):
+            seen.append(("conv", args))
+            return 0
+
+        def quantize_layout_strided(self, *args):
+            seen.append(("strided", args))
+            return 0
+
+    monkeypatch.setattr(qmod, "_lib", lambda: Lib())
+    monkeypatch.setattr(qmod._build, "stream_handle",
+                        lambda: ctypes.c_void_p(0))
+    parts = torch.zeros(9)
+    for shape, kw, K, _ in GIVEN_CASES.values():
+        x = torch.zeros(shape)
+        kc, lead = qmod._geometry(x, K, kw.get("conv"))
+        lay = call_layout(K, kw.get("rows", 512), kw.get("adc_bits", 9))
+        qmod._launch(x, K, kc, lead, lay, bits=8,
+                     adc_bits=kw.get("adc_bits", 9), conv=kw.get("conv"),
+                     per_slice=False, w_amax=torch.tensor(1.0),
+                     weight_bits=8, partials=parts)
+    assert [k for k, _ in seen] == ["strided", "strided", "conv", "conv",
+                                    "conv", "strided"]
+    for kind, args in seen:
+        names = qmod.SIGNATURES[f"quantize_layout_{kind}"]
+        assert len(args) == len(names)
+        assert args[6] == parts.data_ptr() and args[7] == 1
+        assert args[-3:-1] == (9, 1)           # blocks, cluster
+        assert args[-4] == 0                   # not one launch
+
+
+# cell -> (graph, static stages, those that take their input's partial
+# maxima, ``layout.amax_pass_bytes`` a b1024 batch with and without them)
+CELL_PARTS = {
+    "resnet18": ("resnet18", 21, 16, 132_120_576, 2_380_267_520),
+    "vit_tiny": ("vit_tiny12", 50, 48, 13_369_344, 4_241_227_776),
+    "vit_s16": ("vit_s16", 50, 48, 618_135_552, 26_513_768_448),
+}
+
+
+def _meta_cell(name: str, batch: int):
+    """(model, its packed program on ``meta`` tensors, a ``meta`` input
+    batch) of ``name`` (``CELL_PARTS``' graph names)."""
+    import dataclasses
+    from repro_torch.program.pack import PackedProgram
+    graph = {"vit_tiny12": lambda: tapi.vit_tiny_graph(depth=12),
+             "vit_s16": tapi.vit_s16_graph}.get(name, lambda: name)()
+    model = tapi.compile(graph, tapi.HurryConfig(), seed=0, device="cpu")
+    packed = PackedProgram(stages=tuple(dataclasses.replace(st, **{
+        f.name: None if getattr(st, f.name) is None
+        else getattr(st, f.name).to("meta")
+        for f in dataclasses.fields(st)}) for st in model.packed.stages),
+        program=model.program)
+    x = torch.zeros(model.program.input_shape(batch), device="meta")
+    return model, packed, x
+
+
+@pytest.mark.parametrize("cell", list(CELL_PARTS))
+def test_cells_stages_take_their_inputs_partial_maxima(cell, monkeypatch):
+    """The benchmark cells' programs at batch 1024, run on ``meta``
+    tensors (shapes only): the static stages whose call takes the partial
+    maxima its input's epilogue left are all but the program input's
+    (conv0, patch), the stride-2 1x1 projections and the stages after a
+    pool or a sequence mean (fc, head); each such call plans 1 or 2
+    device kernels, one fewer than without; ``layout.amax_pass_bytes``
+    reads what is left (conv0's and patch's images, the projections' even
+    pixels, fc's and head's inputs) and, with no partials left, what the
+    amax passes read before."""
+    import importlib
+    execute = importlib.import_module("repro_torch.program.execute")
+    name, n_static, engaged, after, before = CELL_PARTS[cell]
+    model, packed, x = _meta_cell(name, 1024)
+    calls = []
+    real = execute.quantize_layout
+
+    def spy(xin, K, **kw):
+        calls.append((xin, K, kw))
+        return real(xin, K, **kw)
+
+    monkeypatch.setattr(execute, "quantize_layout", spy)
+    read = []
+    for off in (False, True):
+        if off:
+            monkeypatch.setattr(execute, "_wants_parts", lambda *a: False)
+        calls.clear()
+        start = trace.counters().get(execute.AMAX_PASS_BYTES, 0)
+        execute.execute_packed(packed, x, return_logits=True)
+        read.append(trace.counters()[execute.AMAX_PASS_BYTES] - start)
+        static = [c for c in calls if not c[2].get("per_slice")]
+        assert len(static) == n_static
+        took = [i for i, (_, _, kw) in enumerate(static) if "partials" in kw]
+        assert len(took) == (0 if off else engaged)
+        if off:
+            continue
+        stages = [g for g, _ in model.program.stages()
+                  if g.kind != "dyn_gemm"]
+        own = [stages[i].name for i in range(n_static) if i not in took]
+        if cell == "resnet18":
+            assert own == ["conv0", "s1b0_proj", "s2b0_proj", "s3b0_proj",
+                           "fc"]
+        else:
+            assert took == list(range(1, n_static - 1))
+        for xin, K, kw in static:
+            n = device_kernels(xin, K, **kw)
+            if "partials" in kw:
+                rest = {k: v for k, v in kw.items() if k != "partials"}
+                assert n == device_kernels(xin, K, **rest) - 1
+                assert n == (2 if kw.get("conv") else 1)
+    assert read == [after, before]
+
+
 def test_variant_anchors_are_lines_of_the_kernel_source():
     """``quantize_variants.py`` edits ``csrc/quantize_layout.cu`` by exact
     source lines: each anchor of its variants and of its probe occurs
@@ -590,3 +782,58 @@ def test_variant_anchors_are_lines_of_the_kernel_source():
         for old, new in subs:
             assert src.count(old) == 1, (name, old)
             assert old != new
+
+
+@pytest.mark.parametrize("cell", ["resnet18", "vit_tiny"])
+def test_stages_run_alone_take_what_they_took_in_the_forward(cell,
+                                                             monkeypatch):
+    """The partial maxima an epilogue leaves travel in the buffers, beside
+    the buffer they cover (``execute.parts_key``), until the last weight
+    stage that reads it: each stage of a batch-1024 forward (``meta``
+    tensors) run again alone, from a copy of the buffers and the keyword
+    arguments it had, makes the forward's ``quantize_layout`` calls, given
+    partial maxima where those were, and leaves partial maxima where the
+    forward's did; no stage holds an entry past its last reader."""
+    import importlib
+    execute = importlib.import_module("repro_torch.program.execute")
+    name, _, engaged, _, _ = CELL_PARTS[cell]
+    model, packed, x = _meta_cell(name, 1024)
+    cfg = model.program.cfg
+    last = execute._last_reads(model.program.stages())
+    real_static, real_dyn = execute._static_stage, execute._dyn_stage
+    real_quantize = execute.quantize_layout
+    took, runs = [], []
+
+    def quantize(xin, K, **kw):
+        took.append("partials" in kw)
+        return real_quantize(xin, K, **kw)
+
+    def static(gemm, posts, st, bufs, cfg, **kw):
+        runs.append((gemm, posts, st, dict(bufs), kw, len(took)))
+        return real_static(gemm, posts, st, bufs, cfg, **kw)
+
+    def dyn(gemm, posts, bufs, cfg, **kw):
+        runs.append((gemm, posts, None, dict(bufs), kw, len(took)))
+        return real_dyn(gemm, posts, bufs, cfg, **kw)
+
+    monkeypatch.setattr(execute, "quantize_layout", quantize)
+    monkeypatch.setattr(execute, "_static_stage", static)
+    monkeypatch.setattr(execute, "_dyn_stage", dyn)
+    execute.execute_packed(packed, x, return_logits=True)
+    forward = list(took)
+    assert sum(forward) == engaged
+    held = {k for *_, bufs, _, _ in runs for k in bufs}
+    for si, (gemm, posts, st, bufs, kw, start) in enumerate(runs):
+        assert all(k == model.program.input or last.get(k, -1) >= si
+                   for k in bufs), (gemm.name, set(bufs))
+        end = runs[si + 1][-1] if si + 1 < len(runs) else len(forward)
+        took.clear()
+        alone = dict(bufs)
+        if st is None:
+            real_dyn(gemm, posts, alone, cfg, **kw)
+            dst = posts[-1].dst if posts else gemm.dst
+        else:
+            dst, _ = real_static(gemm, posts, st, alone, cfg, **kw)
+        assert took == forward[start:end], gemm.name
+        key = execute.parts_key(dst)
+        assert (key in alone) == (key in held), gemm.name

@@ -184,9 +184,9 @@ def test_dyn_stage_dispatches_only_views_outside_the_kernels(
     seen = []
     real_stage = execute._dyn_stage
 
-    def record(gemm, posts, bufs, cfg):
-        out = real_stage(gemm, posts, bufs, cfg)
-        seen.append((gemm, posts, dict(bufs), cfg, out))
+    def record(gemm, posts, bufs, cfg, **kw):
+        out = real_stage(gemm, posts, bufs, cfg, **kw)
+        seen.append((gemm, posts, dict(bufs), cfg, kw, out))
         return out
 
     monkeypatch.setattr(execute, "_dyn_stage", record)
@@ -220,11 +220,11 @@ def test_dyn_stage_dispatches_only_views_outside_the_kernels(
 
     for name in ("quantize_layout", "crossbar_gemm", "fb_epilogue"):
         monkeypatch.setattr(execute, name, kernel(getattr(execute, name)))
-    for gemm, posts, bufs, cfg, want in seen:
+    for gemm, posts, bufs, cfg, kw, want in seen:
         calls.clear()
         mode.ops.clear()
         with mode:
-            got = execute._dyn_stage(gemm, posts, bufs, cfg)
+            got = execute._dyn_stage(gemm, posts, bufs, cfg, **kw)
         assert calls == dict(quantize_layout=2, crossbar_gemm=1,
                              fb_epilogue=1), (gemm.name, calls)
         assert mode.ops and all(op.is_view for op in mode.ops), (

@@ -18,9 +18,11 @@ Per cell, set up as ``bench/harness/cell.py`` does (seed 1), then:
   last, inside the device copy of its ``repro.run.replay`` span, and
   the idle inside the extents over their sum is the executor's idle
   share (``replay_idle_pct``);
-* **the bytes of x the exact GEMMs load** a batch (``gemm.x_load_bytes``:
-  the counter's growth over the traced slice's replays, over its
-  batches);
+* **counters a batch** (each counter's growth over the traced slice's
+  replays, over its batches): the bytes of x the exact GEMMs load
+  (``gemm.x_load_bytes``), the bytes ``quantize_layout``'s own amax
+  passes read (``layout.amax_pass_bytes``) and its device kernels
+  (``device_kernels.quantize_layout``);
 * **the launch plan**: the executable's plan (``Executable.plan``) laid
   over each replay's device ops, wrapper by wrapper in order, so each
   stage's busy time of ``quantize_layout``, ``crossbar_gemm`` and
@@ -58,7 +60,9 @@ SEED = 1
 WRAPPERS = counts.WRAPPERS
 SPANS = ("bench.", "repro.")            # the harness's and the program's
 REPLAY = "repro.run.replay"
-X_LOAD = "gemm.x_load_bytes"
+# counters read a batch (None where the program has no such counter)
+PER_BATCH = ("gemm.x_load_bytes", "layout.amax_pass_bytes",
+             "device_kernels.quantize_layout")
 
 
 def _events(prof) -> tuple[list, list, list]:
@@ -174,8 +178,8 @@ def _clip(ops, lo, hi):
 
 def _slice(loop, device, units: int):
     """One pass of ``units`` batches under the host-and-device profiler:
-    its ops, spans, replay extents and limits, and ``gemm.x_load_bytes``
-    a batch (None where the program has no such counter)."""
+    its ops, spans, replay extents and limits, and each ``PER_BATCH``
+    counter a batch."""
     trace.enable()
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.cuda._sleep(1000)
@@ -187,8 +191,8 @@ def _slice(loop, device, units: int):
             loop.run(units=units)
             torch.cuda.synchronize(device)
     after = trace.counters()
-    x_load = ((after[X_LOAD] - before.get(X_LOAD, 0)) // units
-              if X_LOAD in after else None)
+    per_batch = {k: (after[k] - before.get(k, 0)) // units
+                 if k in after else None for k in PER_BATCH}
     trace.disable()
     loop.answers.clear()
     ops, spans, copies = _events(prof)
@@ -196,7 +200,7 @@ def _slice(loop, device, units: int):
     ext = _replays(ops, copies)
     if not ext:
         raise SystemExit(f"the profiler gave no device copy of {REPLAY}")
-    return _clip(ops, start, end), spans, ext, start, end, x_load
+    return _clip(ops, start, end), spans, ext, start, end, per_batch
 
 
 def _idle(ops, spans, ext, start, end) -> dict:
@@ -229,7 +233,8 @@ def _kernel_wrappers() -> dict[str, str]:
     benchmark's map (``bench/kernels.json``) has not seen."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     return {fn: w for w in WRAPPERS for fn in re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)"
+        r"\s+)?(\w+)\s*\(",
         (csrc / f"{w}.cu").read_text())}
 
 
@@ -298,7 +303,8 @@ def main(argv=None) -> int:
     for name in args.cells:
         layers, mix, model, loop = _setup(name, device)
         cost = _cost(loop, model, args.seconds, device)
-        ops, spans, ext, start, end, x_load = _slice(loop, device, loop.n)
+        ops, spans, ext, start, end, per_batch = _slice(loop, device,
+                                                        loop.n)
         (exe,) = model._fns.values()
         idle = _idle(ops, spans, ext, start, end)
         try:
@@ -307,9 +313,9 @@ def main(argv=None) -> int:
             print(f"  no plan table: {e}")
             table = []
         record[name] = {"cost": cost, "idle": idle, "plan": table,
-                        "replays": len(ext), "x_load_bytes": x_load}
-        print(f"== {name}: {len(ext)} replays, {len(exe.plan)} stages, "
-              f"gemm.x_load_bytes {x_load} a batch")
+                        "replays": len(ext), "per_batch": per_batch}
+        print(f"== {name}: {len(ext)} replays, {len(exe.plan)} stages; a "
+              "batch: " + ", ".join(f"{k} {n}" for k, n in per_batch.items()))
         for r in cost:
             print(f"  tracing {'on ' if r['tracing'] else 'off'}: host "
                   f"{r['host_clock_us']:.1f} us a run, span "
